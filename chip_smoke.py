@@ -1,0 +1,355 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``tdoa_tpu_torch``) on one H100.
+
+    python3 chip_smoke.py
+
+Phases, each printing its own lines; any failure exits non-zero:
+
+1. device  — CUDA with compute capability 9.0, versions, card name and
+             power limit, TF32 off;
+2. build   — both hand-written kernels from ``tdoa_tpu_torch/csrc/``;
+3. kernels — each kernel against its plain torch version on the card
+             (kernel 1: 3 stations, K = 4, DC sums on, bf16, at 16
+             segments and at a 10 s block's 443 segments, whose banks
+             cross stage-1 chunks; kernel 2: K = 4, m = 3, F = 65536 on
+             the 443-segment banks), then both timed with CUDA events
+             at the main path's shapes;
+4. slice   — a synthesized 3-station 30 s capture (three 10 s blocks of
+             20 M samples, ``lat-lon-table.csv`` geometry, an FM-like
+             source, per-station clock offsets, noise) written as u8
+             ``.dat`` files and run through ``TDOAProcessor.process_files``
+             twice; the second run is timed and must go through both
+             kernels and land within 0.5 sample / 200 m of the truth.
+
+The last two lines are the card's ``nvidia-smi`` name and power limit,
+then ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+SEED = 1234
+FS = 2_000_000.0
+BLOCK = 20_000_000  # 10 s at 2 Msps
+CLOCK_OFFSETS_S = (12e-6, -31e-6, 48e-6)  # 24 / -62 / 96 samples
+K1_TOL = 1e-4  # relative to each row's peak magnitude
+K2_TOL = 2e-3  # samples
+
+
+def _smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def _time_ms(fn, iters: int) -> float:
+    import torch
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def phase_device():
+    import torch
+
+    print("== phase 1: device")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device visible")
+    dev = torch.device("cuda", 0)
+    cap = torch.cuda.get_device_capability(dev)
+    if cap != (9, 0):
+        raise RuntimeError(f"compute capability {cap}, need 9.0 (sm_90a)")
+    from tdoa_tpu_torch.ops.kernels import _build
+
+    nvcc = subprocess.run([_build.nvcc_path(), "--version"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[-1]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
+          f"cuda {torch.version.cuda}  nvcc: {nvcc}")
+    print(f"device {torch.cuda.get_device_name(dev)} cc {cap[0]}.{cap[1]}  "
+          f"count {torch.cuda.device_count()}")
+    print(f"nvidia-smi: {_smi()}")
+    print("tf32: matmul off, cudnn off")
+    return dev
+
+
+def phase_build():
+    from tdoa_tpu_torch.ops.kernels import _build
+
+    print("== phase 2: build")
+    t0 = time.perf_counter()
+    lib = _build.build()
+    _build.load()
+    print(f"built {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s")
+    for line in (lib.parent / "ptxas.txt").read_text().splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            print("  ptxas:", line.strip())
+
+
+def _errs(got, want) -> tuple:
+    """(max |got − want|, max |got − want| / the row's peak |want|)."""
+    diff = (got - want).abs()
+    peak = want.abs().amax(dim=-1, keepdim=True).clamp(min=1e-30)
+    return float(diff.max()), float((diff / peak).max())
+
+
+def phase_kernels(dev):
+    import torch
+
+    from tdoa_tpu_torch.ops.kernels import corr_accum, zoom_probe
+    from tdoa_tpu_torch.ops.kernels.corr_accum import SEG_LEN
+    from tdoa_tpu_torch.ops.peaks import parabolic_peak
+
+    print("== phase 3: kernels vs plain torch versions")
+    pairs = ((0, 1), (0, 2), (1, 2))
+    K = 4
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def block(n_seg):
+        x = torch.randn(2, 3, n_seg * SEG_LEN, device=dev, generator=g)
+        x[:, 1] += 0.5 * torch.roll(x[:, 0], 37, dims=-1)
+        x[:, 2] += 0.5 * torch.roll(x[:, 0], -12, dims=-1)
+        return (0.3 * x + 0.01).to(torch.bfloat16).contiguous()
+
+    # Kernel 1 at the stated check shape (16 segments: one stage-1 chunk)
+    # and at the main path's (a 10 s block is 443 segments: stage-1
+    # chunks of chunk_segments(3, 443) segments, with banks 111/111/111/110
+    # that cross chunk boundaries, so stage 2 reloads its accumulators).
+    k1_abs, k1_rel = 0.0, 0.0
+    for n_seg in (16, 443):
+        x = block(n_seg)
+        got = corr_accum.accumulate_banks(x, pairs, K, True)
+        want = corr_accum.accumulate_banks_plain(x, pairs, K, True)
+        torch.cuda.synchronize()
+        errs = [_errs(a, b) for a, b in zip(got, want)]
+        a_err, r_err = max(e[0] for e in errs), max(e[1] for e in errs)
+        k1_abs, k1_rel = max(k1_abs, a_err), max(k1_rel, r_err)
+        print(f"corr_accum [3 st, {n_seg} seg "
+              f"({corr_accum.chunk_segments(3, n_seg)} per chunk), K={K}, "
+              f"bf16, sums]: max |kernel - plain| = {a_err:.3e}, / row peak "
+              f"= {r_err:.3e} (tol {K1_TOL:g})")
+        if not r_err < K1_TOL:
+            raise RuntimeError(f"corr_accum disagrees with its plain version "
+                               f"at {n_seg} segments")
+        del want
+    x443 = x
+
+    # Kernel 2 on the 443-segment banks (K = 4, m = 3, F = 65536) with
+    # the main path's leave-one-out segment counts.
+    cross_g, psd_g, _ = got
+    coarse = torch.tensor([37.0, -12.0, -49.0], device=dev)
+    seg_g = torch.tensor(corr_accum.bank_bounds(443, K), device=dev).diff()
+    nseg = (443 - seg_g).to(torch.float32).repeat_interleave(len(pairs))
+    d_k = zoom_probe.loo_zoom_delays(cross_g, psd_g, pairs, coarse, nseg)
+    w_k = zoom_probe.loo_zoom_windows(cross_g, psd_g, pairs, coarse, nseg)
+    w_p = zoom_probe.loo_zoom_windows_plain(cross_g, psd_g, pairs, coarse, nseg)
+    d_p = (coarse.repeat(K) - zoom_probe.HALF_WIDTH
+           + parabolic_peak(w_p.abs())[0]).reshape(K, len(pairs))
+    torch.cuda.synchronize()
+    k2_abs, k2_rel = _errs(w_k, w_p)
+    k2_delay = float((d_k - d_p).abs().max())
+    print(f"zoom_probe [K={K}, m=3, F=65536]: max |delay kernel - plain| = "
+          f"{k2_delay:.3e} samples (tol {K2_TOL:g}); window max |kernel - "
+          f"plain| = {k2_abs:.3e}, / row peak {k2_rel:.3e}; delays "
+          f"{d_k.cpu().numpy().round(3).tolist()}")
+    if not k2_delay < K2_TOL:
+        raise RuntimeError("zoom_probe disagrees with its plain version")
+
+    # Times at the main path's shapes.
+    k1_ms = _time_ms(lambda: corr_accum.accumulate_banks(x443, pairs, K, True), 5)
+    k1_plain = _time_ms(lambda: corr_accum.accumulate_banks_plain(
+        x443, pairs, K, True), 2)
+    k2_ms = _time_ms(lambda: zoom_probe.loo_zoom_windows(
+        cross_g, psd_g, pairs, coarse, nseg), 20)
+    k2_plain = _time_ms(lambda: zoom_probe.loo_zoom_windows_plain(
+        cross_g, psd_g, pairs, coarse, nseg), 20)
+    print(f"time corr_accum [3 st, 443 seg, K={K}]: kernel {k1_ms:.3f} ms, "
+          f"plain {k1_plain:.3f} ms")
+    print(f"time zoom_probe [K={K}, m=3, F=65536]: kernel {k2_ms:.3f} ms, "
+          f"plain {k2_plain:.3f} ms")
+    del x443, got, x
+    return [
+        {"name": "corr_accum", "route": "cuda",
+         "source": "tdoa_tpu_torch/csrc/corr_accum.cu",
+         "replaces": "tdoa_tpu/ops/pallas/corr_accum.py:634",
+         "max_abs_err": k1_abs, "max_rel_err_row_peak": k1_rel,
+         "ms": k1_ms, "plain_ms": k1_plain},
+        {"name": "zoom_probe", "route": "cuda",
+         "source": "tdoa_tpu_torch/csrc/zoom_probe.cu",
+         "replaces": "tdoa_tpu/ops/pallas/zoom_probe.py:244",
+         "max_abs_err": k2_abs, "max_rel_err_row_peak": k2_rel,
+         "max_delay_err_samples": k2_delay, "ms": k2_ms, "plain_ms": k2_plain},
+    ]
+
+
+def _synthesize(dev, out_dir: Path):
+    """Write one u8 [REF | TGT | REF] .dat per station; return the
+    truth: per-station TGT propagation delays (samples) and the TGT
+    transmitter's lat/lon/elev."""
+    import numpy as np
+    import torch
+
+    from tdoa_tpu_torch.geo import lla_to_ecef
+    from tdoa_tpu_torch.io.stations import load_station_table
+    from tdoa_tpu_torch.utils.constants import SPEED_OF_LIGHT
+
+    table = load_station_table(str(ROOT / "lat-lon-table.csv"),
+                               reference_freq=162_400_000.0)
+    # The table's KEVO row is the target transmitter; the other
+    # callsign rows are the receivers.
+    tgt_tx = table["KEVO"].lla()
+    names = [n for n in table.names if n != "KEVO"]
+    st = lla_to_ecef(table.lla_array(names))
+    clock = np.asarray(CLOCK_OFFSETS_S) * FS
+
+    def delays(tx_lla):
+        d = np.linalg.norm(st - lla_to_ecef(tx_lla), axis=-1)
+        return d / SPEED_OF_LIGHT * FS
+
+    tau = {"ref": delays(table.reference_tx.lla()), "tgt": delays(tgt_tx)}
+    pad = 4096
+    n_fft = 1 << (BLOCK + 2 * pad).bit_length()  # > BLOCK + pad + delays
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    f = torch.fft.fftfreq(n_fft, device=dev, dtype=torch.float64)
+    raw = {n: [] for n in names}
+    for kind in ("ref", "tgt", "ref"):
+        # FM-like source: a 15 kHz low-passed message at 25 kHz rms
+        # deviation, exp(i·phase) — one per block.
+        msg = torch.fft.fft(torch.randn(n_fft, device=dev, generator=g,
+                                        dtype=torch.float64))
+        msg[f.abs() > 15e3 / FS] = 0
+        msg = torch.fft.ifft(msg).real
+        msg = msg / msg.std()
+        phase = torch.cumsum(2 * np.pi * 25e3 / FS * msg, 0)
+        spec = torch.fft.fft(torch.polar(torch.ones_like(phase), phase))
+        del msg, phase
+        for s, name in enumerate(names):
+            d = tau[kind][s] + clock[s]  # fractional delay, samples
+            z = torch.fft.ifft(spec * torch.polar(
+                torch.ones_like(f), -2 * np.pi * f * d))[pad:pad + BLOCK]
+            noise = torch.randn(2, BLOCK, device=dev, generator=g,
+                                dtype=torch.float64)
+            iq = torch.stack([0.3 * z.real + 0.1 * noise[0],
+                              0.3 * z.imag + 0.1 * noise[1]], dim=-1)
+            u8 = torch.clamp(torch.floor(iq * 127.5 + 128.0), 0, 255)
+            raw[name].append(u8.to(torch.uint8).reshape(-1).cpu().numpy())
+            del z, noise, iq, u8
+        del spec
+    paths = []
+    for name in names:
+        p = out_dir / f"sim-{name}-1700000000.dat"
+        with open(p, "wb") as fh:
+            for part in raw[name]:
+                fh.write(part.tobytes())
+        paths.append(str(p))
+    return paths, dict(zip(names, tau["tgt"])), tgt_tx
+
+
+def phase_slice(dev):
+    import numpy as np
+    import torch
+
+    from tdoa_tpu_torch.geo import lla_to_enu
+    from tdoa_tpu_torch.ops.kernels import corr_accum, zoom_probe
+    from tdoa_tpu_torch.pipeline import TDOAProcessor
+
+    print("== phase 4: the slice (3 stations, 30 s capture)")
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "build"))
+    try:
+        t0 = time.perf_counter()
+        paths, tau_tgt, tgt_tx = _synthesize(dev, tmp)
+        torch.cuda.synchronize()
+        print(f"synthesized {len(paths)} x {3 * BLOCK} samples in "
+              f"{time.perf_counter() - t0:.1f} s")
+        proc = TDOAProcessor.from_csv(162_400_000.0, 101_900_000.0,
+                                      str(ROOT / "lat-lon-table.csv"),
+                                      device=dev)
+        t0 = time.perf_counter()
+        proc.process_files(paths)  # warm-up: cuFFT plans, allocator
+        print(f"first run {time.perf_counter() - t0:.3f} s")
+        corr_accum.accumulate_banks.launches = 0
+        zoom_probe.loo_zoom_windows.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = proc.process_files(paths)  # results are host arrays: synced
+        wall = time.perf_counter() - t0
+        launches = {"corr_accum": corr_accum.accumulate_banks.launches,
+                    "zoom_probe": zoom_probe.loo_zoom_windows.launches}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"timed run: process_files {wall:.3f} s  [{_smi()}]")
+    print(f"kernel launches in the timed run: {launches}")
+    names = res.station_names
+    want = np.array([tau_tgt[names[j]] - tau_tgt[names[i]]
+                     for i, j in res.pair_idx])
+    err = res.corrected_tdoa_samples - want
+    for k, (i, j) in enumerate(res.pair_idx):
+        print(f"  {names[i]}-{names[j]}: TDOA {res.corrected_tdoa_samples[k]:+.4f}"
+              f" samples (truth {want[k]:+.4f}, err {err[k]:+.4f}), "
+              f"1σ {res.tdoa_std_s[k] * FS:.4f}, raw {res.tgt_delay_samples[k]:+.3f}")
+    fix_err = float(np.linalg.norm(lla_to_enu(
+        np.array([res.fix.lat, res.fix.lon, tgt_tx[2]]), tgt_tx)[:2]))
+    print(f"  fix {res.fix.lat:.6f}, {res.fix.lon:.6f}: {fix_err:.1f} m from "
+          f"the planted transmitter; 1σ ellipse "
+          f"{res.fix.ellipse[0]:.2f} x {res.fix.ellipse[1]:.2f} m")
+    for w in res.warnings:
+        print(f"  warning: {w}")
+    if min(launches.values()) < 1:
+        raise RuntimeError(f"a kernel of the path did not launch: {launches}")
+    if not np.all(np.abs(err) < 0.5):
+        raise RuntimeError(f"corrected TDOAs off the truth by {err}")
+    if not fix_err < 200.0:
+        raise RuntimeError(f"fix {fix_err:.1f} m from the transmitter")
+    return launches, wall
+
+
+def main() -> int:
+    if not (ROOT / "tdoa_tpu_torch").is_dir():
+        print("chip_smoke.py must run from a checkout of the repository "
+              "(tdoa_tpu_torch/ not found beside it)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device: chip_smoke.py needs the card", file=sys.stderr)
+        return 2
+    dev = phase_device()
+    phase_build()
+    kernels = phase_kernels(dev)
+    launches, wall = phase_slice(dev)
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    print(f"slice wall time {wall:.3f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(_smi())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

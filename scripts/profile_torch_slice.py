@@ -1,0 +1,172 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch port's 30 s, 3-station slice.
+
+    python3 scripts/profile_torch_slice.py [--runs 12] [--out chiprun_out/profile_torch_slice.json]
+
+Needs one CUDA card (sm_90a) and imports nothing of JAX. It synthesizes
+the capture ``chip_smoke.py`` runs (three 10 s blocks of 20 M samples
+per station, ``lat-lon-table.csv`` geometry), then on a warm process:
+
+1. times ``--runs`` runs of ``TDOAProcessor.process_files``, split into
+   ``load_files`` (read + copy + decode) and ``process_captures``
+   (correlate + solve), each span ended by a device sync; prints the
+   median, quartiles and max of each;
+2. splits ingest per file into the read (``np.fromfile``), the pageable
+   host→card copy and the decode on the card;
+3. traces one ``process_captures`` with ``torch.profiler`` and prints
+   its wall time, the card's busy time (sum of the device kernels' and
+   copies' own time) and the device ops that take the most of it.
+
+Everything printed also goes into the JSON file given by ``--out``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import shutil
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _quantiles(xs) -> dict:
+    q = np.quantile(np.asarray(xs, np.float64), [0.25, 0.5, 0.75])
+    return {"q25": q[0], "median": q[1], "q75": q[2], "max": max(xs),
+            "runs": list(xs)}
+
+
+def _device_time(evt) -> float:
+    """Device time of a profiler event that ran on the card (a kernel
+    or a copy), µs; 0 for host ops, whose device time is their
+    kernels' and would count twice. The attribute's name changed
+    across torch releases."""
+    if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
+        return 0.0
+    for name in ("device_time_total", "cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--runs", type=int, default=12)
+    ap.add_argument("--out", default=str(ROOT / "chiprun_out"
+                                         / "profile_torch_slice.json"))
+    args = ap.parse_args()
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device: this profile needs the card", file=sys.stderr)
+        return 2
+    import chip_smoke
+    from tdoa_tpu_torch.io.datfile import bytes_to_iq_planar
+    from tdoa_tpu_torch.pipeline import TDOAProcessor
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report = {"device": chip_smoke._smi(), "torch": torch.__version__,
+              "cuda": torch.version.cuda}
+    print(f"nvidia-smi: {report['device']}  torch {report['torch']}")
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="profile_slice_", dir=ROOT / "build"))
+    try:
+        paths, _, _ = chip_smoke._synthesize(dev, tmp)
+        torch.cuda.synchronize()
+        proc = TDOAProcessor.from_csv(162_400_000.0, 101_900_000.0,
+                                      str(ROOT / "lat-lon-table.csv"),
+                                      device=dev)
+        proc.process_files(paths)  # warm-up: build, cuFFT plans, allocator
+
+        # 1. Spans of process_files.
+        load, corr, total = [], [], []
+        for _ in range(args.runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            caps = proc.load_files(paths)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            proc.process_captures(caps)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            load.append((t1 - t0) * 1e3)
+            corr.append((t2 - t1) * 1e3)
+            total.append((t2 - t0) * 1e3)
+            del caps
+        report["spans_ms"] = {"load_files": _quantiles(load),
+                              "process_captures": _quantiles(corr),
+                              "process_files": _quantiles(total)}
+        for name, q in report["spans_ms"].items():
+            print(f"{name:17s} median {q['median']:.1f} ms  q25 "
+                  f"{q['q25']:.1f}  q75 {q['q75']:.1f}  max {q['max']:.1f}"
+                  f"  ({args.runs} runs)")
+
+        # 2. Ingest per file.
+        ingest = []
+        for p in paths:
+            t0 = time.perf_counter()
+            raw = np.fromfile(p, dtype=np.uint8)
+            t1 = time.perf_counter()
+            d = torch.from_numpy(raw).to(dev)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            bytes_to_iq_planar(d, torch.bfloat16)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            ingest.append({"bytes": int(raw.size), "read_ms": (t1 - t0) * 1e3,
+                           "copy_ms": (t2 - t1) * 1e3,
+                           "decode_ms": (t3 - t2) * 1e3})
+            print(f"ingest {Path(p).name}: {raw.size / 1e6:.1f} MB, read "
+                  f"{ingest[-1]['read_ms']:.2f} ms, copy "
+                  f"{ingest[-1]['copy_ms']:.2f} ms, decode "
+                  f"{ingest[-1]['decode_ms']:.2f} ms")
+            del raw, d
+        report["ingest"] = ingest
+
+        # 3. One traced process_captures.
+        caps = proc.load_files(paths)
+        torch.cuda.synchronize()
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            proc.process_captures(caps)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        ops = [(e.key, _device_time(e) / 1e3, e.count)
+               for e in prof.key_averages()]
+        ops = sorted((o for o in ops if o[1] > 0), key=lambda o: -o[1])
+        busy = sum(o[1] for o in ops)
+        report["trace"] = {
+            "wall_ms": wall, "device_busy_ms": busy,
+            "device_busy_share": busy / wall,
+            "top_device_ops": [{"op": k, "ms": t, "count": c}
+                               for k, t, c in ops[:15]],
+        }
+        print(f"traced process_captures: wall {wall:.2f} ms, card busy "
+              f"{busy:.2f} ms ({100 * busy / wall:.1f} %)")
+        if not ops:
+            print("  the trace holds no device time: the profiler did not "
+                  "see the card")
+        for k, t, c in ops[:15]:
+            print(f"  {t:8.3f} ms  x{c:<5d} {k[:90]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(report, indent=1, default=float))
+    print(f"wrote {out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,200 @@
+"""TDOA processor CLI on the PyTorch/CUDA port — the reference contract:
+
+    python -m tdoa_tpu_torch.cli.processor <ref_freq> <target_freq> \
+        <stations.csv> <dat1> <dat2> <dat3> [...]
+
+Loads the captures onto the card (or the CPU when none is visible),
+runs the fused GCC correlator with dual-REF clock correction, prints
+per-pair TDOAs and the position fix. Flags of ``tdoa_tpu.cli.processor``
+whose paths are not ported yet are accepted and rejected with a message
+naming the ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import numpy as np
+
+# Flags of the reference CLI this port does not run yet: their default
+# (accepted) and the ROADMAP item that ports them.
+_UNPORTED = {
+    "mode": ("iq", "FM mode"),
+    "lo_compensation": (False, "LO compensation, CAF/velocity, multi-emitter"),
+    "solve_velocity": (False, "LO compensation, CAF/velocity, multi-emitter"),
+    "multi_emitter": (1, "LO compensation, CAF/velocity, multi-emitter"),
+    "overlap_ingest": (False, "streaming and ingest"),
+    "seg_len": (None, "segmented correlator and short captures"),
+    "geojson": (None, "host tools"),
+    "profile": (False, "port benchmark"),
+    "trace": (None, "port benchmark"),
+}
+
+
+def _rewrite_prior_argv(argv):
+    """argparse reads "-33.9,18.4,25" as an option; use --prior=VALUE."""
+    argv = list(argv)
+    for k, a in enumerate(argv[:-1]):
+        if a == "--prior" and argv[k + 1].startswith("-"):
+            argv[k:k + 2] = ["--prior=" + argv[k + 1]]
+            break
+    return argv
+
+
+def _parse_prior(spec, error):
+    try:
+        lat_s, lon_s, rad_s = spec.split(",")
+        prior = (float(lat_s), float(lon_s), float(rad_s) * 1000.0)
+    except ValueError:
+        error("--prior expects LAT,LON,RADIUS_KM (e.g. 41.2,-96.0,25)")
+    if not (-90.0 <= prior[0] <= 90.0 and -180.0 <= prior[1] <= 180.0
+            and prior[2] > 0.0):
+        error("--prior out of range: |lat|<=90, |lon|<=180, radius>0")
+    return prior
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        prog="processor",
+        description="Offline TDOA processing on the PyTorch/CUDA port: "
+                    ".dat captures -> position fix",
+    )
+    p.add_argument("ref_freq", type=float, help="reference frequency, Hz")
+    p.add_argument("target_freq", type=float, help="target frequency, Hz")
+    p.add_argument("csv", help="lat-lon-table.csv station geometry")
+    p.add_argument("dat_files", nargs="+", help=".dat capture files (>= 3)")
+    p.add_argument("--max-lag", type=int, default=20000,
+                   help="correlation search window, samples (<= 20480, the "
+                        "fused kernel's alias-free window)")
+    p.add_argument("--weighting", default="ht",
+                   choices=["ht", "ml", "phat", "scot", "none"])
+    p.add_argument("--no-clock-correction", action="store_true",
+                   help="skip dual-frequency reference clock removal")
+    p.add_argument("--prior", metavar="LAT,LON,RADIUS_KM", default=None,
+                   help="coverage prior: center lat,lon (deg) and radius "
+                        "(km); a unique in-prior candidate resolves a "
+                        "ghost-ambiguous fix")
+    p.add_argument("--power-disambiguation", action="store_true",
+                   help="let a decisive 1/r received-power ranking move a "
+                        "ghost-ambiguous fix")
+    p.add_argument("--no-outlier-rejection", action="store_true",
+                   help="disable leave-one-station-out outlier rejection")
+    p.add_argument("--truncate-s", type=float, default=None,
+                   help="use only the first N seconds of each block")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda when available)")
+    p.add_argument("--json", action="store_true",
+                   help="emit one machine-readable JSON line")
+    # Reference flags whose paths are not ported yet.
+    p.add_argument("--mode", default="iq", choices=["iq", "fm"])
+    p.add_argument("--seg-len", type=int, default=None)
+    p.add_argument("--lo-compensation", action="store_true")
+    p.add_argument("--solve-velocity", action="store_true")
+    p.add_argument("--multi-emitter", type=int, default=1)
+    p.add_argument("--overlap-ingest", action="store_true")
+    p.add_argument("--geojson", default=None)
+    p.add_argument("--profile", action="store_true")
+    p.add_argument("--trace", default=None)
+    args = p.parse_args(
+        _rewrite_prior_argv(sys.argv[1:] if argv is None else argv))
+    for name, (default, item) in _UNPORTED.items():
+        if getattr(args, name) != default:
+            p.error(f"--{name.replace('_', '-')} is not ported to "
+                    f"tdoa_tpu_torch yet (ROADMAP.md: \"{item}\"); "
+                    f"use python -m tdoa_tpu.cli.processor")
+    prior = None if args.prior is None else _parse_prior(args.prior, p.error)
+
+    from tdoa_tpu_torch.pipeline import TDOAProcessor
+    from tdoa_tpu_torch.utils.constants import DEFAULT_SAMPLE_RATE
+
+    trunc = (int(args.truncate_s * DEFAULT_SAMPLE_RATE)
+             if args.truncate_s is not None else None)
+    proc = TDOAProcessor.from_csv(
+        args.ref_freq, args.target_freq, args.csv, device=args.device,
+        max_lag=args.max_lag,
+        weighting=args.weighting,
+        clock_correction=not args.no_clock_correction,
+        truncate_samples=trunc,
+        power_disambiguation=args.power_disambiguation,
+        prior=prior,
+        outlier_rejection=not args.no_outlier_rejection,
+    )
+    print(f"Processing {len(args.dat_files)} captures on {proc.device} "
+          f"(ref {args.ref_freq/1e6:.4f} MHz, target "
+          f"{args.target_freq/1e6:.4f} MHz)",
+          file=sys.stderr if args.json else sys.stdout)
+    try:
+        res = proc.process_files(args.dat_files)
+    except (FileNotFoundError, ValueError, NotImplementedError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    names = res.station_names
+    fix = res.fix
+    if args.json:
+        print(json.dumps({
+            "fix": {"lat": fix.lat, "lon": fix.lon, "elev": fix.elev,
+                    "rms_residual_m": fix.rms_residual_m,
+                    "ellipse_1sigma_m": None if fix.ellipse is None else
+                    {"semi_major": fix.ellipse[0],
+                     "semi_minor": fix.ellipse[1],
+                     "azimuth_deg": fix.ellipse[2]},
+                    "conf_contour_scales": (
+                        None if fix.conf_scales is None
+                        else list(fix.conf_scales))},
+            "tdoa_std_us": None if res.tdoa_std_s is None else
+            [s * 1e6 for s in res.tdoa_std_s],
+            "stations": names,
+            "pairs": [[names[i], names[j]] for i, j in res.pair_idx],
+            "tdoa_us": [s * 1e6 for s in res.tdoa_seconds],
+            "raw_delay_samples": list(res.tgt_delay_samples),
+            "clock_offset_samples": list(res.clock_offset_samples),
+            "clock_drift_ppm": list(res.clock_drift_ppm),
+            "quality": list(res.quality),
+            "warnings": res.warnings,
+            "excluded_stations": res.excluded_stations,
+            "solve_weights": list(res.solve_weights),
+            "candidates": [
+                {"lat": c[0], "lon": c[1], "rms_m": r,
+                 "power_score": None if fix.candidates_power_score is None
+                 else fix.candidates_power_score[k]}
+                for k, (c, r) in enumerate(
+                    zip(fix.candidates_lla, fix.candidates_rms))
+            ],
+            "ghost": None if res.ghost is None else res.ghost.to_json(),
+        }))
+        return 0
+    print("\nPer-pair measurements:")
+    for k, (i, j) in enumerate(res.pair_idx):
+        print(
+            f"  {names[i]:>8s} - {names[j]:<8s} "
+            f"raw {res.tgt_delay_samples[k]:+9.2f}  "
+            f"clock {res.clock_offset_samples[k]:+9.2f}  "
+            f"TDOA {res.corrected_tdoa_samples[k]:+9.3f} samples "
+            f"({res.tdoa_seconds[k]*1e6:+8.3f} us"
+            f" ± {res.tdoa_std_s[k]*1e6:.3f})  quality {res.quality[k]:.1f}"
+        )
+    if np.abs(res.clock_drift_ppm).max() > 0.05:
+        drifts = ", ".join(
+            f"{names[i]}-{names[j]} {res.clock_drift_ppm[k]:+.2f} ppm"
+            for k, (i, j) in enumerate(res.pair_idx)
+        )
+        print(f"  clock drift (from dual REF blocks): {drifts}")
+    for w in res.warnings:
+        print(f"  WARNING: {w}")
+    print(f"\nPosition fix: {fix.lat:.6f}, {fix.lon:.6f}  "
+          f"(elev {fix.elev:.0f} m, residual {fix.rms_residual_m:.1f} m)")
+    if fix.ellipse is not None:
+        maj, mnr, az = fix.ellipse
+        print(f"1-sigma error ellipse: {maj:.1f} m x {mnr:.1f} m "
+              f"at {az:.0f} deg E of N")
+    if fix.candidates_lla is not None and len(fix.candidates_lla) > 1:
+        print("Other candidate solutions (TDOA ghosts):")
+        for lla, rms in zip(fix.candidates_lla[1:], fix.candidates_rms[1:]):
+            print(f"  {lla[0]:.6f}, {lla[1]:.6f}  (residual {rms:.1f} m)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

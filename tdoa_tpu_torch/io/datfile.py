@@ -1,0 +1,89 @@
+"""The ``.dat`` capture codec — the system's central data contract.
+
+A capture is interleaved unsigned-8-bit I/Q at 2 Msps, centered at 127.5,
+laid out as three equal sample blocks ``[REF | TGT | REF]``. Byte value
+``b`` decodes to ``(b - 127.5) / 127.5``; encode/decode is bit-faithful
+to ``tdoa_tpu.io.datfile``.
+
+Decoding runs on the device: the u8 bytes cross to the card and widen
+there (1 byte per component on the link instead of 4). Blocks are
+planar real tensors ``[2, L]`` (row 0 = I, row 1 = Q) — the layout the
+correlator kernel reads; ``dtype=torch.bfloat16`` decodes straight into
+its operand storage.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from tdoa_tpu_torch.utils.constants import IQ_CENTER, IQ_SCALE, NUM_BLOCKS
+
+
+def bytes_to_iq_planar(raw: torch.Tensor,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Decode interleaved u8 I/Q bytes ``[2n]`` to planar ``[2, n]``
+    ``dtype`` on ``raw``'s device. The arithmetic is f32 and rounds
+    once to ``dtype``, exactly as the JAX decode does."""
+    x = (raw.to(torch.float32) - IQ_CENTER) / IQ_SCALE
+    return x.to(dtype).view(-1, 2).t().contiguous()
+
+
+def iq_to_bytes(iq) -> np.ndarray:
+    """Encode complex samples (numpy or torch) to interleaved u8 I/Q
+    bytes: scale by 127.5, offset by 127.5, round half up, clamp to
+    [0, 255] — the JAX encoder's rounding, not the Go tool's truncation."""
+    iq = np.asarray(iq.cpu() if isinstance(iq, torch.Tensor) else iq)
+    comps = np.stack([iq.real, iq.imag], axis=-1).astype(np.float32)
+    scaled = comps * np.float32(IQ_SCALE) + np.float32(IQ_CENTER)
+    return (
+        np.clip(np.floor(scaled + np.float32(0.5)), 0.0, 255.0)
+        .astype(np.uint8)
+        .reshape(-1)
+    )
+
+
+def split_blocks(x: torch.Tensor):
+    """Split a capture ``[2, 3n(+tail)]`` (or complex ``[3n]``) into its
+    three equal blocks (ref1, tgt, ref2); trailing samples are dropped."""
+    n = x.shape[-1] // NUM_BLOCKS
+    return x[..., :n], x[..., n:2 * n], x[..., 2 * n:3 * n]
+
+
+@dataclasses.dataclass
+class DatCapture:
+    """A decoded capture: device-resident planar blocks plus metadata."""
+
+    ref1: torch.Tensor  # [2, L] first reference-frequency block
+    tgt: torch.Tensor  # [2, L] target-frequency block
+    ref2: torch.Tensor  # [2, L] second reference-frequency block
+    path: str = ""
+    station: str = ""
+
+
+def load_dat(path: str, station: str = "",
+             dtype: torch.dtype = torch.float32,
+             device: torch.device = torch.device("cpu")) -> DatCapture:
+    """Load a ``.dat`` file and decode it on ``device`` into planar
+    ``dtype`` blocks. Only whole ``3 × (I, Q)`` sample groups are kept."""
+    raw = np.fromfile(path, dtype=np.uint8)
+    usable = (raw.size // (2 * NUM_BLOCKS)) * (2 * NUM_BLOCKS)
+    dev_raw = torch.from_numpy(raw[:usable]).to(device)
+    iq = bytes_to_iq_planar(dev_raw, dtype)
+    ref1, tgt, ref2 = split_blocks(iq)
+    return DatCapture(ref1=ref1, tgt=tgt, ref2=ref2, path=path,
+                      station=station)
+
+
+def save_dat(path: str, ref1, tgt, ref2) -> int:
+    """Write three complex blocks as a byte-contract ``.dat`` file and
+    return the number of bytes written. Blocks must be equal length."""
+    if not (len(ref1) == len(tgt) == len(ref2)):
+        raise ValueError("all three blocks must have equal length")
+    with open(path, "wb") as f:
+        for b in (ref1, tgt, ref2):
+            f.write(iq_to_bytes(b).tobytes())
+    return os.path.getsize(path)

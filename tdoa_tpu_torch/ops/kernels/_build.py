@@ -1,0 +1,129 @@
+"""Build and load the hand-written Hopper kernels.
+
+Every ``*.cu`` under ``tdoa_tpu_torch/csrc/`` compiles with ``nvcc``
+into ONE shared library with a plain C interface, loaded with
+``ctypes`` (no PyTorch headers, so the build takes seconds, not
+minutes). The build happens at first use, from the checkout's sources
+only, into ``build/tdoa_tpu_torch/<hash of the sources and flags>/`` at
+the repository root — a directory ``.gitignore`` lists. A file lock
+serializes concurrent builds (parallel test workers on one card);
+a finished library is reused by every later process.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional
+
+PKG_DIR = Path(__file__).resolve().parents[2]  # tdoa_tpu_torch/
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_ROOT = PKG_DIR.parent / "build" / "tdoa_tpu_torch"
+LIB_NAME = "libtdoa_kernels.so"
+
+# sm_90a keeps the Hopper-only instructions available; no fast-math:
+# the zoom probe's basis angles reach ~50 rad, where __sinf is wrong.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(cand):
+        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME")
+    return cand
+
+
+def build() -> Path:
+    """Compile the library unless this source hash is already built;
+    returns its path. The ptxas report (registers, shared memory,
+    spills per kernel) is kept beside it as ``ptxas.txt``."""
+    out_dir = BUILD_ROOT / _digest()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if lib.exists():  # another process built it while we waited
+                return lib
+            cu = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
+            tmp = out_dir / (LIB_NAME + f".tmp{os.getpid()}")
+            cmd = [nvcc_path(), *NVCC_FLAGS, f"-I{CSRC_DIR}", "-o",
+                   str(tmp), *cu]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            report = proc.stdout + proc.stderr
+            (out_dir / "ptxas.txt").write_text(report)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                    f"{report}")
+            os.replace(tmp, lib)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return lib
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tdoa_corr_accum.argtypes = [
+        p, p, i,            # x re, x im, input is bf16
+        ctypes.c_longlong,  # station stride (elements)
+        i, i,               # n_st, n_seg
+        p, i,               # pairs [m, 2] int32 (device), m
+        i, i,               # n_banks, track_sums
+        p, i,               # scratch float2, chunk_segs
+        p, p, p,            # cross float2 [K, m, F], psd [K, n_st, F], sums float2
+        p,                  # stream
+    ]
+    lib.tdoa_corr_accum.restype = i
+    lib.tdoa_corr_accum_smem_bytes.argtypes = [i, i, i]
+    lib.tdoa_corr_accum_smem_bytes.restype = i
+    lib.tdoa_zoom_probe.argtypes = [
+        p, p,               # cross_g float2 [K, m, F], psd_g [K, n_st, F]
+        p, p, p,            # pairs [m, 2] int32, coarse [m] int32, nseg [K*m]
+        i, i, i, i,         # K, m, n_st, F
+        ctypes.c_float,     # eps
+        p, p, p,            # partial means scratch, means scratch, zoom partials
+        p,                  # out window float2 [K*m, W]
+        p,                  # stream
+    ]
+    lib.tdoa_zoom_probe.restype = i
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call in a process)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        _declare(lib)
+        _lib = lib
+    return _lib

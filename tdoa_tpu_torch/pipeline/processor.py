@@ -1,0 +1,1090 @@
+"""The end-to-end TDOA processor: captures → TDOAs → position fix.
+
+Torch port of ``tdoa_tpu.pipeline.processor`` for the IQ main path:
+
+- ``load_files`` decodes each ``.dat`` on the device, into bf16 planar
+  blocks when the fused correlator runs;
+- ``process_blocks`` correlates REF₁, TGT and REF₂ through kernel 1
+  (segment FFT + banked cross-spectra) and the finish stage with the
+  split-σ probe on kernel 2, then removes each pair's clock offset,
+  interpolated between the two REF blocks, with the known REF
+  transmitter's geometry;
+- the host gates, the float32 multistart LM solve, the multipath σ
+  accounting and the ghost/outlier analysis follow the reference line
+  for line (numpy / CPU tensors).
+
+Options the port does not run yet raise ``NotImplementedError`` naming
+the ``ROADMAP.md`` item that ports them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from tdoa_tpu_torch.dsp.multipath import lobe_centroid_drift as _lobe_centroid_drift
+from tdoa_tpu_torch.geo import lla_to_ecef, lla_to_enu
+from tdoa_tpu_torch.io.datfile import load_dat
+from tdoa_tpu_torch.io.stations import (
+    StationTable,
+    load_station_table,
+    station_from_filename,
+)
+from tdoa_tpu_torch.ops.corr import clock_correct_blocks, correlate_pairs_fused
+from tdoa_tpu_torch.solve.ghost import DECISION_THRESHOLD_NATS, GhostVerdict
+from tdoa_tpu_torch.solve.multilateration import (
+    FixResult,
+    rank_candidates_by_power,
+    refit_to_candidate,
+    solve_fix,
+    station_pairs,
+)
+from tdoa_tpu_torch.utils.constants import (
+    DEFAULT_MAX_LAG,
+    DEFAULT_SAMPLE_RATE,
+    SPEED_OF_LIGHT,
+)
+from tdoa_tpu_torch.utils.platform import default_device
+
+
+def _unported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to tdoa_tpu_torch yet "
+        f"(ROADMAP.md: \"{item}\"); use tdoa_tpu")
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcessorConfig:
+    """The reference's configuration minus the settings of paths the
+    port does not run (FM decimation, CAF, FDOA ranking, emitter
+    association, segment length). The path selectors stay so that
+    ``mode="fm"``, ``lo_compensation="auto"``, ``solve_velocity``,
+    ``multi_emitter > 1`` and ``accumulator="xla"`` raise
+    ``NotImplementedError`` instead of silently running the IQ path."""
+
+    ref_freq: float
+    tgt_freq: float
+    sample_rate: float = DEFAULT_SAMPLE_RATE
+    max_lag: int = DEFAULT_MAX_LAG
+    weighting: str = "ht"  # Hannan-Thomson ML weighting (ops/corr.py)
+    clock_correction: bool = True
+    mode: str = "iq"
+    solve_z: bool = False
+    truncate_samples: Optional[int] = None
+    # "auto"/"pallas": the fused kernels; "xla" names the unported
+    # segmented path.
+    accumulator: str = "auto"
+    multi_emitter: int = 1
+    solve_velocity: bool = False
+    lo_compensation: str = "off"
+    power_disambiguation: bool = False
+    ghost_threshold_nats: float = DECISION_THRESHOLD_NATS
+    prior: Optional[Tuple[float, float, float]] = None
+    multipath_mitigation: bool = True
+    outlier_rejection: bool = True
+
+
+@dataclasses.dataclass
+class TDOAResult:
+    fix: FixResult
+    station_names: List[str]
+    pair_idx: np.ndarray  # [m, 2]
+    tgt_delay_samples: np.ndarray  # [m] raw TGT correlation delays
+    ref_delay_samples: np.ndarray  # [m, 2] raw REF-block delays (blocks 1, 3)
+    clock_offset_samples: np.ndarray  # [m] interpolated pair clock offsets
+    corrected_tdoa_samples: np.ndarray  # [m] what the solver consumed
+    tdoa_seconds: np.ndarray  # [m]
+    quality: np.ndarray  # [m] TGT peak-to-sidelobe ratios
+    peak_value: np.ndarray  # [m] TGT correlation peaks
+    tdoa_std_s: Optional[np.ndarray] = None  # [m] 1σ TDOA errors, seconds
+    clock_drift_ppm: Optional[np.ndarray] = None  # [m] from the two REF blocks
+    warnings: List[str] = dataclasses.field(default_factory=list)
+    excluded_stations: Optional[List[str]] = None
+    solve_weights: Optional[np.ndarray] = None  # [m] weights of the final solve
+    multipath_flagged: Optional[np.ndarray] = None  # [m] bool
+    multipath_sigma_samples: Optional[np.ndarray] = None  # [m]
+    multipath_echo_separation_samples: Optional[np.ndarray] = None  # [m]
+    multipath_echo_ratio: Optional[np.ndarray] = None  # [m]
+    ghost: Optional[GhostVerdict] = None
+
+
+def process_blocks(
+    ref1: torch.Tensor,  # [2, n_st, L] planar (I, Q)
+    tgt: torch.Tensor,
+    ref2: torch.Tensor,
+    pairs: np.ndarray,  # [m, 2]
+    ref_geo_tdoa: torch.Tensor,  # [m] reference-tx geometric TDOA, samples
+    max_lag: int = DEFAULT_MAX_LAG,
+    weighting: str = "ht",
+    clock_correction: bool = True,
+):
+    """3 blocks × all pairs → clock-corrected TDOAs, through the fused
+    kernels: each block is correlated by ``correlate_pairs_fused`` with
+    bf16 operand storage and in-kernel DC removal. Returns the
+    reference's tuple (corrected, tgt_delay, ref_delays [m,2], clock,
+    quality [3,m], peak [3,m], corrected_std, tgt_window, tgt_std,
+    block windows complex [3,m,W]); delays and σs in IQ samples."""
+    pairs_t = tuple(map(tuple, np.asarray(pairs).tolist()))
+    outs = [
+        correlate_pairs_fused(
+            blk.to(torch.bfloat16).contiguous(), pairs_t, max_lag=max_lag,
+            weighting=weighting, remove_dc=True,
+        )
+        for blk in (ref1, tgt, ref2)
+    ]
+    return clock_correct_blocks(
+        torch.stack([o.delay for o in outs]),
+        torch.stack([o.delay_std for o in outs]),
+        torch.stack([o.quality for o in outs]),
+        torch.stack([o.peak_value for o in outs]),
+        torch.stack([o.corr for o in outs]),
+        torch.stack([o.corr_c for o in outs]),
+        ref_geo_tdoa.to(outs[0].delay.device), clock_correction,
+    )
+
+
+def _horiz_m(a_lat, a_lon, b_lat, b_lon, elev) -> float:
+    """Horizontal ENU separation in meters between two lat/lon points."""
+    return float(np.linalg.norm(lla_to_enu(
+        np.array([a_lat, a_lon, elev]), np.array([b_lat, b_lon, elev])
+    )[:2]))
+
+
+def _station_mean_power(x: torch.Tensor) -> np.ndarray:
+    """Per-station mean |x|² of planar ``x`` [2, n_st, L] from a strided
+    subsample (≤1M samples per station)."""
+    n = int(x.shape[-1])
+    step = max(1, n // (1 << 20))
+    re = x[0, :, ::step].to(torch.float32)
+    im = x[1, :, ::step].to(torch.float32)
+    return (re * re + im * im).mean(-1).cpu().numpy().astype(np.float64)
+
+
+def _station_signal_power(x: torch.Tensor, chunk: int = 1 << 18) -> np.ndarray:
+    """Per-station SIGNAL power of planar ``x`` [2, n_st, L]: Welch PSD
+    over a central chunk, median noise floor, and the UNCLIPPED
+    floor-subtracted sum over the common signal band (bins where some
+    station clears its floor by 5 estimator σ) — the 1/r ghost
+    ranking's amplitude profile, floored at each estimate's own 1σ and
+    falling back to mean power when no band is detectable."""
+    n = int(x.shape[-1])
+    seg = 4096
+    take = min(n, chunk)
+    off = (n - take) // 2
+    nseg = max(1, take // seg)
+    sl = x[:, :, off:off + nseg * seg].to(torch.float32).cpu().numpy()
+    re = sl[0].astype(np.float64)
+    im = sl[1].astype(np.float64)
+    z = (re + 1j * im).reshape(re.shape[0], nseg, seg)
+    psd = np.mean(np.abs(np.fft.fft(z, axis=-1)) ** 2, axis=1) / seg
+    floor = np.median(psd, axis=-1, keepdims=True)  # [n_st, 1]
+    zscore = (psd - floor) / np.maximum(floor / np.sqrt(nseg), 1e-30)
+    band = (zscore > 5.0).any(axis=0)
+    if not band.any():
+        return _station_mean_power(x)
+    nb = int(np.count_nonzero(band))
+    sig = np.sum(psd[:, band] - floor, axis=-1) / seg
+    lim = floor[:, 0] * np.sqrt(nb / nseg) / seg
+    return np.maximum(sig, lim)
+
+
+def _planar(b, device) -> torch.Tensor:
+    """A capture block as a planar [2, L] tensor on ``device``: complex
+    numpy/torch blocks convert to float32, planar tensors pass through."""
+    if isinstance(b, torch.Tensor) and not b.is_complex():
+        return b.to(device)
+    z = b if isinstance(b, torch.Tensor) else torch.from_numpy(np.asarray(b))
+    z = z.to(device=device, dtype=torch.complex64)
+    return torch.stack([z.real, z.imag])
+
+
+class TDOAProcessor:
+    """High-level orchestrator with the reference CLI contract
+    (``processor ref_freq target_freq csv dat1 dat2 dat3...``)."""
+
+    def __init__(self, config: ProcessorConfig, stations: StationTable,
+                 device: Optional[torch.device] = None):
+        self.config = config
+        self.stations = stations
+        self.device = torch.device(device) if device is not None \
+            else default_device()
+
+    @classmethod
+    def from_csv(
+        cls, ref_freq: float, tgt_freq: float, csv_path: str,
+        device: Optional[torch.device] = None, **cfg
+    ) -> "TDOAProcessor":
+        table = load_station_table(csv_path, reference_freq=ref_freq)
+        return cls(ProcessorConfig(ref_freq=ref_freq, tgt_freq=tgt_freq, **cfg),
+                   table, device=device)
+
+    def _ref_geo_tdoa_samples(self, names: Sequence[str], pairs: np.ndarray) -> np.ndarray:
+        """Geometric REF-transmitter TDOA per pair, in samples (zero when
+        the REF transmitter's position is unknown)."""
+        if self.stations.reference_tx is None:
+            return np.zeros(len(pairs))
+        lla = self.stations.lla_array(names)
+        st = lla_to_ecef(lla)
+        tx = lla_to_ecef(self.stations.reference_tx.lla())
+        d = np.linalg.norm(st - tx, axis=-1)
+        tau = d / SPEED_OF_LIGHT * self.config.sample_rate
+        return tau[pairs[:, 1]] - tau[pairs[:, 0]]
+
+    def _check_supported(self) -> None:
+        cfg = self.config
+        if cfg.lo_compensation not in ("auto", "off"):
+            raise ValueError(
+                f"lo_compensation must be 'auto' or 'off', got "
+                f"{cfg.lo_compensation!r}"
+            )
+        if cfg.mode != "iq":
+            raise _unported(f"mode={cfg.mode!r}", "FM mode")
+        if cfg.lo_compensation == "auto":
+            raise _unported("lo_compensation='auto'",
+                            "LO compensation, CAF/velocity, multi-emitter")
+        if cfg.solve_velocity:
+            raise _unported("solve_velocity",
+                            "LO compensation, CAF/velocity, multi-emitter")
+        if cfg.multi_emitter > 1:
+            raise _unported("multi_emitter > 1",
+                            "LO compensation, CAF/velocity, multi-emitter")
+        if cfg.accumulator == "xla":
+            raise _unported("accumulator='xla'",
+                            "segmented correlator and short captures")
+
+    def _fused_eligible(self, n_stations: int, min_block_samples: int) -> bool:
+        """Whether process_captures can run the fused kernels: the IQ
+        mode, the kernel's alias-free lag window and at least one
+        segment per block on any device; on CUDA also the kernel's own
+        shared-memory and device-buffer footprint."""
+        from tdoa_tpu_torch.ops.kernels.corr_accum import (
+            FFT_LEN,
+            SEG_LEN,
+            fits_device,
+        )
+
+        cfg = self.config
+        ok = (
+            cfg.mode == "iq"
+            and cfg.max_lag <= FFT_LEN - SEG_LEN
+            and min_block_samples >= SEG_LEN
+        )
+        if ok and self.device.type == "cuda":
+            n_pairs = n_stations * (n_stations - 1) // 2
+            ok = fits_device(n_stations, n_pairs, True, 4, self.device)
+        return ok
+
+    def _reject_outliers(
+        self,
+        fix: FixResult,
+        w: np.ndarray,
+        tdoa_s: np.ndarray,
+        tdoa_std_s: np.ndarray,
+        names: Sequence[str],
+        pairs: np.ndarray,
+        lla: np.ndarray,
+        worst_pair,  # callable(fix, weights) -> (score, pair index)
+        warnings: List[str],
+    ) -> Tuple[FixResult, np.ndarray, List[str]]:
+        """Leave-stations-out outlier rejection on an inconsistent set.
+
+        One corrupted station (multipath lock, co-channel interference)
+        gives clean, confident peaks at wrong delays, poisoning n-1
+        pairs in a way the per-pair quality gate cannot see. With >= 5
+        stations the remaining network keeps a consistency redundancy
+        (n-1 independent arrival differences vs 2 position unknowns),
+        so excluding the bad station restores consistency while
+        excluding any good one does not. An exclusion is adopted only
+        when it is UNIQUE in restoring consistency; when no single
+        exclusion works and >= 6 stations are active, station *pairs*
+        are tried the same way (two outliers). Anything else stays
+        advisory: a warning reports the per-exclusion residuals and the
+        fix is left alone.
+        """
+        cfg = self.config
+        n = len(names)
+        if n < 5:
+            return fix, w, []
+
+        def solve_without(excl):
+            mask = np.array(
+                [float(i not in excl and j not in excl) for i, j in pairs]
+            )
+            w_x = w * mask
+            if np.count_nonzero(w_x) < 3:
+                return None
+            return w_x, solve_fix(
+                lla, tdoa_s, weights=w_x, pair_idx=pairs,
+                solve_z=cfg.solve_z, tdoa_sigma_s=tdoa_std_s,
+            )
+
+        def consistent(t):
+            excl_w, excl_fix = t[1]
+            return worst_pair(excl_fix, excl_w)[0] <= 1.0
+
+        tried = [
+            ((s,), r) for s in range(n) if (r := solve_without({s}))
+        ]
+        passing = [t for t in tried if consistent(t)]
+        if not passing and n >= 6:
+            # Two outliers: no single exclusion can restore consistency,
+            # but a unique pair of exclusions can (the remaining >= 4
+            # stations keep one redundancy).
+            tried = [
+                ((a, b), r)
+                for a in range(n) for b in range(a + 1, n)
+                if (r := solve_without({a, b}))
+            ]
+            passing = [t for t in tried if consistent(t)]
+        if len(passing) != 1:
+            detail = ", ".join(
+                f"without {'+'.join(names[s] for s in excl)}: "
+                f"{r[1].rms_residual_m:.0f} m"
+                for excl, r in tried
+            )
+            warnings.append(
+                f"leave-one-station-out test is inconclusive "
+                f"({len(passing)} exclusions restore consistency; "
+                f"rms {detail}) — no station excluded"
+            )
+            return fix, w, []
+        excl, (w_x, fix_x) = passing[0]
+        excluded = [names[s] for s in excl]
+        plural = len(excluded) > 1
+        warnings.append(
+            f"station{'s' if plural else ''} {' and '.join(excluded)} "
+            f"excluded as outlier{'s' if plural else ''}: "
+            f"{'their' if plural else 'its'} pairs are inconsistent "
+            f"with the rest of the network (rms "
+            f"{fix.rms_residual_m:.0f} m with "
+            f"{'them' if plural else 'it'}, "
+            f"{fix_x.rms_residual_m:.0f} m without) — suspect multipath "
+            f"lock or co-channel interference there"
+        )
+        return fix_x, w_x, excluded
+
+    def _analyze_fix(
+        self,
+        fix: FixResult,
+        w: np.ndarray,
+        tdoa_s: np.ndarray,
+        tdoa_std_s: np.ndarray,
+        names: Sequence[str],
+        pairs: np.ndarray,
+        lla: np.ndarray,
+        tgt: torch.Tensor,
+        ref1: torch.Tensor,
+        warnings: List[str],
+    ) -> Tuple[FixResult, np.ndarray, List[str], Optional[GhostVerdict]]:
+        """Post-solve analysis of the FINAL TDOA set: consistency gate,
+        outlier rejection, ghost-ambiguity detection (the unified
+        prior + FDOA + power posterior, solve/ghost.py), and the
+        out-of-prior warning, on the final TDOA set. Differential-Doppler
+        evidence needs solve_velocity, which is not ported, so the
+        posterior sees prior, timing and power. Returns the possibly-updated
+        (fix, weights, excluded_station_names, ghost_verdict)."""
+        cfg = self.config
+        # Mutually inconsistent TDOAs leave residuals the per-pair
+        # quality gate cannot see: a co-channel interferer or strong
+        # multipath produces clean, confident peaks on DIFFERENT
+        # emitters/paths. The test is PER PAIR and normalized by each
+        # pair's own 1σ: a pair whose residual at the fix exceeds
+        # max(5σ, 100 m) is inconsistent beyond its error bar. (An
+        # aggregate rms-vs-median-σ gate fails exactly when needed:
+        # corruption that inflates the honest split-half σs raises the
+        # aggregate gate until a 6 km mixed-emitter residual passes.)
+        gate_m = np.maximum(
+            5.0 * np.asarray(tdoa_std_s, np.float64) * SPEED_OF_LIGHT,
+            100.0,
+        )
+        rd_m = np.asarray(tdoa_s, np.float64) * SPEED_OF_LIGHT
+
+        def worst_pair(f: FixResult, weights) -> Tuple[float, int]:
+            """(max |residual|/gate over active pairs, argmax pair)."""
+            st_enu = lla_to_enu(lla, f.origin_lla)
+            di = np.linalg.norm(f.enu - st_enu[pairs[:, 0]], axis=-1)
+            dj = np.linalg.norm(f.enu - st_enu[pairs[:, 1]], axis=-1)
+            r = np.abs((dj - di) - rd_m) / gate_m
+            r = np.where(np.asarray(weights, np.float64) > 0.0, r, 0.0)
+            k = int(np.argmax(r))
+            return float(r[k]), k
+
+        excluded: List[str] = []
+        if cfg.outlier_rejection and worst_pair(fix, w)[0] > 1.0:
+            fix, w, excluded = self._reject_outliers(
+                fix, w, tdoa_s, tdoa_std_s, names, pairs, lla,
+                worst_pair, warnings,
+            )
+        score, k_bad = worst_pair(fix, w)
+        if score > 1.0:
+            i, j = pairs[k_bad]
+            warnings.append(
+                f"TDOA set is internally inconsistent (pair "
+                f"{names[i]}-{names[j]} residual {score * gate_m[k_bad]:.0f} "
+                f"m vs its {gate_m[k_bad]:.0f} m error-bar gate): suspect "
+                f"co-channel interference, multipath, or a wrong station "
+                f"assignment"
+            )
+        sigma_m = float(np.median(np.asarray(tdoa_std_s))) * SPEED_OF_LIGHT
+
+        def runnerup(f: FixResult):
+            """(location, rms, horizontal separation) of candidate #2."""
+            second = f.candidates_lla[1]
+            return (
+                second,
+                float(f.candidates_rms[1]),
+                _horiz_m(second[0], second[1], f.lat, f.lon, f.elev),
+            )
+
+        # Ghost ambiguity: with 3 stations TDOA hyperbolas can intersect
+        # TWICE, and both intersections satisfy every pair exactly — the
+        # residual cannot choose (Monte Carlo found a silent 548 m miss
+        # whose runner-up candidate sat 8 m from truth). When a distant
+        # second solution fits within the measurement noise of the best,
+        # the fix is genuinely ambiguous and must say so. Three physical
+        # signals can still choose — operator prior, differential-
+        # Doppler consistency, received-power consistency — combined
+        # into ONE posterior-odds score (solve/ghost.py) whose
+        # calibrated nats threshold drives the single swap decision
+        # (round 3 ran them as a cascade of separately-thresholded
+        # rules, each blind to the others' evidence).
+        ghost_verdict = None
+        if (fix.candidates_lla is not None
+                and len(fix.candidates_lla) > 1
+                and fix.candidates_rms is not None):
+            second, rms2, sep = runnerup(fix)
+            ell_a = fix.ellipse[0] if fix.ellipse is not None else 0.0
+            close_fit = rms2 <= max(
+                2.0 * fix.rms_residual_m, 3.0 * sigma_m, 5.0
+            )
+            if close_fit and sep > max(100.0, 3.0 * ell_a):
+                from tdoa_tpu_torch.solve.ghost import ghost_posterior
+
+                k_cand = len(fix.candidates_lla)
+                n_active = int(np.count_nonzero(
+                    np.asarray(w, np.float64) > 0))
+                # ---- evidence, all on the CURRENT candidate order ----
+                # Received power: timing cannot choose between the
+                # intersections, but 1/r path loss can lean — the true
+                # location's distances must match the received
+                # amplitude profile (the REF block calibrates
+                # per-station gain differences away, possible only when
+                # the REF transmitter position is known).
+                ref_tx = self.stations.reference_tx
+                fix.candidates_power_score = rank_candidates_by_power(
+                    fix.candidates_lla,
+                    lla,
+                    _station_signal_power(tgt),
+                    ref_power=(
+                        None if ref_tx is None
+                        else _station_signal_power(ref1)
+                    ),
+                    ref_tx_lla=(
+                        None if ref_tx is None else ref_tx.lla()
+                    ),
+                )
+                # Coverage prior: operator knowledge of the
+                # surveillance area. Fed to the posterior only when it
+                # can actually discriminate (≥1 candidate inside) — a
+                # prior excluding ALL candidates is evidence of a prior
+                # mismatch, not of either candidate.
+                prior_dist = prior_radius = None
+                n_inside = None
+                if cfg.prior is not None:
+                    p_lat, p_lon, p_rad = cfg.prior
+                    prior_dist = np.array([
+                        _horiz_m(c[0], c[1], p_lat, p_lon, fix.elev)
+                        for c in fix.candidates_lla
+                    ])
+                    prior_radius = float(p_rad)
+                    n_inside = int(
+                        np.count_nonzero(prior_dist <= prior_radius)
+                    )
+                # ---- one posterior from everything ----
+                def posterior(with_power: bool):
+                    return ghost_posterior(
+                        k_cand,
+                        rms_m=np.asarray(fix.candidates_rms, np.float64),
+                        sigma_m=sigma_m,
+                        n_pairs_active=n_active,
+                        power_scores=(
+                            fix.candidates_power_score if with_power
+                            else None
+                        ),
+                        n_stations=len(names),
+                        prior_dist_m=(
+                            prior_dist if n_inside else None
+                        ),
+                        prior_radius_m=prior_radius,
+                        threshold_nats=cfg.ghost_threshold_nats,
+                    )
+
+                verdict = posterior(with_power=True)
+                # Power evidence may MOVE the fix only with the opt-in
+                # flag (power_disambiguation — it rests on free-space
+                # propagation assumptions the other signals don't
+                # need): without it, the decision stands on the
+                # prior/FDOA/timing evidence ALONE — disagreeing power
+                # evidence stays visible in the reported posterior but
+                # cannot veto the swap (an earlier form required
+                # actionable.best == verdict.best, which let
+                # uncalibrated power scores silently pin a
+                # prior/FDOA-decided fix to the wrong intersection).
+                no_power = posterior(with_power=False)
+                actionable = (
+                    verdict if cfg.power_disambiguation else no_power
+                )
+                swap_to = actionable.best if actionable.decided else 0
+                # "Power moved the fix" only when power was PIVOTAL —
+                # the power-free posterior would NOT have made the same
+                # decision (not merely when power evidence existed:
+                # that labeled prior-driven swaps as power-driven).
+                power_moved = bool(
+                    swap_to != 0 and cfg.power_disambiguation
+                    and not (no_power.decided
+                             and no_power.best == swap_to)
+                )
+                if swap_to != 0:
+                    perm = np.asarray(
+                        [swap_to] + [i for i in range(k_cand)
+                                     if i != swap_to]
+                    )
+                    fix = refit_to_candidate(
+                        fix, swap_to, lla, pairs,
+                        weights=w, tdoa_sigma_s=tdoa_std_s,
+                    )
+                    # Keep every evidence array aligned with the
+                    # reported candidate order (refit_to_candidate
+                    # already reorders the fix's own arrays). The
+                    # reported posterior's ``best`` follows its own
+                    # argmax through the permutation — usually 0 (the
+                    # swapped-to candidate), but honestly non-zero when
+                    # power evidence disagreed with a power-free
+                    # decision.
+                    verdict = dataclasses.replace(
+                        verdict,
+                        log_odds=verdict.log_odds[perm],
+                        best=int(np.nonzero(perm == verdict.best)[0][0]),
+                        components={k2: v[perm] for k2, v
+                                    in verdict.components.items()},
+                    )
+                    if prior_dist is not None:
+                        prior_dist = prior_dist[perm]
+                    second, rms2, sep = runnerup(fix)
+                ghost_verdict = verdict
+
+                # ---- per-signal notes (evidence the posterior saw,
+                # in the reported candidate order) ----
+                prior_txt = ""
+                if prior_dist is not None:
+                    if n_inside == 1:
+                        prior_txt = (
+                            f"; coverage prior "
+                            f"({prior_radius / 1000.0:.0f} km around "
+                            f"{cfg.prior[0]:.4f},{cfg.prior[1]:.4f}) "
+                            f"selects the only in-prior solution"
+                        )
+                    elif n_inside == 0:
+                        prior_txt = (
+                            "; coverage prior excludes ALL candidates "
+                            "— suspect geometry or a prior mismatch"
+                        )
+                    else:
+                        prior_txt = (
+                            f"; coverage prior keeps {n_inside} "
+                            f"candidates — inconclusive"
+                        )
+                scores = np.asarray(
+                    fix.candidates_power_score, np.float64
+                )
+                best_p = int(np.argmin(scores))
+                margin_p = float(
+                    np.delete(scores, best_p).min() - scores[best_p]
+                )
+                cal_txt = (
+                    "REF-gain-calibrated" if ref_tx is not None
+                    else "UNcalibrated per-station gains"
+                )
+                if margin_p >= 0.1:
+                    pref = (
+                        "primary" if best_p == 0
+                        else f"candidate #{best_p + 1}"
+                    )
+                    power_txt = (
+                        f"; received-power ranking (1/r path loss, "
+                        f"{cal_txt}, advisory) prefers the {pref} "
+                        f"solution (consistency {scores.min():.2f} vs "
+                        f"next {scores.min() + margin_p:.2f} log-σ)"
+                    )
+                    if power_moved and best_p == 0:
+                        power_txt += (
+                            " — fix moved to the power-preferred "
+                            "solution (power_disambiguation on)"
+                        )
+                else:
+                    power_txt = (
+                        f"; received-power ranking ({cal_txt}) is "
+                        f"inconclusive (best margin {margin_p:.2f} "
+                        f"log-σ)"
+                    )
+                # ---- the unified verdict ----
+                runner = (
+                    int(np.argsort(verdict.log_odds)[-2])
+                    if k_cand > 1 else 0
+                )
+                contribs = ", ".join(
+                    f"{k2} {float(v[verdict.best] - v[runner]):+.1f}"
+                    for k2, v in verdict.components.items()
+                )
+                post_txt = (
+                    f"; unified posterior: "
+                    + ("the primary" if verdict.best == 0
+                       else f"candidate #{verdict.best + 1}")
+                    + f" leads by {verdict.margin_nats:.1f} nats "
+                    f"({contribs}) vs the "
+                    f"{cfg.ghost_threshold_nats:.1f}-nat decision "
+                    f"threshold"
+                    + (" — fix moved to the posterior-preferred "
+                       "solution" if swap_to != 0
+                       else (" — decided, already the primary"
+                             if actionable.decided
+                             and actionable.best == 0
+                             else " — abstaining, fix unmoved"))
+                )
+                warnings.append(
+                    f"ambiguous fix (TDOA ghost): a second solution "
+                    f"{sep:.0f} m away at {second[0]:.6f},{second[1]:.6f} "
+                    f"fits equally well (rms {rms2:.1f} m vs "
+                    f"{fix.rms_residual_m:.1f} m) — a fourth station or "
+                    f"a coverage prior disambiguates"
+                    f"{prior_txt}{power_txt}{post_txt}"
+                )
+
+        if cfg.prior is not None:
+            p_lat, p_lon, p_rad = cfg.prior
+            d_fix = _horiz_m(fix.lat, fix.lon, p_lat, p_lon, fix.elev)
+            if d_fix > p_rad:
+                warnings.append(
+                    f"fix is {d_fix / 1000.0:.1f} km outside the "
+                    f"coverage prior ({p_rad / 1000.0:.0f} km around "
+                    f"{p_lat:.4f},{p_lon:.4f})"
+                )
+        return fix, w, excluded, ghost_verdict
+
+    def process_captures(self, captures: Dict[str, Tuple]) -> TDOAResult:
+        """Run the pipeline on in-memory blocks {station: (ref1, tgt,
+        ref2)}: complex arrays (numpy or torch) or planar [2, L] tensors
+        (the ``.dat`` ingest path)."""
+        cfg = self.config
+        self._check_supported()
+        names = [n for n in captures.keys()]
+        if len(names) < 3:
+            raise ValueError("need at least 3 stations for a 2D fix")
+        pairs = station_pairs(len(names))
+
+        def prep(b) -> torch.Tensor:
+            b = _planar(b, self.device)
+            if cfg.truncate_samples is not None:
+                b = b[:, :cfg.truncate_samples]
+            return b
+
+        # Capture-time geometry: REF1/REF2 midpoints are two ORIGINAL
+        # block lengths apart even when the analysis window is truncated.
+        orig_block_len = min(int(captures[n][0].shape[-1]) for n in names)
+
+        def stack(idx: int) -> torch.Tensor:
+            return torch.stack([prep(captures[n][idx]) for n in names], dim=1)
+
+        ref1, tgt, ref2 = stack(0), stack(1), stack(2)
+        if not self._fused_eligible(len(names), int(ref1.shape[-1])):
+            raise _unported(
+                "this capture geometry (blocks shorter than one 45056-sample "
+                "kernel segment, max_lag beyond the alias-free 20480, or a "
+                "station count whose accumulators exceed the card)",
+                "segmented correlator and short captures")
+        warnings: List[str] = []
+        ref_geo = self._ref_geo_tdoa_samples(names, pairs)
+        out = process_blocks(
+            ref1, tgt, ref2, pairs,
+            torch.as_tensor(ref_geo, dtype=torch.float32),
+            max_lag=cfg.max_lag,
+            weighting=cfg.weighting,
+            clock_correction=cfg.clock_correction,
+        )
+        (corrected, tgt_d, ref_d, clock, quality, peaks, corr_std,
+         tgt_window, tgt_std, win_c_blocks) = (t.cpu() for t in out)
+        win_c_np = win_c_blocks.numpy().astype(np.complex128)  # [3, m, W]
+        corrected = np.asarray(corrected, np.float64)
+        tdoa_s = corrected / cfg.sample_rate
+        tdoa_std_s = np.asarray(corr_std, np.float64) / cfg.sample_rate
+        ref_d = np.asarray(ref_d, np.float64)
+        # REF-block midpoints sit 2 original block lengths apart.
+        drift_ppm = (ref_d[:, 1] - ref_d[:, 0]) / (2 * orig_block_len) * 1e6
+        if cfg.clock_correction and self.stations.reference_tx is None:
+            warnings.append(
+                f"reference transmitter position unknown (no station row "
+                f"named '{cfg.ref_freq:.0f}'): clock correction cancels "
+                f"clock offsets but leaves the REF transmitter's per-pair "
+                f"geometric TDOA in every measurement — the fix may be "
+                f"biased"
+            )
+        lla = self.stations.lla_array(names)
+        ecef = lla_to_ecef(lla)
+        q_arr = np.asarray(quality[1], np.float64)
+        for k, (i, j) in enumerate(pairs):
+            bl = np.linalg.norm(ecef[i] - ecef[j])
+            max_tdoa = bl / SPEED_OF_LIGHT
+            if abs(tdoa_s[k]) > max_tdoa * 1.05:
+                warnings.append(
+                    f"pair {names[i]}-{names[j]}: TDOA {tdoa_s[k]*1e6:.2f} us "
+                    f"exceeds baseline limit {max_tdoa*1e6:.2f} us"
+                )
+            if q_arr[k] < 5.0:
+                warnings.append(
+                    f"pair {names[i]}-{names[j]}: weak correlation "
+                    f"(peak-to-sidelobe {q_arr[k]:.1f}) — measurement "
+                    f"downweighted"
+                )
+
+        # Co-channel presence check: a second emitter at comparable
+        # power puts a second strong peak in every pair's correlation.
+        # When all pairs lock the SAME second emitter the TDOA set is
+        # cycle-consistent and the fix lands cleanly — on whichever
+        # source won the peak race — so no residual or quality gate can
+        # see it. The secondary peak can. The detection runs in every
+        # mode (the lobe-shape detector below stands down on it); the
+        # WARNING is mode-1 only — with multi_emitter > 1 the
+        # association path already separates and reports the sources.
+        from tdoa_tpu_torch.solve.association import top_k_peaks
+
+        win64 = np.asarray(tgt_window, np.float64)
+        cand = top_k_peaks(win64, 2)
+        second_frac = cand.value[:, 1] / np.maximum(
+            cand.value[:, 0], 1e-30
+        )
+        strong = second_frac >= 0.6
+        secondary_fired = bool(
+            np.count_nonzero(strong) >= max(1, (len(pairs) + 1) // 2)
+        )
+        if secondary_fired:
+            warnings.append(
+                f"strong secondary correlation peaks on "
+                f"{int(np.count_nonzero(strong))}/{len(pairs)} pairs "
+                f"(>= 60% of the primary): a co-channel emitter or "
+                f"strong multipath is present and the single-emitter "
+                f"fix may belong to either source — rerun with "
+                f"--multi-emitter 2 to separate them"
+            )
+        # In-peak multipath detector: an echo INSIDE the correlation
+        # peak width merges with the direct path — no secondary peak,
+        # no quality drop, and a 3-station fix absorbs the common bias
+        # with near-zero residual (a Monte Carlo silent miss, seed
+        # 6204). The merged lobe's shape gives it away: a clean GCC
+        # peak's power centroid is stable as the measuring window
+        # widens (|skew| change < 0.5 over L=20→60 on clean AND noisy
+        # scenes), while a direct+echo composite drags the centroid
+        # further with every widening (drift > 1.0 on 11/13 planted-
+        # echo scenes). It stands down when a resolvable second source
+        # already fired the stronger warning.
+        lobe_drift = _lobe_centroid_drift(win64)
+
+        q = np.asarray(quality[1], np.float64)
+        # Quadratic quality weighting with a hard gate: a pair whose
+        # correlation peak barely clears the sidelobe floor carries no
+        # usable timing — letting it vote at all can drag the solve by
+        # hundreds of km (its residual is unbounded). Gate only while
+        # enough healthy pairs remain to fix a position.
+        w = (q / np.maximum(q.max(), 1e-9)) ** 2
+        gated = w * (q >= 5.0)
+        if np.count_nonzero(gated) >= min(3, len(pairs)):
+            w = gated
+        fix = solve_fix(
+            lla,
+            tdoa_s,
+            weights=w,
+            pair_idx=pairs,
+            solve_z=cfg.solve_z,
+            tdoa_sigma_s=tdoa_std_s,
+        )
+        # Lobe-shape verdict: a resolvable second source already set
+        # secondary_fired — otherwise a drifting centroid is the only
+        # trace an in-peak echo leaves.
+        multipath_flagged = None
+        multipath_sigma = None
+        echo_sep = None
+        echo_ratio = None
+        echo_env_confirmed = False
+        if cfg.multipath_mitigation:
+            # Honest echo-bias accounting, CONTINUOUS (not gated on the
+            # warning threshold): the centroid-offset statistic maps
+            # each pair's lobe contamination to a calibrated σ addend,
+            # plus a scene floor once any pair confirms an echo
+            # environment (dsp/multipath.py echo_bias_sigma — the
+            # calibration table and the measured evidence that delay
+            # RE-ESTIMATION is worse than the plain GCC-HT read live
+            # there). Clean scenes stay untouched (offset < knee).
+            # Runs UNCONDITIONALLY on the reported TGT windows, because
+            # the statistic is
+            # self-gating (clean lobes sit under the knee) while the
+            # old motion/secondary stand-down gates silenced it on
+            # exactly the scenes that needed it (round-4 calibration:
+            # 2 of 3 uncovered multipath tail trials were strong
+            # echoes whose 60%+ secondary peaks fired secondary_fired,
+            # which then suppressed the σ accounting on the reported
+            # single-emitter fix). A co-channel source OUTSIDE the lobe (distinct peak beyond
+            # ±60 lags) leaves the centroid alone; one inside it drags
+            # the reported fix exactly like an echo and is covered the
+            # same way.
+            from tdoa_tpu_torch.dsp.multipath import (
+                _ECHO_ENV_THRESHOLD,
+                REF_ECHO_CONSISTENCY_THRESHOLD,
+                echo_bias_sigma,
+                lobe_centroid_offset,
+                mitigate_flagged_pairs,
+                ref_lobe_echo_consistency,
+            )
+
+            # Environment confirmation for the σ floor: the drift
+            # statistic on the same windows the offset reads.
+            drift_echo = lobe_drift
+            off_echo = lobe_centroid_offset(win64)
+            # Third, INDEPENDENT confirmation lane (round 5): dual-REF
+            # lobe-shape consistency. A static station-local reflector
+            # marks BOTH REF blocks' lobes the same way (~1/3 capture
+            # apart) while noise jitter is independent between them —
+            # this sees echo environments whose TGT statistics stay
+            # inside clean ranges (the invisible-echo class; 14% of it
+            # detected at zero false positives over 80 clean scenes,
+            # REFECHO_PROBE.json). Premise: the reflectors are
+            # station-local, so the REF channel traverses them too.
+            cx_ref = win_c_np
+            s_ref = ref_lobe_echo_consistency(
+                np.abs(cx_ref[0]), np.abs(cx_ref[2])
+            )
+            ref_echo_env = bool(
+                s_ref.size
+                and float(s_ref.max()) > REF_ECHO_CONSISTENCY_THRESHOLD
+            )
+            # Scene-level echo-environment confirmation: any lane over
+            # its threshold. Drives the σ floor here AND the heavy-tail
+            # contour scales below.
+            echo_env_confirmed = bool(
+                (drift_echo.size and float(drift_echo.max()) > 1.0)
+                or (off_echo.size
+                    and float(off_echo.max()) > _ECHO_ENV_THRESHOLD)
+                or ref_echo_env
+            )
+            mp_sigma = echo_bias_sigma(
+                off_echo,
+                env_confirmed=bool(
+                    drift_echo.size and float(drift_echo.max()) > 1.0
+                ) or ref_echo_env,
+            )
+            if ref_echo_env:
+                k_r = int(np.argmax(s_ref))
+                i_r, j_r = pairs[k_r]
+                warnings.append(
+                    f"REF-block lobes carry a consistent echo signature "
+                    f"(dual-REF centroid consistency "
+                    f"{float(s_ref.max()):.2f} > "
+                    f"{REF_ECHO_CONSISTENCY_THRESHOLD} on "
+                    f"{names[i_r]}-{names[j_r]}): station-local "
+                    f"multipath environment — echo-bias σ floor applied "
+                    f"to every pair"
+                )
+            if np.any(mp_sigma > 0):
+                multipath_sigma = mp_sigma
+                # Pre-inflation noise σ: the independent part of the
+                # station-correlated covariance rebuilt after
+                # _analyze_fix (the echo part enters through the
+                # per-station bias model there, not this diagonal).
+                tdoa_noise_s = tdoa_std_s.copy()
+                tdoa_std_s = np.sqrt(
+                    tdoa_std_s ** 2 + (mp_sigma / cfg.sample_rate) ** 2
+                )
+                fix = solve_fix(
+                    lla, tdoa_s, weights=w, pair_idx=pairs,
+                    solve_z=cfg.solve_z, tdoa_sigma_s=tdoa_std_s,
+                )
+        if not secondary_fired and np.max(lobe_drift) > 1.0:
+            k_d = int(np.argmax(lobe_drift))
+            i_d, j_d = pairs[k_d]
+            flagged = lobe_drift > 1.0
+            multipath_flagged = flagged.copy()
+            n_d = int(np.count_nonzero(flagged))
+            # Diagnose the flagged lobes: the two-path decomposition's
+            # SEPARATION and amplitude ratio are template-bias-free
+            # (differences), so they reliably measure the echo's
+            # geometry even though its absolute positions must not
+            # replace the TDOA (dsp/multipath.py evidence table).
+            fits = [None] * len(pairs)
+            if cfg.multipath_mitigation:
+                cx = win_c_np  # [3 (block), m, W]
+                _, _, fits = mitigate_flagged_pairs(
+                    cx[1], flagged, q, lobe_drift, cfg.max_lag,
+                    ref_win_c=cx[[0, 2]],
+                )
+            detail = []
+            for k in np.flatnonzero(flagged):
+                fit = fits[k]
+                if fit is None or not fit.decisive:
+                    continue
+                if echo_sep is None:
+                    echo_sep = np.full(len(pairs), np.nan)
+                    echo_ratio = np.full(len(pairs), np.nan)
+                echo_sep[k] = fit.separation
+                echo_ratio[k] = fit.echo_ratio
+                excess_km = (fit.separation / cfg.sample_rate
+                             * SPEED_OF_LIGHT / 1000.0)
+                detail.append(
+                    f"{names[pairs[k][0]]}-{names[pairs[k][1]]}: echo "
+                    f"{fit.separation:.1f} samples (~{excess_km:.1f} km "
+                    f"excess path) at {fit.echo_ratio:.2f} relative "
+                    f"amplitude"
+                )
+            sigma_note = (
+                "the error budget carries the calibrated echo-bias σ "
+                "(multipath_sigma_samples) and the position was "
+                "re-solved with it"
+                if multipath_sigma is not None
+                else "enable multipath_mitigation to fold the "
+                     "calibrated echo-bias σ into the error budget"
+            )
+            diag_note = (
+                " — two-path diagnosis: " + "; ".join(detail)
+                if detail else ""
+            )
+            warnings.append(
+                f"correlation main lobe is asymmetric on "
+                f"{n_d}/{len(pairs)} pairs (worst {names[i_d]}-"
+                f"{names[j_d]}, centroid drift "
+                f"{lobe_drift[k_d]:.1f} samples): in-peak multipath "
+                f"echo (or uncompensated emitter motion — rerun with "
+                f"--solve-velocity); {sigma_note}{diag_note}"
+            )
+        # The TDOA set is final now: run the consistency gate, outlier rejection, ghost/prior/power
+        # analysis, and the out-of-prior warning on what will actually
+        # be reported.
+        fix, w, excluded_stations, ghost_verdict = self._analyze_fix(
+            fix, w, tdoa_s, tdoa_std_s, names, pairs, lla, tgt, ref1,
+            warnings,
+        )
+
+        if multipath_sigma is not None and fix.cov_en is not None:
+            # Fix-level echo covariance (round-4): echo biases live at
+            # STATIONS, so pairs sharing one are correlated — the
+            # independent per-pair model's multipath fix coverage sat
+            # at 72.7% 3σ while per-pair coverage was 95-96%.
+            # Apportion the calibrated per-pair σ addends to
+            # per-station biases (σ_pair² ≈ τ_i² + τ_j²) and rebuild
+            # the FINAL fix's covariance (post ghost swaps/exclusions,
+            # final weights) with the sandwich model; every internal
+            # re-solve keeps the cheap independent model — only the
+            # reported ellipse changes.
+            from tdoa_tpu_torch.dsp.multipath import (
+                STATION_BIAS_FIX_INFLATION,
+                STATION_BIAS_FIX_INFLATION_CONFIRMED,
+                station_bias_apportion,
+            )
+            from tdoa_tpu_torch.solve.multilateration import (
+                error_ellipse,
+                fix_covariance_enu_correlated,
+            )
+
+            # One γ for every echo-engaged fix (round-5: the two tiers
+            # are equal — the maha tail lives in the UNCONFIRMED class,
+            # so a confirmed-only inflation could never reach it; the
+            # tail is covered by conf_scales below instead).
+            tau_m = (
+                (STATION_BIAS_FIX_INFLATION_CONFIRMED
+                 if echo_env_confirmed else STATION_BIAS_FIX_INFLATION)
+                * station_bias_apportion(pairs, len(names), multipath_sigma)
+                / cfg.sample_rate * SPEED_OF_LIGHT
+            )
+            cov_mp = fix_covariance_enu_correlated(
+                lla_to_enu(lla, fix.origin_lla), pairs, fix.enu,
+                tdoa_noise_s * SPEED_OF_LIGHT, tau_m, weights=w,
+            )
+            if np.all(np.isfinite(cov_mp)):
+                from tdoa_tpu_torch.dsp.multipath import ECHO_TAIL_CONF_SCALES
+
+                fix = dataclasses.replace(
+                    fix, cov_en=cov_mp, ellipse=error_ellipse(cov_mp),
+                    # EVERY echo-engaged fix carries the calibrated
+                    # heavy-tail contour scales: the kσ confidence
+                    # contour is the k·s_k ellipse. A single Gaussian
+                    # scale cannot calibrate both the echo-bias median
+                    # and its tail, and the tail's worst rows are the
+                    # UNCONFIRMED ones (TGT statistics under the env
+                    # thresholds) — so the scales must not be gated on
+                    # confirmation (round-5 fit, MULTIPATH_CAL_r05).
+                    conf_scales=ECHO_TAIL_CONF_SCALES,
+                )
+
+        return TDOAResult(
+            fix=fix,
+            station_names=names,
+            pair_idx=pairs,
+            tgt_delay_samples=np.asarray(tgt_d, np.float64),
+            ref_delay_samples=ref_d,
+            clock_offset_samples=np.asarray(clock, np.float64),
+            corrected_tdoa_samples=corrected,
+            tdoa_seconds=tdoa_s,
+            quality=q,
+            peak_value=np.asarray(peaks[1], np.float64),
+            tdoa_std_s=tdoa_std_s,
+            clock_drift_ppm=drift_ppm,
+            warnings=warnings,
+            excluded_stations=excluded_stations or None,
+            solve_weights=np.asarray(w, np.float64),
+            multipath_flagged=multipath_flagged,
+            multipath_sigma_samples=multipath_sigma,
+            multipath_echo_separation_samples=echo_sep,
+            multipath_echo_ratio=echo_ratio,
+            ghost=ghost_verdict,
+        )
+
+    def process_files(self, dat_paths: Sequence[str]) -> TDOAResult:
+        """Load ``.dat`` files (station identity from filenames) and
+        process them."""
+        return self.process_captures(self.load_files(dat_paths))
+
+    def process_files_overlapped(self, dat_paths: Sequence[str]) -> TDOAResult:
+        """Host-resident overlapped ingest of the reference."""
+        raise _unported("overlapped ingest", "streaming and ingest")
+
+    def tail_session(self, station_names: Sequence[str], block_len: int,
+                     chunk_samples: Optional[int] = None):
+        """Growing-window ingest session of the reference."""
+        raise _unported("tail ingest sessions", "streaming and ingest")
+
+    def load_files(
+        self, dat_paths: Sequence[str]
+    ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+        """Load ``.dat`` files into {station: (ref1, tgt, ref2)} planar
+        bf16 blocks on the processor's device: the operand dtype of the
+        fused kernels, the port's only correlator."""
+        captures: Dict[str, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
+        known = self.stations.names
+        for path in dat_paths:
+            if not os.path.exists(path):
+                raise FileNotFoundError(f"capture file not found: {path}")
+            st = station_from_filename(path, known)
+            if st is None:
+                raise ValueError(
+                    f"cannot infer station from filename: {path} "
+                    f"(known stations: {', '.join(known)})"
+                )
+            if st in captures:
+                raise ValueError(
+                    f"two capture files resolve to station '{st}' "
+                    f"(second: {path}); pass one file per station"
+                )
+            cap = load_dat(path, station=st, dtype=torch.bfloat16,
+                           device=self.device)
+            captures[st] = (cap.ref1, cap.tgt, cap.ref2)
+        return captures

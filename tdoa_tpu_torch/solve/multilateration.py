@@ -1,0 +1,422 @@
+"""Hyperbolic multilateration: TDOA range differences → position.
+
+Torch port of ``tdoa_tpu.solve.multilateration``: an adaptive
+Levenberg-Marquardt least-squares solve over all C(n,2) station pairs in
+a local ENU frame, in float32 with the reference's iteration count and
+multistart ring. The problem is a few dozen numbers, so it runs on CPU
+tensors by design; the covariance, ellipse and ranking helpers are
+float64 numpy, as in the reference.
+
+Sign convention: ``tdoa[m]`` for pair ``(i, j)`` is the arrival-time
+delay at station *j* relative to station *i*; the residual is
+``(||x − s_j|| − ||x − s_i||) − c·tdoa[m]``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from tdoa_tpu_torch.geo import enu_to_lla, lla_to_ecef, lla_to_enu, network_origin
+from tdoa_tpu_torch.utils.constants import SPEED_OF_LIGHT
+
+
+def station_pairs(n: int) -> np.ndarray:
+    """Upper-triangle index pairs [(0,1), (0,2), ..., (n-2,n-1)] as [m, 2]."""
+    return np.array(
+        [(i, j) for i in range(n) for j in range(i + 1, n)], dtype=np.int32
+    )
+
+
+def solve_tdoa_enu(
+    stations_enu: torch.Tensor,  # [n, 3] local ENU meters
+    pair_idx: torch.Tensor,  # [m, 2]
+    range_diffs: torch.Tensor,  # [m] meters, c * tdoa
+    weights: Optional[torch.Tensor] = None,  # [m] relative confidence
+    x0: Optional[torch.Tensor] = None,  # [3] or [S, 3] initial guesses
+    iters: int = 40,
+    solve_z: bool = False,
+):
+    """Adaptive-LM hyperbolic solve in float32, batched over the
+    leading axis of ``x0``. Returns (position [S, 3], rms [S]) — or
+    ([3], scalar) for a single ``[3]`` start. ``solve_z=False`` freezes
+    the up-coordinate at its start value (2D fix)."""
+    st = stations_enu.to(torch.float32)
+    pair_idx = torch.as_tensor(pair_idx, dtype=torch.int64)
+    m = pair_idx.shape[0]
+    w = (torch.ones(m, dtype=torch.float32) if weights is None
+         else torch.as_tensor(weights).to(torch.float32))
+    if x0 is None:
+        x0 = st.mean(0)
+    single = x0.dim() == 1
+    x = x0.to(torch.float32).reshape(-1, 3).clone()
+    si = st[pair_idx[:, 0]]  # [m, 3]
+    sj = st[pair_idx[:, 1]]
+    rd = torch.as_tensor(range_diffs).to(torch.float32)
+    n_dim = 3 if solve_z else 2
+    eye = torch.eye(n_dim, dtype=torch.float32)
+
+    def residuals_jac(x):
+        di = x[:, None, :] - si[None]  # [S, m, 3]
+        dj = x[:, None, :] - sj[None]
+        ri = torch.linalg.norm(di, dim=-1)
+        rj = torch.linalg.norm(dj, dim=-1)
+        r = (rj - ri) - rd
+        jac = dj / (rj[..., None] + 1e-9) - di / (ri[..., None] + 1e-9)
+        return r, jac[..., :n_dim]
+
+    lam = torch.full((x.shape[0],), 1e-2, dtype=torch.float32)
+    for _ in range(iters):
+        r, jac = residuals_jac(x)
+        jtw = jac.transpose(1, 2) * w  # [S, d, m]
+        h = jtw @ jac + lam[:, None, None] * eye
+        g = (jtw @ r[..., None])[..., 0]
+        step = torch.linalg.solve(h, -g)
+        x_try = x.clone()
+        x_try[:, :n_dim] += step
+        r_try, _ = residuals_jac(x_try)
+        better = (w * r_try * r_try).sum(-1) < (w * r * r).sum(-1)
+        x = torch.where(better[:, None], x_try, x)
+        lam = torch.where(better, torch.clamp(lam / 3.0, min=1e-7),
+                          lam * 10.0)
+    r, _ = residuals_jac(x)
+    rms = torch.sqrt((w * r * r).sum(-1) / torch.clamp(w.sum(), min=1e-9))
+    if single:
+        return x[0], rms[0]
+    return x, rms
+
+
+def solve_tdoa_enu_multistart(
+    stations_enu: torch.Tensor,
+    pair_idx: torch.Tensor,
+    range_diffs: torch.Tensor,
+    weights: Optional[torch.Tensor] = None,
+    iters: int = 40,
+    solve_z: bool = False,
+    n_starts: int = 9,
+    start_radius_m: float = 40_000.0,
+):
+    """LM from the centroid + a ring of starts, all batched. Surfaces
+    every basin (ghost intersections). Returns (positions [k, 3],
+    rms [k]) sorted by rms."""
+    st = stations_enu.to(torch.float32)
+    centroid = st.mean(0)
+    angles = torch.arange(n_starts - 1, dtype=torch.float32) * (
+        2.0 * np.pi / max(n_starts - 1, 1))
+    ring = centroid[None, :] + start_radius_m * torch.stack(
+        [torch.cos(angles), torch.sin(angles), torch.zeros_like(angles)],
+        dim=-1)
+    starts = torch.cat([centroid[None, :], ring], dim=0)
+    pos, rms = solve_tdoa_enu(st, pair_idx, range_diffs, weights=weights,
+                              x0=starts, iters=iters, solve_z=solve_z)
+    order = torch.argsort(rms, stable=True)
+    return pos[order], rms[order]
+
+
+def fix_covariance_enu(
+    stations_enu: np.ndarray,  # [n, 3]
+    pair_idx: np.ndarray,  # [m, 2]
+    pos_enu: np.ndarray,  # [3] solution
+    sigma_m: np.ndarray,  # [m] 1σ range-difference errors, meters
+) -> np.ndarray:
+    """2×2 east-north covariance of the fix by linear error propagation:
+    Cov = (Jᵀ W J)⁻¹ with J the range-difference Jacobian at the solution
+    and W = diag(1/σ²). Host-side numpy (tiny)."""
+    si = stations_enu[pair_idx[:, 0]]
+    sj = stations_enu[pair_idx[:, 1]]
+    di = pos_enu - si
+    dj = pos_enu - sj
+    ui = di / np.maximum(np.linalg.norm(di, axis=-1, keepdims=True), 1e-9)
+    uj = dj / np.maximum(np.linalg.norm(dj, axis=-1, keepdims=True), 1e-9)
+    jac = (uj - ui)[:, :2]  # [m, 2]
+    w = 1.0 / np.maximum(np.asarray(sigma_m) ** 2, 1e-12)
+    jtj = jac.T @ (jac * w[:, None])
+    try:
+        return np.linalg.inv(jtj)
+    except np.linalg.LinAlgError:
+        return np.full((2, 2), np.inf)
+
+
+def fix_covariance_enu_correlated(
+    stations_enu: np.ndarray,  # [n, 3]
+    pair_idx: np.ndarray,  # [m, 2]
+    pos_enu: np.ndarray,  # [3] solution
+    sigma_noise_m: np.ndarray,  # [m] 1σ INDEPENDENT errors, meters
+    station_bias_m: np.ndarray,  # [n] 1σ per-STATION echo bias, meters
+    weights: Optional[np.ndarray] = None,  # [m] solver weights (0 ⇒ out)
+) -> np.ndarray:
+    """2×2 east-north fix covariance under STATION-correlated echo bias.
+
+    An in-peak echo lives at a station, not at a pair: station s's
+    contaminated receive path drags every pair containing s, so pair
+    (i, j)'s TDOA error is n_ij + (b_j − b_i) with independent noise n
+    and latent per-station biases b. The measurement covariance is
+
+        Σ = diag(σ_n²) + A·diag(τ_s²)·Aᵀ,   A[k, i] = −1, A[k, j] = +1
+
+    and the covariance of the diag-weighted LS fix (weights W =
+    1/diag(Σ), the same per-pair totals the independent model uses) is
+    the sandwich (JᵀWJ)⁻¹ JᵀWΣWJ (JᵀWJ)⁻¹. With τ = 0 this reduces
+    exactly to ``fix_covariance_enu``; with τ > 0 the off-diagonal
+    echo terms inflate the covariance along the directions a
+    shared-station bias actually drags the fix — which is why the
+    independent model's multipath-regime fix coverage sat at 72.7% 3σ
+    while its PER-PAIR coverage was 95-96% (round-3 verdict item 2).
+    The reference has no error model at all (processor.go:932-1020
+    reports only residuals)."""
+    stations_enu = np.asarray(stations_enu, np.float64)
+    pair_idx = np.asarray(pair_idx)
+    n = stations_enu.shape[0]
+    m = pair_idx.shape[0]
+    si = stations_enu[pair_idx[:, 0]]
+    sj = stations_enu[pair_idx[:, 1]]
+    di = pos_enu - si
+    dj = pos_enu - sj
+    ui = di / np.maximum(np.linalg.norm(di, axis=-1, keepdims=True), 1e-9)
+    uj = dj / np.maximum(np.linalg.norm(dj, axis=-1, keepdims=True), 1e-9)
+    jac = (uj - ui)[:, :2]  # [m, 2]
+
+    A = np.zeros((m, n))
+    A[np.arange(m), pair_idx[:, 0]] = -1.0
+    A[np.arange(m), pair_idx[:, 1]] = 1.0
+    tau2 = np.asarray(station_bias_m, np.float64) ** 2
+    sig_n2 = np.asarray(sigma_noise_m, np.float64) ** 2
+    live = np.isfinite(sig_n2)
+    if weights is not None:
+        live &= np.asarray(weights, np.float64) > 0.0
+    # Excluded pairs: weight 0 zeroes their JW rows, so their Σ
+    # entries never contribute — just keep them finite.
+    sig_n2 = np.where(live, sig_n2, 1.0)
+    cov_meas = np.diag(sig_n2) + A @ (tau2[:, None] * A.T)
+    w = np.where(live, 1.0 / np.maximum(np.diag(cov_meas), 1e-12), 0.0)
+    jw = jac * w[:, None]  # [m, 2]
+    jtj = jac.T @ jw
+    try:
+        inv = np.linalg.inv(jtj)
+    except np.linalg.LinAlgError:
+        return np.full((2, 2), np.inf)
+    return inv @ (jw.T @ cov_meas @ jw) @ inv
+
+
+def _propagated_uncertainty(
+    stations_enu: np.ndarray,
+    pair_idx: np.ndarray,
+    pos_enu: np.ndarray,
+    weights: Optional[Sequence[float]],
+    tdoa_sigma_s: Optional[Sequence[float]],
+):
+    """(cov_en, ellipse) at ``pos_enu``, or (None, None) without sigmas.
+
+    A pair the solver excluded (weight 0) must not tighten the
+    covariance: its phase-slope sigma can be tiny even when its delay
+    is garbage (e.g. a narrowband interferer) — such pairs get σ=∞.
+    """
+    if tdoa_sigma_s is None:
+        return None, None
+    sigma_m = np.asarray(tdoa_sigma_s, dtype=np.float64) * SPEED_OF_LIGHT
+    if weights is not None:
+        sigma_m = np.where(
+            np.asarray(weights, np.float64) > 0.0, sigma_m, np.inf
+        )
+    cov_en = fix_covariance_enu(
+        np.asarray(stations_enu, np.float64), np.asarray(pair_idx),
+        pos_enu, sigma_m,
+    )
+    return cov_en, error_ellipse(cov_en)
+
+
+def error_ellipse(cov2: np.ndarray, k_sigma: float = 1.0):
+    """(semi_major_m, semi_minor_m, azimuth_deg east-of-north) of the
+    k-sigma confidence ellipse for a 2×2 EN covariance."""
+    vals, vecs = np.linalg.eigh(cov2)
+    order = np.argsort(vals)[::-1]
+    vals, vecs = vals[order], vecs[:, order]
+    major = k_sigma * float(np.sqrt(max(vals[0], 0.0)))
+    minor = k_sigma * float(np.sqrt(max(vals[1], 0.0)))
+    # vecs[:,0] = (east, north) of the major axis.
+    azimuth = float(np.degrees(np.arctan2(vecs[0, 0], vecs[1, 0]))) % 180.0
+    return major, minor, azimuth
+
+
+@dataclasses.dataclass
+class FixResult:
+    lat: float
+    lon: float
+    elev: float
+    enu: np.ndarray  # [3] position in the solve frame
+    rms_residual_m: float
+    origin_lla: np.ndarray  # the ENU origin used
+    # All distinct multi-start solutions as (lla [k,3], rms [k]) sorted by
+    # rms — ghost TDOA intersections show up here for disambiguation.
+    candidates_lla: Optional[np.ndarray] = None
+    candidates_rms: Optional[np.ndarray] = None
+    # 1/r received-power consistency per candidate (log-σ, lower =
+    # more consistent), filled by the processor on ambiguous fixes —
+    # see rank_candidates_by_power.
+    candidates_power_score: Optional[np.ndarray] = None
+    # 1σ east-north covariance (m²) and ellipse (semi-major m,
+    # semi-minor m, azimuth° E-of-N), from measurement error propagation
+    # — present when the caller supplied per-pair TDOA uncertainties.
+    cov_en: Optional[np.ndarray] = None
+    ellipse: Optional[tuple] = None
+    # Per-level radial scale factors (s1, s2, s3) for the 1σ/2σ/3σ
+    # confidence CONTOURS relative to cov_en: the kσ contour is the
+    # k·s_k ellipse. None ⇒ Gaussian (1, 1, 1). Non-unit only in
+    # confirmed echo environments, where the fix-error distribution is
+    # heavy-tailed (Student-t radial calibration, dsp/multipath.py
+    # ECHO_TAIL_* — round-5: one Gaussian scale cannot calibrate both
+    # the median and the tail).
+    conf_scales: Optional[tuple] = None
+
+
+def solve_fix(
+    station_lla: np.ndarray,  # [n, 3] (lat°, lon°, elev m)
+    tdoas_s: Sequence[float],  # [m] seconds, pair order = station_pairs(n)
+    weights: Optional[Sequence[float]] = None,
+    pair_idx: Optional[np.ndarray] = None,
+    solve_z: bool = False,
+    n_starts: int = 9,
+    tdoa_sigma_s: Optional[Sequence[float]] = None,
+) -> FixResult:
+    """LLA stations + TDOA seconds → lat/lon fix: a multi-start solve
+    reporting the lowest-residual solution, with every distinct
+    converged candidate riding along for ghost disambiguation, and a
+    covariance/ellipse when ``tdoa_sigma_s`` is given."""
+    station_lla = np.asarray(station_lla, dtype=np.float64)
+    n = station_lla.shape[0]
+    if pair_idx is None:
+        pair_idx = station_pairs(n)
+    origin = network_origin(station_lla)
+    enu = lla_to_enu(station_lla, origin).astype(np.float32)
+    rd = np.asarray(tdoas_s, dtype=np.float64) * SPEED_OF_LIGHT
+    w = (None if weights is None
+         else torch.from_numpy(np.asarray(weights, np.float32)))
+    pos_all, rms_all = solve_tdoa_enu_multistart(
+        torch.from_numpy(enu),
+        torch.from_numpy(np.asarray(pair_idx, np.int64)),
+        torch.from_numpy(rd.astype(np.float32)),
+        weights=w,
+        solve_z=solve_z,
+        n_starts=n_starts,
+    )
+    pos_all = pos_all.numpy().astype(np.float64)
+    rms_all = rms_all.numpy().astype(np.float64)
+    # Deduplicate converged basins (within 30 m is one point) and drop
+    # unconverged strays (residual far above the best solution's).
+    keep = []
+    rms_gate = max(3.0 * rms_all[0], 50.0)
+    for k in range(pos_all.shape[0]):
+        if k > 0 and rms_all[k] > rms_gate:
+            continue
+        if not any(np.linalg.norm(pos_all[k] - pos_all[j]) < 30.0 for j in keep):
+            keep.append(k)
+    pos_all, rms_all = pos_all[keep], rms_all[keep]
+    pos = pos_all[0]
+    lla = enu_to_lla(pos, origin)
+    cov_en, ellipse = _propagated_uncertainty(
+        enu, pair_idx, pos, weights, tdoa_sigma_s
+    )
+    return FixResult(
+        lat=float(lla[0]),
+        lon=float(lla[1]),
+        elev=float(lla[2]),
+        enu=pos,
+        rms_residual_m=float(rms_all[0]),
+        origin_lla=origin,
+        candidates_lla=enu_to_lla(pos_all, origin),
+        candidates_rms=rms_all,
+        cov_en=cov_en,
+        ellipse=ellipse,
+    )
+
+
+def refit_to_candidate(
+    fix: FixResult,
+    k: int,
+    station_lla: np.ndarray,
+    pair_idx: Optional[np.ndarray] = None,
+    weights: Optional[Sequence[float]] = None,
+    tdoa_sigma_s: Optional[Sequence[float]] = None,
+) -> FixResult:
+    """FixResult re-centered on ``candidates[k]`` (ghost swap).
+
+    Position and rms come from the stored multi-start candidate — both
+    intersections already satisfy the TDOAs, so no re-solve is needed —
+    but the covariance/ellipse are re-propagated at the new position
+    (the Jacobian geometry differs between intersections). Candidate
+    arrays are reordered so the chosen solution leads.
+    """
+    station_lla = np.asarray(station_lla, np.float64)
+    if pair_idx is None:
+        pair_idx = station_pairs(len(station_lla))
+    origin = fix.origin_lla
+    cand = np.asarray(fix.candidates_lla[k], np.float64)
+    pos = lla_to_enu(cand, origin)
+    cov_en, ellipse = _propagated_uncertainty(
+        lla_to_enu(station_lla, origin), pair_idx, pos,
+        weights, tdoa_sigma_s,
+    )
+    order = [k] + [i for i in range(len(fix.candidates_rms)) if i != k]
+    return dataclasses.replace(
+        fix,
+        lat=float(cand[0]),
+        lon=float(cand[1]),
+        elev=float(cand[2]),
+        enu=pos,
+        rms_residual_m=float(fix.candidates_rms[k]),
+        candidates_lla=np.asarray(fix.candidates_lla)[order],
+        candidates_rms=np.asarray(fix.candidates_rms)[order],
+        candidates_power_score=(
+            None if fix.candidates_power_score is None
+            else np.asarray(fix.candidates_power_score)[order]
+        ),
+        cov_en=cov_en,
+        ellipse=ellipse,
+    )
+
+
+def rank_candidates_by_power(
+    candidates_lla: np.ndarray,  # [k, 3] (lat°, lon°, elev m)
+    station_lla: np.ndarray,  # [n, 3]
+    tgt_power: np.ndarray,  # [n] mean received TGT-block power (linear)
+    ref_power: Optional[np.ndarray] = None,  # [n] mean REF-block power
+    ref_tx_lla: Optional[np.ndarray] = None,  # [3] REF transmitter
+) -> np.ndarray:
+    """1/r path-loss consistency score per fix candidate (lower = more
+    consistent with the received powers).
+
+    A TDOA ghost fits the *timing* exactly — two hyperbola intersections
+    satisfy every pair — but it sits at different distances from the
+    stations than the true emitter, and free-space amplitude falls as
+    1/r. For the true candidate c the received amplitudes satisfy
+    a_i·d_i(c) ≈ const, so the score is the standard deviation across
+    stations of log(a_i·d_i(c)); working in log ratios drops the
+    unknown transmit power and any common receiver gain.
+
+    Per-station gain differences (the gain calibrator deliberately sets
+    different dB per station) are removed with the REF block when given:
+    the REF transmitter is common and its distances are known, so
+    g_i ∝ p_ref_i·d_ref_i² and the TGT amplitude is gain-corrected by
+    √g_i. Residual assumptions — comparable antenna patterns toward
+    both transmitters, free-space propagation, noise well below the
+    signal — make this an advisory ranking, not a measurement.
+    """
+    st = lla_to_ecef(np.asarray(station_lla, np.float64))
+    p_tgt = np.maximum(np.asarray(tgt_power, np.float64), 1e-30)
+    log_a = 0.5 * np.log(p_tgt)
+    if ref_power is not None and ref_tx_lla is not None:
+        d_ref = np.linalg.norm(
+            st - lla_to_ecef(np.asarray(ref_tx_lla, np.float64)), axis=-1
+        )
+        p_ref = np.maximum(np.asarray(ref_power, np.float64), 1e-30)
+        # log √g_i = ½·log p_ref_i + log d_ref_i (up to a common const).
+        log_a = log_a - 0.5 * np.log(p_ref) - np.log(np.maximum(d_ref, 1.0))
+    cands = np.atleast_2d(np.asarray(candidates_lla, np.float64))
+    scores = np.empty(len(cands))
+    for k, cand in enumerate(cands):
+        d = np.linalg.norm(st - lla_to_ecef(cand), axis=-1)
+        scores[k] = np.std(log_a + np.log(np.maximum(d, 1.0)))
+    return scores
