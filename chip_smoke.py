@@ -7,19 +7,27 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. device  — CUDA with compute capability 9.0, versions, card name and
              power limit, TF32 off;
-2. build   — both hand-written kernels from ``tdoa_tpu_torch/csrc/``;
+2. build   — the three hand-written kernels from ``tdoa_tpu_torch/csrc/``
+             (one nvcc per source, started together);
 3. kernels — each kernel against its plain torch version on the card
              (kernel 1: 3 stations, K = 4, DC sums on, bf16, at 16
              segments and at a 10 s block's 443 segments, whose banks
              cross stage-1 chunks; kernel 2: K = 4, m = 3, F = 65536 on
-             the 443-segment banks), then both timed with CUDA events
-             at the main path's shapes;
+             the 443-segment banks, and the segmented path's 9 pairs of
+             9 channels; kernel 3: 9 channels × 20 M samples,
+             D = 8), then each timed with CUDA events at the main path's
+             shapes beside its bound (bytes over 3.35 TB/s or f32
+             operations over 67 TFLOP/s, the larger);
 4. slice   — a synthesized 3-station 30 s capture (three 10 s blocks of
              20 M samples, ``lat-lon-table.csv`` geometry, an FM-like
              source, per-station clock offsets, noise) written as u8
              ``.dat`` files and run through ``TDOAProcessor.process_files``
-             twice; the second run is timed and must go through both
-             kernels and land within 0.5 sample / 200 m of the truth.
+             on three paths, each run twice (warm-up, then timed with
+             every launch count set to 0 just before it):
+             the fused IQ path (kernels 1 and 2; within 0.5 sample /
+             200 m of the truth), ``accumulator="xla"`` (the segmented
+             correlator and kernel 2, not kernel 1; 0.5 sample / 200 m)
+             and ``mode="fm"`` (kernel 3; 16 samples / 4 km).
 
 The last two lines are the card's ``nvidia-smi`` name and power limit,
 then ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -43,6 +51,11 @@ BLOCK = 20_000_000  # 10 s at 2 Msps
 CLOCK_OFFSETS_S = (12e-6, -31e-6, 48e-6)  # 24 / -62 / 96 samples
 K1_TOL = 1e-4  # relative to each row's peak magnitude
 K2_TOL = 2e-3  # samples
+K3_TOL = 2e-4  # audio, absolute (tests/test_pallas_fm.py's tolerance)
+FM_DECIM = 8
+# Published H100 SXM peaks (NVIDIA data sheet) for the bounds.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 
 
 def _smi() -> str:
@@ -105,6 +118,16 @@ def phase_build():
     for line in (lib.parent / "ptxas.txt").read_text().splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
+
+
+def _bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the f32 operations over the f32 peak."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "ops": n_ops}
 
 
 def _errs(got, want) -> tuple:
@@ -176,6 +199,40 @@ def phase_kernels(dev):
     if not k2_delay < K2_TOL:
         raise RuntimeError("zoom_probe disagrees with its plain version")
 
+    # Kernel 2 at the segmented IQ path's shape too: K = 4 banks of the
+    # 9 pairs of 3 stacked blocks × 3 stations, F = 65536, from the
+    # segmented correlator's own accumulation (8 segments of 45536).
+    from tdoa_tpu_torch.ops.corr import _accumulate_cross_spectra
+
+    seg9, n9 = 65536 - 20000, 9
+    x9 = torch.randn(2, n9, 8 * seg9, device=dev, generator=g)
+    for b in range(3):
+        x9[:, 3 * b + 1] += 0.5 * torch.roll(x9[:, 3 * b], 37, dims=-1)
+        x9[:, 3 * b + 2] += 0.5 * torch.roll(x9[:, 3 * b], -12, dims=-1)
+    pairs9 = [(3 * b + i, 3 * b + j) for b in range(3) for i, j in pairs]
+    banks = [_accumulate_cross_spectra(
+        x9[..., 2 * k * seg9:2 * (k + 1) * seg9], pairs9, seg9, 65536)
+        for k in range(K)]
+    cross9 = torch.stack([a[0] for a in banks])
+    psd9 = torch.stack([a[1] for a in banks])
+    coarse9, nseg9 = coarse.repeat(3), torch.full((K * n9,), 6.0, device=dev)
+    w9_k = zoom_probe.loo_zoom_windows(cross9, psd9, pairs9, coarse9, nseg9)
+    w9_p = zoom_probe.loo_zoom_windows_plain(cross9, psd9, pairs9, coarse9,
+                                             nseg9)
+    torch.cuda.synchronize()
+    d9 = float((parabolic_peak(w9_k.abs())[0]
+                - parabolic_peak(w9_p.abs())[0]).abs().max())
+    a9, r9 = _errs(w9_k, w9_p)
+    print(f"zoom_probe [K={K}, m=9, n_st=9, F=65536]: max |delay kernel - "
+          f"plain| = {d9:.3e} samples (tol {K2_TOL:g}); window max |kernel "
+          f"- plain| = {a9:.3e}, / row peak {r9:.3e}")
+    if not d9 < K2_TOL:
+        raise RuntimeError("zoom_probe disagrees with its plain version at "
+                           "the segmented path's shape")
+    k2_abs, k2_rel = max(k2_abs, a9), max(k2_rel, r9)
+    k2_delay = max(k2_delay, d9)
+    del x9, banks, cross9, psd9
+
     # Times at the main path's shapes.
     k1_ms = _time_ms(lambda: corr_accum.accumulate_banks(x443, pairs, K, True), 5)
     k1_plain = _time_ms(lambda: corr_accum.accumulate_banks_plain(
@@ -184,23 +241,97 @@ def phase_kernels(dev):
         cross_g, psd_g, pairs, coarse, nseg), 20)
     k2_plain = _time_ms(lambda: zoom_probe.loo_zoom_windows_plain(
         cross_g, psd_g, pairs, coarse, nseg), 20)
+    F, n_st, m, n_seg = corr_accum.FFT_LEN, 3, len(pairs), 443
+    # Kernel 1: bf16 planar input read once; cross, psd and DC-sum banks
+    # written once. Operations: a 5·F·log2(F) complex FFT per station
+    # and segment, 8 per bin per pair (cross MAC), 4 (PSD) and 2 (sums)
+    # per bin per station.
+    b1 = _bound(2 * n_st * n_seg * SEG_LEN * 2 + K * F * (8 * m + 4 * n_st
+                                                         + 8 * n_st),
+                n_seg * F * (n_st * 5 * 16 + 8 * m + 6 * n_st))
+    # Kernel 2: the cross and PSD banks read once, the windows written
+    # once. Operations per (probe row, bin): 8 per lag of the 33-lag
+    # zoom DFT, ~40 for the LOO weighting and the deramp.
+    W = zoom_probe.W
+    b2 = _bound(K * F * (8 * m + 4 * n_st) + K * m * W * 8,
+                K * m * F * (8 * W + 40))
     print(f"time corr_accum [3 st, 443 seg, K={K}]: kernel {k1_ms:.3f} ms, "
-          f"plain {k1_plain:.3f} ms")
+          f"plain {k1_plain:.3f} ms, bound {b1['bound_ms']:.4f} ms "
+          f"({b1['bound_by']}: {b1['bytes'] / 1e6:.1f} MB, "
+          f"{b1['ops'] / 1e9:.2f} GFLOP)")
     print(f"time zoom_probe [K={K}, m=3, F=65536]: kernel {k2_ms:.3f} ms, "
-          f"plain {k2_plain:.3f} ms")
+          f"plain {k2_plain:.3f} ms, bound {b2['bound_ms']:.4f} ms "
+          f"({b2['bound_by']}: {b2['bytes'] / 1e6:.2f} MB, "
+          f"{b2['ops'] / 1e9:.3f} GFLOP)")
     del x443, got, x
+    k3 = _kernel3(dev, g)
     return [
         {"name": "corr_accum", "route": "cuda",
          "source": "tdoa_tpu_torch/csrc/corr_accum.cu",
          "replaces": "tdoa_tpu/ops/pallas/corr_accum.py:634",
          "max_abs_err": k1_abs, "max_rel_err_row_peak": k1_rel,
-         "ms": k1_ms, "plain_ms": k1_plain},
+         "ms": k1_ms, "plain_ms": k1_plain,
+         "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
+         "library_ms": None},
         {"name": "zoom_probe", "route": "cuda",
          "source": "tdoa_tpu_torch/csrc/zoom_probe.cu",
          "replaces": "tdoa_tpu/ops/pallas/zoom_probe.py:244",
          "max_abs_err": k2_abs, "max_rel_err_row_peak": k2_rel,
-         "max_delay_err_samples": k2_delay, "ms": k2_ms, "plain_ms": k2_plain},
+         "max_delay_err_samples": k2_delay, "ms": k2_ms, "plain_ms": k2_plain,
+         "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"],
+         "library_ms": None},
+        k3,
     ]
+
+
+def _kernel3(dev, g):
+    """Kernel 3 against its plain version at the FM path's shape: the 3
+    blocks × 3 stations of a 30 s capture, 9 channels × 20 M samples of
+    FM-like IQ with noise, D = 8; then both timed."""
+    import torch
+
+    from tdoa_tpu_torch.ops.kernels import fm_demod
+
+    C, n = 9, BLOCK
+    x = torch.empty(2, C, n, device=dev)
+    for c in range(C):
+        step = torch.randn(n, device=dev, generator=g, dtype=torch.float64)
+        phase = torch.cumsum(0.3 * step, 0)
+        x[0, c] = 0.3 * torch.cos(phase)
+        x[1, c] = 0.3 * torch.sin(phase)
+        del step, phase
+    x += 0.1 * torch.randn(2, C, n, device=dev, generator=g)
+    got = fm_demod.fm_demod_decimate(x, FS, decim=FM_DECIM)
+    want = fm_demod.fm_demod_decimate_plain(x, FS, decim=FM_DECIM)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    print(f"fm_demod [{C} ch x {n} samples, D={FM_DECIM}]: max |kernel - "
+          f"plain| = {err:.3e} (tol {K3_TOL:g}); audio peak "
+          f"{float(want.abs().max()):.3f}")
+    if not err < K3_TOL:
+        raise RuntimeError("fm_demod disagrees with its plain version")
+    del got, want
+    k3_ms = _time_ms(lambda: fm_demod.fm_demod_decimate(x, FS, decim=FM_DECIM),
+                     20)
+    k3_plain = _time_ms(lambda: fm_demod.fm_demod_decimate_plain(
+        x, FS, decim=FM_DECIM), 2)
+    # IQ read once (8 bytes a sample), audio written once; operations:
+    # the conjugate product and scale (7) and atan2 (~20) per sample, a
+    # multiply-add per tap per output.
+    n_out = n // FM_DECIM
+    b3 = _bound(C * n * 8 + C * n_out * 4,
+                C * n * 27 + C * n_out * 2 * fm_demod.NUM_TAPS)
+    print(f"time fm_demod [{C} ch x {n}, D={FM_DECIM}]: kernel {k3_ms:.3f} "
+          f"ms, plain {k3_plain:.3f} ms, bound {b3['bound_ms']:.4f} ms "
+          f"({b3['bound_by']}: {b3['bytes'] / 1e6:.1f} MB, "
+          f"{b3['ops'] / 1e9:.2f} GFLOP)")
+    del x
+    return {"name": "fm_demod", "route": "cuda",
+            "source": "tdoa_tpu_torch/csrc/fm_demod.cu",
+            "replaces": "tdoa_tpu/ops/pallas/fm_demod.py:189",
+            "max_abs_err": err, "ms": k3_ms, "plain_ms": k3_plain,
+            "bound_ms": b3["bound_ms"], "bound_by": b3["bound_by"],
+            "library_ms": None}
 
 
 def _synthesize(dev, out_dir: Path):
@@ -266,39 +397,52 @@ def _synthesize(dev, out_dir: Path):
     return paths, dict(zip(names, tau["tgt"])), tgt_tx
 
 
-def phase_slice(dev):
+# The paths phase 4 drives on the same files: (name, processor settings,
+# TDOA bound in samples, fix bound in m, kernels that must launch,
+# kernels that must not).
+PATHS = (
+    ("fused IQ", {}, 0.5, 200.0, ("corr_accum", "zoom_probe"), ()),
+    ("segmented IQ (accumulator=xla)", {"accumulator": "xla"}, 0.5, 200.0,
+     ("zoom_probe",), ("corr_accum", "fm_demod")),
+    ("FM (mode=fm)", {"mode": "fm", "fm_decim": FM_DECIM}, 16.0, 4000.0,
+     ("fm_demod",), ("corr_accum",)),
+)
+
+
+def _counters():
+    from tdoa_tpu_torch.ops.kernels import corr_accum, fm_demod, zoom_probe
+
+    return {"corr_accum": corr_accum.accumulate_banks,
+            "zoom_probe": zoom_probe.loo_zoom_windows,
+            "fm_demod": fm_demod.fm_demod_decimate}
+
+
+def _run_path(dev, paths, tau_tgt, tgt_tx, name, cfg, tdoa_tol, fix_tol,
+              must, must_not):
+    """One path on the files: a warm-up run, then a timed run with every
+    launch count set to 0 just before it and read just after; checks
+    the result against the truth and the launches against the path."""
     import numpy as np
     import torch
 
     from tdoa_tpu_torch.geo import lla_to_enu
-    from tdoa_tpu_torch.ops.kernels import corr_accum, zoom_probe
     from tdoa_tpu_torch.pipeline import TDOAProcessor
 
-    print("== phase 4: the slice (3 stations, 30 s capture)")
-    (ROOT / "build").mkdir(exist_ok=True)
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "build"))
-    try:
-        t0 = time.perf_counter()
-        paths, tau_tgt, tgt_tx = _synthesize(dev, tmp)
-        torch.cuda.synchronize()
-        print(f"synthesized {len(paths)} x {3 * BLOCK} samples in "
-              f"{time.perf_counter() - t0:.1f} s")
-        proc = TDOAProcessor.from_csv(162_400_000.0, 101_900_000.0,
-                                      str(ROOT / "lat-lon-table.csv"),
-                                      device=dev)
-        t0 = time.perf_counter()
-        proc.process_files(paths)  # warm-up: cuFFT plans, allocator
-        print(f"first run {time.perf_counter() - t0:.3f} s")
-        corr_accum.accumulate_banks.launches = 0
-        zoom_probe.loo_zoom_windows.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = proc.process_files(paths)  # results are host arrays: synced
-        wall = time.perf_counter() - t0
-        launches = {"corr_accum": corr_accum.accumulate_banks.launches,
-                    "zoom_probe": zoom_probe.loo_zoom_windows.launches}
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"-- {name}")
+    proc = TDOAProcessor.from_csv(162_400_000.0, 101_900_000.0,
+                                  str(ROOT / "lat-lon-table.csv"),
+                                  device=dev, **cfg)
+    t0 = time.perf_counter()
+    proc.process_files(paths)  # warm-up: cuFFT plans, allocator
+    print(f"first run {time.perf_counter() - t0:.3f} s")
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = proc.process_files(paths)  # results are host arrays: synced
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
     print(f"timed run: process_files {wall:.3f} s  [{_smi()}]")
     print(f"kernel launches in the timed run: {launches}")
     names = res.station_names
@@ -316,13 +460,41 @@ def phase_slice(dev):
           f"{res.fix.ellipse[0]:.2f} x {res.fix.ellipse[1]:.2f} m")
     for w in res.warnings:
         print(f"  warning: {w}")
-    if min(launches.values()) < 1:
-        raise RuntimeError(f"a kernel of the path did not launch: {launches}")
-    if not np.all(np.abs(err) < 0.5):
-        raise RuntimeError(f"corrected TDOAs off the truth by {err}")
-    if not fix_err < 200.0:
-        raise RuntimeError(f"fix {fix_err:.1f} m from the transmitter")
-    return launches, wall
+    if any(launches[k] < 1 for k in must):
+        raise RuntimeError(f"{name}: a kernel of the path did not launch: "
+                           f"{launches}")
+    if any(launches[k] for k in must_not):
+        raise RuntimeError(f"{name}: a kernel off the path launched: "
+                           f"{launches}")
+    if not np.all(np.abs(err) < tdoa_tol):
+        raise RuntimeError(f"{name}: corrected TDOAs off the truth by {err}")
+    if not fix_err < fix_tol:
+        raise RuntimeError(f"{name}: fix {fix_err:.1f} m from the "
+                           f"transmitter")
+    return {"wall_s": wall, "launches": launches,
+            "tdoa_err_samples": err.tolist(), "fix_err_m": fix_err}
+
+
+def phase_slice(dev):
+    import torch
+
+    print("== phase 4: the slice (3 stations, 30 s capture), three paths")
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "build"))
+    try:
+        t0 = time.perf_counter()
+        paths, tau_tgt, tgt_tx = _synthesize(dev, tmp)
+        torch.cuda.synchronize()
+        print(f"synthesized {len(paths)} x {3 * BLOCK} samples in "
+              f"{time.perf_counter() - t0:.1f} s")
+        out = {}
+        for name, cfg, tdoa_tol, fix_tol, must, must_not in PATHS:
+            out[name] = _run_path(dev, paths, tau_tgt, tgt_tx, name, cfg,
+                                  tdoa_tol, fix_tol, must, must_not)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
 
 
 def main() -> int:
@@ -339,10 +511,13 @@ def main() -> int:
     dev = phase_device()
     phase_build()
     kernels = phase_kernels(dev)
-    launches, wall = phase_slice(dev)
+    paths = phase_slice(dev)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-    print(f"slice wall time {wall:.3f} s")
+        by_path = {p: r["launches"][k["name"]] for p, r in paths.items()}
+        k["launches"] = sum(by_path.values())
+        k["launches_by_path"] = by_path
+    for p, r in paths.items():
+        print(f"slice wall time, {p}: {r['wall_s']:.3f} s")
     print(json.dumps({"kernels": kernels}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {

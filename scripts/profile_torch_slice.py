@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's 30 s, 3-station slice.
 
-    python3 scripts/profile_torch_slice.py [--runs 12] [--out chiprun_out/profile_torch_slice.json]
+    python3 scripts/profile_torch_slice.py [--runs 12] [--mode iq|fm]
+        [--accumulator auto|xla] [--out chiprun_out/profile_torch_slice.json]
 
 Needs one CUDA card (sm_90a) and imports nothing of JAX. It synthesizes
 the capture ``chip_smoke.py`` runs (three 10 s blocks of 20 M samples
-per station, ``lat-lon-table.csv`` geometry), then on a warm process:
+per station, ``lat-lon-table.csv`` geometry), then on a warm process
+of the chosen path (``--mode fm``: FM demod by kernel 3 and the
+segmented correlator on the audio; ``--accumulator xla``: the segmented
+IQ correlator; the defaults: the fused IQ kernels):
 
 1. times ``--runs`` runs of ``TDOAProcessor.process_files``, split into
    ``load_files`` (read + copy + decode) and ``process_captures``
@@ -57,8 +61,12 @@ def _device_time(evt) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=12)
-    ap.add_argument("--out", default=str(ROOT / "chiprun_out"
-                                         / "profile_torch_slice.json"))
+    ap.add_argument("--mode", default="iq", choices=["iq", "fm"])
+    ap.add_argument("--accumulator", default="auto",
+                    choices=["auto", "xla", "pallas"])
+    ap.add_argument("--out", default=None,
+                    help="JSON report (default: chiprun_out/"
+                         "profile_torch_slice[_<mode>_<accumulator>].json)")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
@@ -74,7 +82,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     report = {"device": chip_smoke._smi(), "torch": torch.__version__,
-              "cuda": torch.version.cuda}
+              "cuda": torch.version.cuda, "mode": args.mode,
+              "accumulator": args.accumulator}
     print(f"nvidia-smi: {report['device']}  torch {report['torch']}")
     (ROOT / "build").mkdir(exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix="profile_slice_", dir=ROOT / "build"))
@@ -83,8 +92,12 @@ def main() -> int:
         torch.cuda.synchronize()
         proc = TDOAProcessor.from_csv(162_400_000.0, 101_900_000.0,
                                       str(ROOT / "lat-lon-table.csv"),
-                                      device=dev)
+                                      device=dev, mode=args.mode,
+                                      accumulator=args.accumulator)
         proc.process_files(paths)  # warm-up: build, cuFFT plans, allocator
+        # The decode dtype load_files picks for this path (bf16 for the
+        # fused kernels, f32 for the segmented correlator).
+        dtype = next(iter(proc.load_files(paths).values()))[0].dtype
 
         # 1. Spans of process_files.
         load, corr, total = [], [], []
@@ -118,7 +131,7 @@ def main() -> int:
             d = torch.from_numpy(raw).to(dev)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            bytes_to_iq_planar(d, torch.bfloat16)
+            bytes_to_iq_planar(d, dtype)
             torch.cuda.synchronize()
             t3 = time.perf_counter()
             ingest.append({"bytes": int(raw.size), "read_ms": (t1 - t0) * 1e3,
@@ -161,7 +174,10 @@ def main() -> int:
             print(f"  {t:8.3f} ms  x{c:<5d} {k[:90]}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    out = Path(args.out)
+    suffix = ("" if (args.mode, args.accumulator) == ("iq", "auto")
+              else f"_{args.mode}_{args.accumulator}")
+    out = Path(args.out or ROOT / "chiprun_out"
+               / f"profile_torch_slice{suffix}.json")
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=1, default=float))
     print(f"wrote {out}")

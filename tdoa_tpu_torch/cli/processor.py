@@ -3,11 +3,13 @@
     python -m tdoa_tpu_torch.cli.processor <ref_freq> <target_freq> \
         <stations.csv> <dat1> <dat2> <dat3> [...]
 
-Loads the captures onto the card (or the CPU when none is visible),
-runs the fused GCC correlator with dual-REF clock correction, prints
-per-pair TDOAs and the position fix. Flags of ``tdoa_tpu.cli.processor``
-whose paths are not ported yet are accepted and rejected with a message
-naming the ROADMAP item.
+Loads the captures onto the card (``--device cpu`` runs the kernels'
+plain versions on the CPU instead), correlates raw IQ (the fused
+kernels, or the segmented correlator for short blocks, lags beyond
+20480 or ``--seg-len``) or FM-demodulated audio (``--mode fm``) with
+dual-REF clock correction, prints per-pair TDOAs and the position fix.
+Flags of ``tdoa_tpu.cli.processor`` whose paths are not ported yet are
+accepted and rejected with a message naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -21,12 +23,10 @@ import numpy as np
 # Flags of the reference CLI this port does not run yet: their default
 # (accepted) and the ROADMAP item that ports them.
 _UNPORTED = {
-    "mode": ("iq", "FM mode"),
     "lo_compensation": (False, "LO compensation, CAF/velocity, multi-emitter"),
     "solve_velocity": (False, "LO compensation, CAF/velocity, multi-emitter"),
     "multi_emitter": (1, "LO compensation, CAF/velocity, multi-emitter"),
     "overlap_ingest": (False, "streaming and ingest"),
-    "seg_len": (None, "segmented correlator and short captures"),
     "geojson": (None, "host tools"),
     "profile": (False, "port benchmark"),
     "trace": (None, "port benchmark"),
@@ -66,12 +66,20 @@ def main(argv=None) -> int:
     p.add_argument("csv", help="lat-lon-table.csv station geometry")
     p.add_argument("dat_files", nargs="+", help=".dat capture files (>= 3)")
     p.add_argument("--max-lag", type=int, default=20000,
-                   help="correlation search window, samples (<= 20480, the "
-                        "fused kernel's alias-free window)")
+                   help="correlation search window, samples (default "
+                        "20000; beyond 20480, the fused kernel's alias-free "
+                        "window, the segmented correlator runs)")
+    p.add_argument("--seg-len", type=int, default=1 << 16,
+                   help="segment length of the segmented correlator, "
+                        "samples (default 2^16)")
     p.add_argument("--weighting", default="ht",
                    choices=["ht", "ml", "phat", "scot", "none"])
     p.add_argument("--no-clock-correction", action="store_true",
                    help="skip dual-frequency reference clock removal")
+    p.add_argument("--mode", default="iq", choices=["iq", "fm"],
+                   help="correlate raw IQ or FM-demodulated audio")
+    p.add_argument("--fm-decim", type=int, default=8,
+                   help="audio decimation factor for --mode fm (divides 128)")
     p.add_argument("--prior", metavar="LAT,LON,RADIUS_KM", default=None,
                    help="coverage prior: center lat,lon (deg) and radius "
                         "(km); a unique in-prior candidate resolves a "
@@ -84,12 +92,11 @@ def main(argv=None) -> int:
     p.add_argument("--truncate-s", type=float, default=None,
                    help="use only the first N seconds of each block")
     p.add_argument("--device", default=None,
-                   help="torch device (default: cuda when available)")
+                   help="torch device (default: the card; an error when "
+                        "none is visible — pass cpu to run on the CPU)")
     p.add_argument("--json", action="store_true",
                    help="emit one machine-readable JSON line")
     # Reference flags whose paths are not ported yet.
-    p.add_argument("--mode", default="iq", choices=["iq", "fm"])
-    p.add_argument("--seg-len", type=int, default=None)
     p.add_argument("--lo-compensation", action="store_true")
     p.add_argument("--solve-velocity", action="store_true")
     p.add_argument("--multi-emitter", type=int, default=1)
@@ -111,16 +118,23 @@ def main(argv=None) -> int:
 
     trunc = (int(args.truncate_s * DEFAULT_SAMPLE_RATE)
              if args.truncate_s is not None else None)
-    proc = TDOAProcessor.from_csv(
-        args.ref_freq, args.target_freq, args.csv, device=args.device,
-        max_lag=args.max_lag,
-        weighting=args.weighting,
-        clock_correction=not args.no_clock_correction,
-        truncate_samples=trunc,
-        power_disambiguation=args.power_disambiguation,
-        prior=prior,
-        outlier_rejection=not args.no_outlier_rejection,
-    )
+    try:
+        proc = TDOAProcessor.from_csv(
+            args.ref_freq, args.target_freq, args.csv, device=args.device,
+            max_lag=args.max_lag,
+            seg_len=args.seg_len,
+            weighting=args.weighting,
+            clock_correction=not args.no_clock_correction,
+            mode=args.mode,
+            fm_decim=args.fm_decim,
+            truncate_samples=trunc,
+            power_disambiguation=args.power_disambiguation,
+            prior=prior,
+            outlier_rejection=not args.no_outlier_rejection,
+        )
+    except RuntimeError as e:  # no card visible and no --device
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     print(f"Processing {len(args.dat_files)} captures on {proc.device} "
           f"(ref {args.ref_freq/1e6:.4f} MHz, target "
           f"{args.target_freq/1e6:.4f} MHz)",

@@ -40,11 +40,10 @@ def banks_from_planar(cross_re, cross_im, psd, energy,
 
 
 # Reference config fields that only tune paths the port does not run
-# (segmented correlator, FM mode, CAF/velocity, emitter association).
+# (CAF/velocity, emitter association).
 REFERENCE_ONLY_FIELDS = frozenset({
-    "seg_len", "fm_decim", "emitter_tol_samples", "caf_seg_len",
-    "caf_n_doppler", "caf_max_samples", "fdoa_disambiguation",
-    "max_emitter_speed_mps",
+    "emitter_tol_samples", "caf_seg_len", "caf_n_doppler",
+    "caf_max_samples", "fdoa_disambiguation", "max_emitter_speed_mps",
 })
 
 

@@ -1,2 +1,3 @@
-"""Signal-analysis helpers of the IQ main path (numpy): the in-peak
-multipath detector and echo-bias accounting (``multipath.py``)."""
+"""Signal-analysis helpers (torch and numpy): windows, FIR filtering and
+decimation (``filters.py``), FM/AM/SSB demodulation (``fm.py``), and the
+in-peak multipath detector and echo-bias accounting (``multipath.py``)."""

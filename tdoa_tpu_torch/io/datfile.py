@@ -16,11 +16,13 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from typing import Optional
 
 import numpy as np
 import torch
 
 from tdoa_tpu_torch.utils.constants import IQ_CENTER, IQ_SCALE, NUM_BLOCKS
+from tdoa_tpu_torch.utils.platform import default_device
 
 
 def bytes_to_iq_planar(raw: torch.Tensor,
@@ -66,9 +68,12 @@ class DatCapture:
 
 def load_dat(path: str, station: str = "",
              dtype: torch.dtype = torch.float32,
-             device: torch.device = torch.device("cpu")) -> DatCapture:
-    """Load a ``.dat`` file and decode it on ``device`` into planar
-    ``dtype`` blocks. Only whole ``3 × (I, Q)`` sample groups are kept."""
+             device: Optional[torch.device] = None) -> DatCapture:
+    """Load a ``.dat`` file and decode it on ``device`` (default: the
+    card, ``utils.platform.default_device``) into planar ``dtype``
+    blocks. Only whole ``3 × (I, Q)`` sample groups are kept."""
+    if device is None:
+        device = default_device()
     raw = np.fromfile(path, dtype=np.uint8)
     usable = (raw.size // (2 * NUM_BLOCKS)) * (2 * NUM_BLOCKS)
     dev_raw = torch.from_numpy(raw[:usable]).to(device)

@@ -1,17 +1,25 @@
-"""GCC cross-correlation on the fused-kernel geometry — the hot path.
+"""GCC cross-correlation — the hot path.
 
-Torch port of the parts of ``tdoa_tpu.ops.corr`` that the IQ main path
-reaches: ``correlate_pairs_fused`` (kernel 1 accumulates the K split
-banks, ``ops/kernels/corr_accum.py``), ``_combine_splits`` (the full
-capture's finish plus the split-σ probe, kernel 2 for HT/ML weighting,
-``ops/kernels/zoom_probe.py``), ``_finish_correlation`` (GCC weighting,
-iFFT, parabolic peak, phase-slope refine, σ model) and
-``clock_correct_blocks``.
+Torch port of ``tdoa_tpu.ops.corr``:
 
-Spectra are native ``complex64`` tensors and the finish-stage inverse
-transform is ``torch.fft.ifft``. Sign convention: for pair ``(i, j)``
-the cross-spectrum is ``X_j · conj(X_i)``, so a positive delay means
-the signal reaches station *j* later than station *i*.
+- ``correlate_pairs_fused``: the fixed kernel geometry (kernel 1
+  accumulates the K split banks, ``ops/kernels/corr_accum.py``);
+- ``correlate_pairs_planar``: the segmented correlator of any segment
+  and FFT length (``resolve_seg``), with ``torch.fft`` over chunks of
+  segments — blocks shorter than one kernel segment, lags beyond its
+  alias-free window, ``accumulator="xla"`` and the FM mode's audio;
+- ``_combine_splits`` (the full capture's finish plus the split-σ probe,
+  kernel 2 for HT/ML weighting, ``ops/kernels/zoom_probe.py``),
+  ``_finish_correlation`` (GCC weighting, iFFT, parabolic peak,
+  phase-slope refine, σ model) and ``clock_correct_blocks``, shared by
+  both.
+
+Signals are planar ``[2, n_st, N]`` real tensors, spectra native
+``complex64`` tensors. Sign convention: for pair ``(i, j)`` the
+cross-spectrum is ``X_j · conj(X_i)``, so a positive delay means the
+signal reaches station *j* later than station *i*. With FFT length ≥
+seg_len + max_lag the circular correlation equals the linear one for
+all |lag| ≤ max_lag.
 """
 
 from __future__ import annotations
@@ -25,6 +33,19 @@ from tdoa_tpu_torch.ops.peaks import parabolic_peak, peak_quality
 from tdoa_tpu_torch.utils.constants import DEFAULT_MAX_LAG
 
 TWO_PI = 2.0 * np.pi
+# Bound on one chunk of the segmented correlator's spectra (stations and
+# pair products): the reference scans segment by segment in constant
+# memory; the port transforms segments in chunks of at most this size.
+SEG_CHUNK_BYTES = 256 << 20
+
+
+def next_pow2(n: int) -> int:
+    return 1 << (int(n) - 1).bit_length()
+
+
+def correlation_lags(max_lag: int) -> np.ndarray:
+    """Lag axis for the correlation window: [-max_lag, ..., +max_lag]."""
+    return np.arange(-max_lag, max_lag + 1)
 
 
 class CorrResult(NamedTuple):
@@ -282,6 +303,157 @@ def _combine_splits(cross_g: torch.Tensor, psd_g: torch.Tensor,
     return res._replace(delay_std=torch.maximum(res.delay_std, sigma_emp))
 
 
+def auto_seg_len(n: int, max_lag: int, seg_len: Optional[int],
+                 target_segs: int = 8, floor: int = 4096) -> Optional[int]:
+    """Shrink a configured segment length so SHORT captures still hold
+    ``target_segs`` Welch segments (a less-biased HT coherence and a
+    multi-dof split σ); long captures keep the configured segment. Never
+    shrinks below ``max_lag`` (``resolve_seg``'s alias-free requirement)
+    or ``floor`` (frequency resolution)."""
+    if seg_len is None:
+        return None
+    while (n // seg_len < target_segs and seg_len // 2 > max_lag
+           and seg_len // 2 >= floor):
+        seg_len //= 2
+    return seg_len
+
+
+def resolve_seg(n: int, max_lag: int, seg_len: Optional[int],
+                fft_len: Optional[int]) -> Tuple[int, int]:
+    """(seg_len, fft_len) of the segmented correlator. Anti-aliasing needs
+    ``seg_len + max_lag ≤ fft_len``: the FFT stays at ``next_pow2(seg)``
+    and the segment shrinks by max_lag (a ~1 % increase in segment count
+    instead of doubling the transform). A whole-signal correlation
+    (seg_len=None / seg covers n) pads up instead."""
+    whole = seg_len is None or seg_len >= n
+    if whole:
+        seg_len = n
+        if fft_len is None:
+            fft_len = next_pow2(seg_len + max_lag)
+    elif fft_len is None:
+        fft_len = next_pow2(seg_len)
+        if seg_len + max_lag > fft_len:
+            if max_lag < fft_len // 2:
+                seg_len = fft_len - max_lag
+            else:
+                fft_len = next_pow2(seg_len + max_lag)
+    if max_lag >= seg_len:
+        raise ValueError(f"max_lag {max_lag} must be < seg_len {seg_len}")
+    if seg_len + max_lag > fft_len:
+        raise ValueError("fft_len too small for seg_len + max_lag")
+    return seg_len, fft_len
+
+
+def _accumulate_cross_spectra(x: torch.Tensor, pair_idx, seg_len: int,
+                              fft_len: int,
+                              scale: Optional[torch.Tensor] = None):
+    """Segment-accumulated spectra of planar ``x`` [2, n_st, N] (whole
+    segments only, each scaled per station by ``scale`` [n_st]): (cross
+    c64 [m, F], psd f32 [n_st, F], energy f32 [n_st]). Segments are
+    transformed in chunks of at most ``SEG_CHUNK_BYTES``."""
+    n_st, n = int(x.shape[1]), int(x.shape[2])
+    n_seg = n // seg_len
+    p = np.asarray(pair_idx, np.int64).reshape(-1, 2)
+    dev = x.device
+    ii = torch.from_numpy(p[:, 0]).to(dev)
+    jj = torch.from_numpy(p[:, 1]).to(dev)
+    cross = torch.zeros(len(p), fft_len, dtype=torch.complex64, device=dev)
+    psd = torch.zeros(n_st, fft_len, dtype=torch.float32, device=dev)
+    energy = torch.zeros(n_st, dtype=torch.float32, device=dev)
+    chunk = max(1, SEG_CHUNK_BYTES // ((n_st + len(p)) * fft_len * 8))
+    for s0 in range(0, n_seg, chunk):
+        s1 = min(s0 + chunk, n_seg)
+        seg = x[:, :, s0 * seg_len:s1 * seg_len].to(torch.float32)
+        if scale is not None:
+            seg = seg * scale[None, :, None]
+        energy += (seg[0].square() + seg[1].square()).sum(-1)
+        z = torch.complex(seg[0], seg[1]).reshape(n_st, s1 - s0, seg_len)
+        spec = torch.fft.fft(z, n=fft_len, dim=-1)  # [n_st, S, F]
+        psd += (spec.real.square() + spec.imag.square()).sum(1)
+        cross += (spec[jj] * spec[ii].conj()).sum(1)
+    return cross, psd, energy
+
+
+def correlate_pairs_planar(x: torch.Tensor, pair_idx,
+                           max_lag: int = DEFAULT_MAX_LAG,
+                           seg_len: Optional[int] = None,
+                           weighting: str = "phat", eps: float = 1e-3,
+                           fft_len: Optional[int] = None,
+                           refine: str = "phase") -> CorrResult:
+    """All-pairs GCC cross-correlation of planar ``x`` [2, n_st, N].
+
+    ``seg_len=None`` correlates the whole signal in one FFT; otherwise
+    the capture streams through ``seg_len``-sample segments with coherent
+    accumulation. Every station is first scaled to unit RMS
+    (delay-invariant; keeps the HT coherence's 4th powers inside float32
+    for inputs of any unit, e.g. FM audio). With ``refine="phase"`` and
+    ≥2 segments the K contiguous slices accumulate separately for the
+    split empirical error bar (``_combine_splits``)."""
+    n = int(x.shape[-1])
+    seg_len, fft_len = resolve_seg(n, max_lag, seg_len, fft_len)
+    x = x.to(torch.float32)
+    rms = torch.sqrt((x[0].square() + x[1].square()).mean(-1))
+    inv = 1.0 / torch.clamp(rms, min=1e-30)
+    n_seg_total = n // seg_len
+    K = split_k(n_seg_total) if refine == "phase" else 0
+    if K == 0:
+        cross, psd, energy = _accumulate_cross_spectra(x, pair_idx, seg_len,
+                                                       fft_len, inv)
+        return _finish_correlation(cross, psd, energy, pair_idx, max_lag,
+                                   weighting, eps, fft_len, refine,
+                                   n_seg=n_seg_total)
+    bounds = _split_bounds(n_seg_total, K, seg_len)
+    accs = [
+        _accumulate_cross_spectra(x[..., bounds[k]:bounds[k + 1]], pair_idx,
+                                  seg_len, fft_len, inv)
+        for k in range(K)
+    ]
+    cross_g, psd_g, energy_g = (torch.stack(a) for a in zip(*accs))
+    return _combine_splits(cross_g, psd_g, energy_g, pair_idx, max_lag,
+                           weighting, eps, fft_len, n_seg_total)
+
+
+def _as_planar(x) -> torch.Tensor:
+    """Complex (numpy or torch) ``[..., N]`` or real signals → planar
+    float32 ``[2, ..., N]``; a real tensor ``[2, n_st, N]`` is taken as
+    planar already, any other real input has a zero imaginary part."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.asarray(x))
+    if x.is_complex():
+        x = x.to(torch.complex64)
+        return torch.stack([x.real, x.imag])
+    x = x.to(torch.float32)
+    if x.dim() == 3 and x.shape[0] == 2:
+        return x
+    return torch.stack([x, torch.zeros_like(x)])
+
+
+def correlate_pairs(x, pair_idx, max_lag: int = DEFAULT_MAX_LAG,
+                    seg_len: Optional[int] = None, weighting: str = "phat",
+                    eps: float = 1e-3, fft_len: Optional[int] = None,
+                    refine: str = "phase") -> CorrResult:
+    """``correlate_pairs_planar`` on complex or real signals ``[n_st, N]``
+    (numpy or torch) or planar tensors ``[2, n_st, N]``."""
+    return correlate_pairs_planar(
+        _as_planar(x), pair_idx, max_lag=max_lag, seg_len=seg_len,
+        weighting=weighting, eps=eps, fft_len=fft_len, refine=refine)
+
+
+def correlate_two(a, b, max_lag: int = DEFAULT_MAX_LAG, **kwargs) -> CorrResult:
+    """Correlate one signal pair (complex or real ``[N]``, or planar
+    ``[2, N]`` tensors). Positive delay ⇒ ``b`` lags ``a``. Result
+    fields have the pair axis squeezed."""
+    def one(s):
+        if isinstance(s, torch.Tensor) and not s.is_complex() and s.dim() == 2:
+            return s.to(torch.float32)
+        return _as_planar(s)
+
+    x = torch.stack([one(a), one(b)], dim=1)
+    res = correlate_pairs_planar(x, np.array([[0, 1]]), max_lag=max_lag,
+                                 **kwargs)
+    return CorrResult(*(None if v is None else v[0] for v in res))
+
+
 def correlate_pairs_fused(x: torch.Tensor, pairs: Sequence[Tuple[int, int]],
                           max_lag: int = DEFAULT_MAX_LAG,
                           weighting: str = "ht", eps: float = 1e-3,
@@ -303,7 +475,7 @@ def correlate_pairs_fused(x: torch.Tensor, pairs: Sequence[Tuple[int, int]],
         raise ValueError(
             f"max_lag {max_lag} exceeds the fused kernel's alias-free "
             f"window {FFT_LEN - SEG_LEN} (= fft {FFT_LEN} − seg {SEG_LEN}); "
-            f"the segmented path is not ported yet")
+            f"use the segmented path (correlate_pairs_planar)")
     n_seg_total = int(x.shape[-1]) // SEG_LEN
     K = split_k(n_seg_total) if refine == "phase" else 0
     if K == 0:

@@ -1,11 +1,12 @@
 """Build and load the hand-written Hopper kernels.
 
-Every ``*.cu`` under ``tdoa_tpu_torch/csrc/`` compiles with ``nvcc``
-into ONE shared library with a plain C interface, loaded with
-``ctypes`` (no PyTorch headers, so the build takes seconds, not
-minutes). The build happens at first use, from the checkout's sources
-only, into ``build/tdoa_tpu_torch/<hash of the sources and flags>/`` at
-the repository root — a directory ``.gitignore`` lists. A file lock
+Every ``*.cu`` under ``tdoa_tpu_torch/csrc/`` compiles with its own
+``nvcc`` process (all started together) and the objects link into ONE
+shared library with a plain C interface, loaded with ``ctypes`` (no
+PyTorch headers, so the build takes seconds, not minutes). The build
+happens at first use, from the checkout's sources only, into
+``build/tdoa_tpu_torch/<hash of the sources and flags>/`` at the
+repository root — a directory ``.gitignore`` lists. A file lock
 serializes concurrent builds (parallel test workers on one card);
 a finished library is reused by every later process.
 """
@@ -27,10 +28,11 @@ BUILD_ROOT = PKG_DIR.parent / "build" / "tdoa_tpu_torch"
 LIB_NAME = "libtdoa_kernels.so"
 
 # sm_90a keeps the Hopper-only instructions available; no fast-math:
-# the zoom probe's basis angles reach ~50 rad, where __sinf is wrong.
+# the zoom probe's basis angles reach ~50 rad, where __sinf is wrong,
+# and the FM discriminator wants the accurate atan2f.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -75,17 +77,33 @@ def build() -> Path:
         try:
             if lib.exists():  # another process built it while we waited
                 return lib
-            cu = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
+            nvcc = nvcc_path()
+            jobs = []
+            for src in sorted(CSRC_DIR.glob("*.cu")):
+                obj = out_dir / f"{src.stem}.o"
+                cmd = [nvcc, *NVCC_FLAGS, f"-I{CSRC_DIR}", "-c", "-o",
+                       str(obj), str(src)]
+                jobs.append((cmd, obj, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+            report, failed = [], []
+            for cmd, _, proc in jobs:
+                out, _ = proc.communicate()
+                report.append(out)
+                if proc.returncode != 0:
+                    failed.append(f"nvcc failed ({proc.returncode}):\n"
+                                  f"{' '.join(cmd)}\n{out}")
+            (out_dir / "ptxas.txt").write_text("".join(report))
+            if failed:
+                raise RuntimeError("\n".join(failed))
             tmp = out_dir / (LIB_NAME + f".tmp{os.getpid()}")
-            cmd = [nvcc_path(), *NVCC_FLAGS, f"-I{CSRC_DIR}", "-o",
-                   str(tmp), *cu]
+            cmd = [nvcc, "-shared", "-o", str(tmp),
+                   *(str(obj) for _, obj, _ in jobs)]
             proc = subprocess.run(cmd, capture_output=True, text=True)
-            report = proc.stdout + proc.stderr
-            (out_dir / "ptxas.txt").write_text(report)
             if proc.returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                    f"{report}")
+                    f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}"
+                    f"\n{proc.stdout}{proc.stderr}")
             os.replace(tmp, lib)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
@@ -117,6 +135,17 @@ def _declare(lib: ctypes.CDLL) -> None:
         p,                  # stream
     ]
     lib.tdoa_zoom_probe.restype = i
+    lib.tdoa_fm_demod.argtypes = [
+        p, p,               # x re, x im rows (f32)
+        ctypes.c_longlong,  # channel stride (elements)
+        i,                  # C channels
+        ctypes.c_longlong,  # n samples per channel
+        i,                  # decim
+        ctypes.c_float,     # fs / (2*pi*dev)
+        p, p,               # taps [128] f32, out [C, n / decim] f32
+        p,                  # stream
+    ]
+    lib.tdoa_fm_demod.restype = i
 
 
 def load() -> ctypes.CDLL:

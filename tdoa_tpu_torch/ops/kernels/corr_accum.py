@@ -79,8 +79,8 @@ def _check_input(x: torch.Tensor, pairs) -> Tuple[int, int, int]:
     if n_seg == 0:
         raise ValueError(
             f"capture length {n} is shorter than one kernel segment "
-            f"(SEG_LEN={SEG_LEN}); short captures need the unported "
-            f"segmented path")
+            f"(SEG_LEN={SEG_LEN}); short captures take the segmented "
+            f"path (ops.corr.correlate_pairs_planar)")
     return n_st, n_seg, len(p)
 
 

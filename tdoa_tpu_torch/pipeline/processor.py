@@ -1,13 +1,16 @@
 """The end-to-end TDOA processor: captures → TDOAs → position fix.
 
-Torch port of ``tdoa_tpu.pipeline.processor`` for the IQ main path:
+Torch port of ``tdoa_tpu.pipeline.processor`` for the IQ and FM modes:
 
 - ``load_files`` decodes each ``.dat`` on the device, into bf16 planar
-  blocks when the fused correlator runs;
-- ``process_blocks`` correlates REF₁, TGT and REF₂ through kernel 1
-  (segment FFT + banked cross-spectra) and the finish stage with the
-  split-σ probe on kernel 2, then removes each pair's clock offset,
-  interpolated between the two REF blocks, with the known REF
+  blocks when the fused correlator runs and f32 otherwise;
+- ``process_blocks`` correlates REF₁, TGT and REF₂ either through
+  kernel 1 (segment FFT + banked cross-spectra, ``accumulator="pallas"``)
+  or through the segmented correlator over all three blocks at once
+  (``accumulator="xla"``, short blocks, long lags, and FM mode, which
+  correlates the audio kernel 3 demodulates); both finish with the
+  split-σ probe (kernel 2 for HT/ML), then remove each pair's clock
+  offset, interpolated between the two REF blocks, with the known REF
   transmitter's geometry;
 - the host gates, the float32 multistart LM solve, the multipath σ
   accounting and the ghost/outlier analysis follow the reference line
@@ -34,7 +37,13 @@ from tdoa_tpu_torch.io.stations import (
     load_station_table,
     station_from_filename,
 )
-from tdoa_tpu_torch.ops.corr import clock_correct_blocks, correlate_pairs_fused
+from tdoa_tpu_torch.ops.corr import (
+    auto_seg_len,
+    clock_correct_blocks,
+    correlate_pairs_fused,
+    correlate_pairs_planar,
+)
+from tdoa_tpu_torch.ops.kernels.fm_demod import fm_demod_decimate
 from tdoa_tpu_torch.solve.ghost import DECISION_THRESHOLD_NATS, GhostVerdict
 from tdoa_tpu_torch.solve.multilateration import (
     FixResult,
@@ -60,23 +69,27 @@ def _unported(what: str, item: str) -> NotImplementedError:
 @dataclasses.dataclass(frozen=True)
 class ProcessorConfig:
     """The reference's configuration minus the settings of paths the
-    port does not run (FM decimation, CAF, FDOA ranking, emitter
-    association, segment length). The path selectors stay so that
-    ``mode="fm"``, ``lo_compensation="auto"``, ``solve_velocity``,
-    ``multi_emitter > 1`` and ``accumulator="xla"`` raise
-    ``NotImplementedError`` instead of silently running the IQ path."""
+    port does not run (CAF, FDOA ranking, emitter association). The
+    path selectors stay so that ``lo_compensation="auto"``,
+    ``solve_velocity`` and ``multi_emitter > 1`` raise
+    ``NotImplementedError`` instead of silently running another path."""
 
     ref_freq: float
     tgt_freq: float
     sample_rate: float = DEFAULT_SAMPLE_RATE
     max_lag: int = DEFAULT_MAX_LAG
+    # Segment length of the segmented correlator (auto_seg_len shrinks
+    # it for short captures; FM mode divides it by fm_decim).
+    seg_len: Optional[int] = 1 << 16
     weighting: str = "ht"  # Hannan-Thomson ML weighting (ops/corr.py)
     clock_correction: bool = True
-    mode: str = "iq"
+    mode: str = "iq"  # "iq" raw correlation | "fm" audio-domain correlation
+    fm_decim: int = 8  # audio decimation for mode="fm" (divides 128)
     solve_z: bool = False
     truncate_samples: Optional[int] = None
-    # "auto"/"pallas": the fused kernels; "xla" names the unported
-    # segmented path.
+    # "auto": the fused kernels when the geometry allows
+    # (_fused_eligible), else the segmented correlator; "pallas"/"xla"
+    # force one.
     accumulator: str = "auto"
     multi_emitter: int = 1
     solve_velocity: bool = False
@@ -119,31 +132,92 @@ def process_blocks(
     pairs: np.ndarray,  # [m, 2]
     ref_geo_tdoa: torch.Tensor,  # [m] reference-tx geometric TDOA, samples
     max_lag: int = DEFAULT_MAX_LAG,
-    weighting: str = "ht",
+    seg_len: Optional[int] = None,
+    weighting: str = "phat",
     clock_correction: bool = True,
+    mode: str = "iq",  # "iq" | "fm"
+    fm_decim: int = 8,
+    sample_rate: float = DEFAULT_SAMPLE_RATE,
+    accumulator: str = "xla",  # "xla" | "pallas"
 ):
-    """3 blocks × all pairs → clock-corrected TDOAs, through the fused
-    kernels: each block is correlated by ``correlate_pairs_fused`` with
-    bf16 operand storage and in-kernel DC removal. Returns the
+    """3 blocks × all pairs → clock-corrected TDOAs. Returns the
     reference's tuple (corrected, tgt_delay, ref_delays [m,2], clock,
     quality [3,m], peak [3,m], corrected_std, tgt_window, tgt_std,
-    block windows complex [3,m,W]); delays and σs in IQ samples."""
-    pairs_t = tuple(map(tuple, np.asarray(pairs).tolist()))
-    outs = [
-        correlate_pairs_fused(
-            blk.to(torch.bfloat16).contiguous(), pairs_t, max_lag=max_lag,
-            weighting=weighting, remove_dc=True,
+    block windows complex [3,m,W]); delays and σs in IQ samples.
+
+    ``accumulator="pallas"`` in IQ mode correlates each block through the
+    fused kernels (``correlate_pairs_fused``: bf16 operand storage,
+    in-kernel DC removal). Otherwise the three blocks stack to one f32
+    ``[2, 3·n_st, L]`` signal, each channel is demeaned, and one
+    ``correlate_pairs_planar`` call correlates every block's pairs.
+
+    ``mode="fm"`` correlates the FM-demodulated audio instead of raw IQ:
+    kernel 3 (``ops/kernels/fm_demod.py``) demodulates every channel and
+    decimates by ``fm_decim`` — on every device, the reference's TPU
+    route (the port's ``dsp.fm.fm_demodulate`` is the reference's XLA
+    route and is not called here) — then each channel's audio mean (a
+    receiver LO offset) is removed. Audio correlation is plain
+    (``weighting="none"``): GCC whitening of the oversampled audio votes
+    the peak to lag 0. Delays come back in audio samples and are scaled
+    by ``fm_decim`` to IQ samples."""
+    if accumulator == "pallas" and mode == "iq":
+        pairs_t = tuple(map(tuple, np.asarray(pairs).tolist()))
+        outs = [
+            correlate_pairs_fused(
+                blk.to(torch.bfloat16).contiguous(), pairs_t,
+                max_lag=max_lag, weighting=weighting, remove_dc=True,
+            )
+            for blk in (ref1, tgt, ref2)
+        ]
+        return clock_correct_blocks(
+            torch.stack([o.delay for o in outs]),
+            torch.stack([o.delay_std for o in outs]),
+            torch.stack([o.quality for o in outs]),
+            torch.stack([o.peak_value for o in outs]),
+            torch.stack([o.corr for o in outs]),
+            torch.stack([o.corr_c for o in outs]),
+            ref_geo_tdoa.to(outs[0].delay.device), clock_correction,
         )
-        for blk in (ref1, tgt, ref2)
-    ]
+
+    n_st = int(ref1.shape[1])
+    p = np.asarray(pairs, np.int64).reshape(-1, 2)
+    m = len(p)
+    # [2, 3·n_st, L] f32, demeaned in place (a fresh tensor).
+    x = torch.cat([ref1, tgt, ref2], dim=1).to(torch.float32)
+    x -= x.mean(-1, keepdim=True)
+    # Pair lists for each block, offset into the stacked station axis.
+    all_pairs = (p[None] + np.arange(3)[:, None, None] * n_st).reshape(3 * m, 2)
+    if mode == "fm":
+        audio = fm_demod_decimate(x, sample_rate, decim=fm_decim)
+        del x
+        # Receiver LO offset = constant discriminator bias; remove per
+        # channel (the kernel leaves DC to the caller).
+        audio -= audio.mean(-1, keepdim=True)
+        x_corr = torch.stack([audio, torch.zeros_like(audio)])
+        scale = float(fm_decim)
+        max_lag_c = max(max_lag // fm_decim + 2, 16)
+        seg_c = (None if seg_len is None
+                 else max(seg_len // fm_decim, 4 * max_lag_c))
+        weighting = "none"
+    elif mode == "iq":
+        x_corr = x
+        scale = 1.0
+        max_lag_c = max_lag
+        # Short captures: shrink the segment so the Welch average still
+        # holds ≥8 segments; long captures keep the configured segment.
+        seg_c = auto_seg_len(int(x.shape[-1]), max_lag, seg_len)
+    else:
+        raise ValueError(f"unknown processing mode: {mode!r}")
+    res = correlate_pairs_planar(x_corr, all_pairs, max_lag=max_lag_c,
+                                 seg_len=seg_c, weighting=weighting)
     return clock_correct_blocks(
-        torch.stack([o.delay for o in outs]),
-        torch.stack([o.delay_std for o in outs]),
-        torch.stack([o.quality for o in outs]),
-        torch.stack([o.peak_value for o in outs]),
-        torch.stack([o.corr for o in outs]),
-        torch.stack([o.corr_c for o in outs]),
-        ref_geo_tdoa.to(outs[0].delay.device), clock_correction,
+        res.delay.reshape(3, m) * scale,
+        res.delay_std.reshape(3, m) * scale,
+        res.quality.reshape(3, m),
+        res.peak_value.reshape(3, m),
+        res.corr.reshape(3, m, -1),
+        res.corr_c.reshape(3, m, -1),
+        ref_geo_tdoa.to(res.delay.device), clock_correction,
     )
 
 
@@ -197,7 +271,8 @@ def _planar(b, device) -> torch.Tensor:
     numpy/torch blocks convert to float32, planar tensors pass through."""
     if isinstance(b, torch.Tensor) and not b.is_complex():
         return b.to(device)
-    z = b if isinstance(b, torch.Tensor) else torch.from_numpy(np.asarray(b))
+    z = b if isinstance(b, torch.Tensor) else torch.from_numpy(
+        np.require(np.asarray(b), requirements="W"))  # copy if read-only
     z = z.to(device=device, dtype=torch.complex64)
     return torch.stack([z.real, z.imag])
 
@@ -208,6 +283,9 @@ class TDOAProcessor:
 
     def __init__(self, config: ProcessorConfig, stations: StationTable,
                  device: Optional[torch.device] = None):
+        """``device`` defaults to the card (``default_device``, which
+        raises when none is visible); pass ``"cpu"`` for the kernels'
+        plain versions on the CPU."""
         self.config = config
         self.stations = stations
         self.device = torch.device(device) if device is not None \
@@ -241,8 +319,10 @@ class TDOAProcessor:
                 f"lo_compensation must be 'auto' or 'off', got "
                 f"{cfg.lo_compensation!r}"
             )
-        if cfg.mode != "iq":
-            raise _unported(f"mode={cfg.mode!r}", "FM mode")
+        if cfg.accumulator not in ("auto", "pallas", "xla"):
+            raise ValueError(
+                f"accumulator must be 'auto', 'pallas' or 'xla', got "
+                f"{cfg.accumulator!r}")
         if cfg.lo_compensation == "auto":
             raise _unported("lo_compensation='auto'",
                             "LO compensation, CAF/velocity, multi-emitter")
@@ -252,15 +332,13 @@ class TDOAProcessor:
         if cfg.multi_emitter > 1:
             raise _unported("multi_emitter > 1",
                             "LO compensation, CAF/velocity, multi-emitter")
-        if cfg.accumulator == "xla":
-            raise _unported("accumulator='xla'",
-                            "segmented correlator and short captures")
 
     def _fused_eligible(self, n_stations: int, min_block_samples: int) -> bool:
-        """Whether process_captures can run the fused kernels: the IQ
-        mode, the kernel's alias-free lag window and at least one
-        segment per block on any device; on CUDA also the kernel's own
-        shared-memory and device-buffer footprint."""
+        """Whether the fused kernels can run: the IQ mode, the kernel's
+        alias-free lag window and at least one segment per block on any
+        device; on CUDA also the kernel's own shared-memory and
+        device-buffer footprint. The one predicate behind both the
+        accumulator="auto" decision and the bf16-decode decision."""
         from tdoa_tpu_torch.ops.kernels.corr_accum import (
             FFT_LEN,
             SEG_LEN,
@@ -700,20 +778,26 @@ class TDOAProcessor:
             return torch.stack([prep(captures[n][idx]) for n in names], dim=1)
 
         ref1, tgt, ref2 = stack(0), stack(1), stack(2)
-        if not self._fused_eligible(len(names), int(ref1.shape[-1])):
-            raise _unported(
-                "this capture geometry (blocks shorter than one 45056-sample "
-                "kernel segment, max_lag beyond the alias-free 20480, or a "
-                "station count whose accumulators exceed the card)",
-                "segmented correlator and short captures")
+        accumulator = cfg.accumulator
+        if accumulator == "auto":
+            accumulator = (
+                "pallas"
+                if self._fused_eligible(len(names), int(ref1.shape[-1]))
+                else "xla"
+            )
         warnings: List[str] = []
         ref_geo = self._ref_geo_tdoa_samples(names, pairs)
         out = process_blocks(
             ref1, tgt, ref2, pairs,
             torch.as_tensor(ref_geo, dtype=torch.float32),
             max_lag=cfg.max_lag,
+            seg_len=cfg.seg_len,
             weighting=cfg.weighting,
             clock_correction=cfg.clock_correction,
+            mode=cfg.mode,
+            fm_decim=cfg.fm_decim,
+            sample_rate=cfg.sample_rate,
+            accumulator=accumulator,
         )
         (corrected, tgt_d, ref_d, clock, quality, peaks, corr_std,
          tgt_window, tgt_std, win_c_blocks) = (t.cpu() for t in out)
@@ -789,8 +873,13 @@ class TDOAProcessor:
         # scenes), while a direct+echo composite drags the centroid
         # further with every widening (drift > 1.0 on 11/13 planted-
         # echo scenes). It stands down when a resolvable second source
-        # already fired the stronger warning.
-        lobe_drift = _lobe_centroid_drift(win64)
+        # already fired the stronger warning. (IQ mode only: FM-mode
+        # audio correlation is plain-weighted and oversampled — its lobes
+        # are legitimately wide and asymmetric.)
+        if cfg.mode == "iq":
+            lobe_drift = _lobe_centroid_drift(win64)
+        else:
+            lobe_drift = np.zeros(len(pairs))
 
         q = np.asarray(quality[1], np.float64)
         # Quadratic quality weighting with a hard gate: a pair whose
@@ -818,7 +907,7 @@ class TDOAProcessor:
         echo_sep = None
         echo_ratio = None
         echo_env_confirmed = False
-        if cfg.multipath_mitigation:
+        if cfg.mode == "iq" and cfg.multipath_mitigation:
             # Honest echo-bias accounting, CONTINUOUS (not gated on the
             # warning threshold): the centroid-offset statistic maps
             # each pair's lobe contamination to a calibrated σ addend,
@@ -1066,8 +1155,23 @@ class TDOAProcessor:
         self, dat_paths: Sequence[str]
     ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
         """Load ``.dat`` files into {station: (ref1, tgt, ref2)} planar
-        bf16 blocks on the processor's device: the operand dtype of the
-        fused kernels, the port's only correlator."""
+        blocks on the processor's device: bf16, the fused kernels'
+        operand storage, when they will run (the ``_fused_eligible``
+        predicate of process_captures' accumulator="auto" decision, with
+        the block length from the file size: 3 blocks × 2 bytes per
+        sample), else f32."""
+        cfg = self.config
+        block_samples = [os.path.getsize(p) // (2 * 3)
+                         for p in dat_paths if os.path.exists(p)]
+        if cfg.truncate_samples is not None:
+            block_samples = [min(b, cfg.truncate_samples)
+                             for b in block_samples]
+        fused = (
+            cfg.accumulator in ("auto", "pallas")
+            and bool(block_samples)
+            and self._fused_eligible(len(set(dat_paths)), min(block_samples))
+        )
+        dtype = torch.bfloat16 if fused else torch.float32
         captures: Dict[str, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
         known = self.stations.names
         for path in dat_paths:
@@ -1084,7 +1188,6 @@ class TDOAProcessor:
                     f"two capture files resolve to station '{st}' "
                     f"(second: {path}); pass one file per station"
                 )
-            cap = load_dat(path, station=st, dtype=torch.bfloat16,
-                           device=self.device)
+            cap = load_dat(path, station=st, dtype=dtype, device=self.device)
             captures[st] = (cap.ref1, cap.tgt, cap.ref2)
         return captures

@@ -3,6 +3,7 @@ can run the hand-written Hopper kernels (compiled for ``sm_90a`` only).
 
 There is no interpret mode: a CUDA tensor goes through the CUDA kernels
 or an error, a CPU tensor through the kernels' plain torch versions.
+The entry points run on the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -11,8 +12,14 @@ import torch
 
 
 def default_device() -> torch.device:
-    """The card when one is visible, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The card. Raises when no CUDA device is visible: the CPU runs the
+    pipeline only when the caller asks for it."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is visible: tdoa_tpu_torch runs on the card by "
+            "default; pass device=\"cpu\" (or --device cpu on the command "
+            "line) to run the kernels' plain torch versions on the CPU")
+    return torch.device("cuda")
 
 
 def is_sm90(device: torch.device) -> bool:

@@ -160,7 +160,7 @@ def test_cli_json_matches_process_files(slice_run, capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mode", "fm"], ["--lo-compensation"], ["--solve-velocity"],
+    ["--lo-compensation"], ["--solve-velocity"],
     ["--multi-emitter", "2"], ["--overlap-ingest"]])
 def test_cli_rejects_unported_flags(flag, capsys):
     with pytest.raises(SystemExit) as e:
@@ -170,21 +170,13 @@ def test_cli_rejects_unported_flags(flag, capsys):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("mode", "fm"), ("lo_compensation", "auto"), ("solve_velocity", True),
-    ("multi_emitter", 2), ("accumulator", "xla")])
+    ("lo_compensation", "auto"), ("solve_velocity", True),
+    ("multi_emitter", 2)])
 def test_unported_options_raise(field, value):
     proc = TDOAProcessor.from_csv(OMAHA["ref_freq"], OMAHA["tgt_freq"], CSV,
                                   device="cpu", **{field: value})
     blocks = tuple(np.zeros(BLOCK, np.complex64) for _ in range(3))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        proc.process_captures({n: blocks for n in OMAHA["names"]})
-
-
-def test_short_capture_names_the_unported_path():
-    proc = TDOAProcessor.from_csv(OMAHA["ref_freq"], OMAHA["tgt_freq"], CSV,
-                                  device="cpu")
-    blocks = tuple(np.zeros(45055, np.complex64) for _ in range(3))
-    with pytest.raises(NotImplementedError, match="segmented correlator"):
         proc.process_captures({n: blocks for n in OMAHA["names"]})
 
 

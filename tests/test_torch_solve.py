@@ -87,7 +87,7 @@ def test_dat_decode_matches_jax(tmp_path, dtype):
     jd = jnp.bfloat16 if dtype == "bf16" else jnp.float32
     td = torch.bfloat16 if dtype == "bf16" else torch.float32
     cj = jdat.load_dat(str(pj), dtype=jd)
-    ct = tdat.load_dat(str(pt), dtype=td)
+    ct = tdat.load_dat(str(pt), dtype=td, device="cpu")
     ulp = 0.0 if dtype == "bf16" else 1.2e-7
     for name in ("ref1", "tgt", "ref2"):
         bj, bt = getattr(cj, name), getattr(ct, name)
