@@ -12,12 +12,18 @@ Phases, each printing its own lines; any failure exits non-zero:
 3. kernels — each kernel against its plain torch version on the card
              (kernel 1: 3 stations, K = 4, DC sums on, bf16, at 16
              segments and at a 10 s block's 443 segments, whose banks
-             cross stage-1 chunks; kernel 2: K = 4, m = 3, F = 65536 on
-             the 443-segment banks, and the segmented path's 9 pairs of
-             9 channels; kernel 3: 9 channels × 20 M samples,
-             D = 8), then each timed with CUDA events at the main path's
-             shapes beside its bound (bytes over 3.35 TB/s or f32
-             operations over 67 TFLOP/s, the larger);
+             span many chunks, and 12 stations × 5 segments × K = 2, the
+             branch that reloads its accumulators; kernel 2: K = 4,
+             m = 3, F = 65536 on the 443-segment banks, and the
+             segmented path's 9 pairs of 9 channels; kernel 3: 9
+             channels × 20 M samples, D = 8), each launched twice on the
+             same input (the outputs must be bitwise equal), then each
+             timed at the main path's shapes beside its bound (bytes
+             over 3.35 TB/s or f32 operations over 67 TFLOP/s, the
+             larger): the kernel's own device time per call from
+             ``torch.profiler`` (``ms``), and CUDA events around a loop
+             of wrapper calls (``wrapper_ms``, the host's share
+             included where it is the slower side);
 4. slice   — a synthesized 3-station 30 s capture (three 10 s blocks of
              20 M samples, ``lat-lon-table.csv`` geometry, an FM-like
              source, per-station clock offsets, noise) written as u8
@@ -56,6 +62,9 @@ FM_DECIM = 8
 # Published H100 SXM peaks (NVIDIA data sheet) for the bounds.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+# Kernels 1 and 2 before their redesign (chip_smoke.py phase 3, NVIDIA
+# H100 80GB HBM3, 700 W): the rows the redesign is measured against.
+PREVIOUS_MS = {"corr_accum": 3.201, "zoom_probe": 0.215}
 
 
 def _smi() -> str:
@@ -79,6 +88,36 @@ def _time_ms(fn, iters: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def _device_ms(fn, kernel: str, iters: int) -> float:
+    """The device time per call of the CUDA kernel whose name contains
+    ``kernel`` (its launches only, not the wrapper's other ops), from a
+    ``torch.profiler`` trace of ``iters`` calls after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if kernel in e.key and e.device_time_total > 0)
+    if us <= 0:
+        raise RuntimeError(f"the profiler saw no device time of {kernel}")
+    return us / iters / 1e3
+
+
+def _same(a, b) -> bool:
+    """Bitwise equality of two outputs (tensors or tuples of them)."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return all(_same(u, v) for u, v in zip(a, b))
 
 
 def phase_device():
@@ -149,38 +188,56 @@ def phase_kernels(dev):
     K = 4
     g = torch.Generator(device=dev).manual_seed(SEED)
 
-    def block(n_seg):
-        x = torch.randn(2, 3, n_seg * SEG_LEN, device=dev, generator=g)
+    def block(n_seg, n_st=3):
+        x = torch.randn(2, n_st, n_seg * SEG_LEN, device=dev, generator=g)
         x[:, 1] += 0.5 * torch.roll(x[:, 0], 37, dims=-1)
         x[:, 2] += 0.5 * torch.roll(x[:, 0], -12, dims=-1)
+        for s in range(3, n_st):
+            x[:, s] += 0.5 * torch.roll(x[:, 0], 11 * s - 70, dims=-1)
         return (0.3 * x + 0.01).to(torch.bfloat16).contiguous()
 
-    # Kernel 1 at the stated check shape (16 segments: one stage-1 chunk)
-    # and at the main path's (a 10 s block is 443 segments: stage-1
-    # chunks of chunk_segments(3, 443) segments, with banks 111/111/111/110
-    # that cross chunk boundaries, so stage 2 reloads its accumulators).
-    k1_abs, k1_rel = 0.0, 0.0
-    for n_seg in (16, 443):
-        x = block(n_seg)
-        got = corr_accum.accumulate_banks(x, pairs, K, True)
-        want = corr_accum.accumulate_banks_plain(x, pairs, K, True)
+    # Kernel 1 at the stated check shape (16 segments: one chunk), at the
+    # main path's (a 10 s block is 443 segments: chunks of bank_run
+    # segments from each of the banks 111/111/111/110, every CTA keeping
+    # its items' accumulators in shared memory across the chunks), and
+    # at 12 stations (66 pairs, 172 KB of accumulators an item: the
+    # branch that reloads them from the outputs at every chunk). Each is
+    # launched twice: the outputs must be bitwise equal.
+    k1_abs, k1_rel, k1_cfg = 0.0, 0.0, {}
+    for n_st, n_seg, kb in ((3, 16, K), (3, 443, K), (12, 5, 2)):
+        x = block(n_seg, n_st)
+        pn = [(i, j) for i in range(n_st) for j in range(i + 1, n_st)]
+        cfg = corr_accum.kernel_config(n_st, len(pn), True, kb)
+        run = corr_accum.bank_run(n_st, kb, n_seg)
+        cfg.update(run=run, chunks=int(corr_accum.chunk_plan(
+            n_seg, kb, run).shape[0]))
+        got = corr_accum.accumulate_banks(x, pn, kb, True)
+        again = corr_accum.accumulate_banks(x, pn, kb, True)
+        want = corr_accum.accumulate_banks_plain(x, pn, kb, True)
         torch.cuda.synchronize()
         errs = [_errs(a, b) for a, b in zip(got, want)]
         a_err, r_err = max(e[0] for e in errs), max(e[1] for e in errs)
         k1_abs, k1_rel = max(k1_abs, a_err), max(k1_rel, r_err)
-        print(f"corr_accum [3 st, {n_seg} seg "
-              f"({corr_accum.chunk_segments(3, n_seg)} per chunk), K={K}, "
-              f"bf16, sums]: max |kernel - plain| = {a_err:.3e}, / row peak "
-              f"= {r_err:.3e} (tol {K1_TOL:g})")
+        same = _same(got, again)
+        k1_cfg[f"{n_st} st, {n_seg} seg, K={kb}"] = cfg
+        print(f"corr_accum [{n_st} st, {n_seg} seg, K={kb}, bf16, sums]: "
+              f"launch {cfg}; max |kernel - plain| = {a_err:.3e}, / row "
+              f"peak = {r_err:.3e} (tol {K1_TOL:g}); two launches "
+              f"bitwise equal: {same}")
         if not r_err < K1_TOL:
             raise RuntimeError(f"corr_accum disagrees with its plain version "
-                               f"at {n_seg} segments")
-        del want
-    x443 = x
+                               f"at {n_st} stations, {n_seg} segments")
+        if not same:
+            raise RuntimeError(f"corr_accum is not deterministic at {n_st} "
+                               f"stations, {n_seg} segments")
+        if n_seg == 443:
+            x443, got443 = x, got
+        del want, again
+    del x, got
 
     # Kernel 2 on the 443-segment banks (K = 4, m = 3, F = 65536) with
     # the main path's leave-one-out segment counts.
-    cross_g, psd_g, _ = got
+    cross_g, psd_g, _ = got443
     coarse = torch.tensor([37.0, -12.0, -49.0], device=dev)
     seg_g = torch.tensor(corr_accum.bank_bounds(443, K), device=dev).diff()
     nseg = (443 - seg_g).to(torch.float32).repeat_interleave(len(pairs))
@@ -192,12 +249,17 @@ def phase_kernels(dev):
     torch.cuda.synchronize()
     k2_abs, k2_rel = _errs(w_k, w_p)
     k2_delay = float((d_k - d_p).abs().max())
+    k2_same = _same(w_k, zoom_probe.loo_zoom_windows(cross_g, psd_g, pairs,
+                                                     coarse, nseg))
     print(f"zoom_probe [K={K}, m=3, F=65536]: max |delay kernel - plain| = "
           f"{k2_delay:.3e} samples (tol {K2_TOL:g}); window max |kernel - "
           f"plain| = {k2_abs:.3e}, / row peak {k2_rel:.3e}; delays "
-          f"{d_k.cpu().numpy().round(3).tolist()}")
+          f"{d_k.cpu().numpy().round(3).tolist()}; two launches bitwise "
+          f"equal: {k2_same}")
     if not k2_delay < K2_TOL:
         raise RuntimeError("zoom_probe disagrees with its plain version")
+    if not k2_same:
+        raise RuntimeError("zoom_probe is not deterministic")
 
     # Kernel 2 at the segmented IQ path's shape too: K = 4 banks of the
     # 9 pairs of 3 stacked blocks × 3 stations, F = 65536, from the
@@ -234,11 +296,15 @@ def phase_kernels(dev):
     del x9, banks, cross9, psd9
 
     # Times at the main path's shapes.
-    k1_ms = _time_ms(lambda: corr_accum.accumulate_banks(x443, pairs, K, True), 5)
+    k1_call = lambda: corr_accum.accumulate_banks(x443, pairs, K, True)  # noqa: E731
+    k2_call = lambda: zoom_probe.loo_zoom_windows(  # noqa: E731
+        cross_g, psd_g, pairs, coarse, nseg)
+    k1_ms = _device_ms(k1_call, "corr_accum_kernel", 5)
+    k1_wrap = _time_ms(k1_call, 5)
     k1_plain = _time_ms(lambda: corr_accum.accumulate_banks_plain(
         x443, pairs, K, True), 2)
-    k2_ms = _time_ms(lambda: zoom_probe.loo_zoom_windows(
-        cross_g, psd_g, pairs, coarse, nseg), 20)
+    k2_ms = _device_ms(k2_call, "zoom_probe_kernel", 20)
+    k2_wrap = _time_ms(k2_call, 20)
     k2_plain = _time_ms(lambda: zoom_probe.loo_zoom_windows_plain(
         cross_g, psd_g, pairs, coarse, nseg), 20)
     F, n_st, m, n_seg = corr_accum.FFT_LEN, 3, len(pairs), 443
@@ -255,31 +321,39 @@ def phase_kernels(dev):
     W = zoom_probe.W
     b2 = _bound(K * F * (8 * m + 4 * n_st) + K * m * W * 8,
                 K * m * F * (8 * W + 40))
-    print(f"time corr_accum [3 st, 443 seg, K={K}]: kernel {k1_ms:.3f} ms, "
+    print(f"time corr_accum [3 st, 443 seg, K={K}]: kernel {k1_ms:.3f} ms "
+          f"(wrapper loop {k1_wrap:.3f} ms; before the redesign "
+          f"{PREVIOUS_MS['corr_accum']} ms), "
           f"plain {k1_plain:.3f} ms, bound {b1['bound_ms']:.4f} ms "
           f"({b1['bound_by']}: {b1['bytes'] / 1e6:.1f} MB, "
           f"{b1['ops'] / 1e9:.2f} GFLOP)")
-    print(f"time zoom_probe [K={K}, m=3, F=65536]: kernel {k2_ms:.3f} ms, "
+    print(f"time zoom_probe [K={K}, m=3, F=65536]: kernel {k2_ms:.4f} ms "
+          f"(wrapper loop {k2_wrap:.4f} ms; before the redesign "
+          f"{PREVIOUS_MS['zoom_probe']} ms), "
           f"plain {k2_plain:.3f} ms, bound {b2['bound_ms']:.4f} ms "
           f"({b2['bound_by']}: {b2['bytes'] / 1e6:.2f} MB, "
           f"{b2['ops'] / 1e9:.3f} GFLOP)")
-    del x443, got, x
+    del x443, got443
     k3 = _kernel3(dev, g)
     return [
         {"name": "corr_accum", "route": "cuda",
          "source": "tdoa_tpu_torch/csrc/corr_accum.cu",
          "replaces": "tdoa_tpu/ops/pallas/corr_accum.py:634",
          "max_abs_err": k1_abs, "max_rel_err_row_peak": k1_rel,
-         "ms": k1_ms, "plain_ms": k1_plain,
+         "ms": k1_ms, "wrapper_ms": k1_wrap, "plain_ms": k1_plain,
          "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "previous_ms": PREVIOUS_MS["corr_accum"],
+         "redesigned": True, "bitwise_deterministic": True,
+         "launch": k1_cfg},
         {"name": "zoom_probe", "route": "cuda",
          "source": "tdoa_tpu_torch/csrc/zoom_probe.cu",
          "replaces": "tdoa_tpu/ops/pallas/zoom_probe.py:244",
          "max_abs_err": k2_abs, "max_rel_err_row_peak": k2_rel,
-         "max_delay_err_samples": k2_delay, "ms": k2_ms, "plain_ms": k2_plain,
+         "max_delay_err_samples": k2_delay, "ms": k2_ms,
+         "wrapper_ms": k2_wrap, "plain_ms": k2_plain,
          "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "previous_ms": PREVIOUS_MS["zoom_probe"],
+         "redesigned": True, "bitwise_deterministic": True},
         k3,
     ]
 
@@ -302,17 +376,23 @@ def _kernel3(dev, g):
         del step, phase
     x += 0.1 * torch.randn(2, C, n, device=dev, generator=g)
     got = fm_demod.fm_demod_decimate(x, FS, decim=FM_DECIM)
+    again = fm_demod.fm_demod_decimate(x, FS, decim=FM_DECIM)
     want = fm_demod.fm_demod_decimate_plain(x, FS, decim=FM_DECIM)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
+    same = _same(got, again)
     print(f"fm_demod [{C} ch x {n} samples, D={FM_DECIM}]: max |kernel - "
           f"plain| = {err:.3e} (tol {K3_TOL:g}); audio peak "
-          f"{float(want.abs().max()):.3f}")
+          f"{float(want.abs().max()):.3f}; two launches bitwise equal: "
+          f"{same}")
     if not err < K3_TOL:
         raise RuntimeError("fm_demod disagrees with its plain version")
-    del got, want
-    k3_ms = _time_ms(lambda: fm_demod.fm_demod_decimate(x, FS, decim=FM_DECIM),
-                     20)
+    if not same:
+        raise RuntimeError("fm_demod is not deterministic")
+    del got, want, again
+    k3_call = lambda: fm_demod.fm_demod_decimate(x, FS, decim=FM_DECIM)  # noqa: E731
+    k3_ms = _device_ms(k3_call, "fm_demod_kernel", 20)
+    k3_wrap = _time_ms(k3_call, 20)
     k3_plain = _time_ms(lambda: fm_demod.fm_demod_decimate_plain(
         x, FS, decim=FM_DECIM), 2)
     # IQ read once (8 bytes a sample), audio written once; operations:
@@ -322,14 +402,15 @@ def _kernel3(dev, g):
     b3 = _bound(C * n * 8 + C * n_out * 4,
                 C * n * 27 + C * n_out * 2 * fm_demod.NUM_TAPS)
     print(f"time fm_demod [{C} ch x {n}, D={FM_DECIM}]: kernel {k3_ms:.3f} "
-          f"ms, plain {k3_plain:.3f} ms, bound {b3['bound_ms']:.4f} ms "
+          f"ms (wrapper loop {k3_wrap:.3f} ms), plain {k3_plain:.3f} ms, bound {b3['bound_ms']:.4f} ms "
           f"({b3['bound_by']}: {b3['bytes'] / 1e6:.1f} MB, "
           f"{b3['ops'] / 1e9:.2f} GFLOP)")
     del x
     return {"name": "fm_demod", "route": "cuda",
             "source": "tdoa_tpu_torch/csrc/fm_demod.cu",
             "replaces": "tdoa_tpu/ops/pallas/fm_demod.py:189",
-            "max_abs_err": err, "ms": k3_ms, "plain_ms": k3_plain,
+            "max_abs_err": err, "ms": k3_ms, "wrapper_ms": k3_wrap,
+            "plain_ms": k3_plain, "bitwise_deterministic": True,
             "bound_ms": b3["bound_ms"], "bound_by": b3["bound_by"],
             "library_ms": None}
 

@@ -115,26 +115,33 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tdoa_corr_accum.argtypes = [
         p, p, i,            # x re, x im, input is bf16
         ctypes.c_longlong,  # station stride (elements)
-        i, i,               # n_st, n_seg
+        i,                  # n_st
         p, i,               # pairs [m, 2] int32 (device), m
         i, i,               # n_banks, track_sums
-        p, i,               # scratch float2, chunk_segs
+        p, i, i,            # chunk plan [n_chunks, n_banks*run] int32, n_chunks, run
+        p, p,               # scratch 2 x [n_st, n_banks*run, F] float2, barrier int32
+        i, i, i, i,         # resident, grid, items per CTA, shared memory bytes
         p, p, p,            # cross float2 [K, m, F], psd [K, n_st, F], sums float2
         p,                  # stream
     ]
     lib.tdoa_corr_accum.restype = i
-    lib.tdoa_corr_accum_smem_bytes.argtypes = [i, i, i]
+    lib.tdoa_corr_accum_smem_bytes.argtypes = [i, i, i, i]  # n_st, m, track, items
     lib.tdoa_corr_accum_smem_bytes.restype = i
+    lib.tdoa_corr_accum_config.argtypes = [i, i, i, i, i, p]  # ..., n_banks, bf16, out[5]
+    lib.tdoa_corr_accum_config.restype = i
     lib.tdoa_zoom_probe.argtypes = [
         p, p,               # cross_g float2 [K, m, F], psd_g [K, n_st, F]
-        p, p, p,            # pairs [m, 2] int32, coarse [m] int32, nseg [K*m]
+        p, p, p,            # pairs [m, 2] int32, coarse [m] f32, nseg [K*m] f32
         i, i, i, i,         # K, m, n_st, F
         ctypes.c_float,     # eps
-        p, p, p,            # partial means scratch, means scratch, zoom partials
+        p, p, p, p,         # per-bin scratch float4, chunk sums, chunk windows, barrier
+        i, i,               # grid, shared memory bytes
         p,                  # out window float2 [K*m, W]
         p,                  # stream
     ]
     lib.tdoa_zoom_probe.restype = i
+    lib.tdoa_zoom_probe_config.argtypes = [i, i, i, p]  # K, m, F, out[2]
+    lib.tdoa_zoom_probe_config.restype = i
     lib.tdoa_fm_demod.argtypes = [
         p, p,               # x re, x im rows (f32)
         ctypes.c_longlong,  # channel stride (elements)

@@ -11,10 +11,13 @@ order. ``_finalize_banks`` then folds in the DC removal
 (``FFT(x−m) = FFT(x) − m·D``) and the optional unit-RMS prescale.
 
 The CUDA kernel (``csrc/corr_accum.cu``) computes the transform in its
-own body (four-step 256×256, f32 arithmetic on bf16 or f32 input).
-``accumulate_banks`` is its wrapper: a CUDA tensor launches it (or
-raises), a CPU tensor takes ``accumulate_banks_plain``, the same sums
-with ``torch.fft`` — also what the kernel is held against on the card.
+own body (four-step 256×256 with 16×16 register FFTs, f32 arithmetic on
+bf16 or f32 input) in one cooperative launch per block: the segments go
+in chunks (``chunk_plan``), and the four-step hand-off between its two
+stages passes through two L2-sized scratch buffers. ``accumulate_banks``
+is its wrapper: a CUDA tensor launches it (or raises), a CPU tensor
+takes ``accumulate_banks_plain``, the same sums with ``torch.fft`` —
+also what the kernel is held against on the card.
 """
 
 from __future__ import annotations
@@ -31,9 +34,11 @@ SEG_ROWS = 176  # data rows per segment; the other 80 rows are zero padding
 FFT_LEN = R * R  # 65536
 SEG_LEN = SEG_ROWS * R  # 45056
 
-# Scratch for the stage-1 spectra of one chunk of segments is bounded by
-# this many bytes (three stations × 443 segments would be ~680 MB).
-SCRATCH_BYTES = 64 << 20
+# Each of the kernel's two scratch buffers (the stage-1 spectra of one
+# chunk) is held to this many bytes, so that both together stay near the
+# H100's 50 MB L2: 3 stations × 4 banks × 4 segments. Two 12 MB buffers
+# measured slower (more phases, each ending in a grid-wide barrier).
+SCRATCH_BUF_BYTES = 24 << 20
 # Largest dynamic shared memory one CTA may opt into on sm_90.
 SM90_SMEM_OPTIN = 232448
 
@@ -61,9 +66,23 @@ def bank_bounds(n_seg: int, n_banks: int) -> list:
     return b
 
 
-def _pairs_tensor(pairs: Sequence[Tuple[int, int]], device) -> torch.Tensor:
-    return torch.tensor(np.asarray(pairs, np.int32).reshape(-1, 2),
-                        dtype=torch.int32, device=device)
+def pairs_key(pairs: Sequence[Tuple[int, int]]) -> tuple:
+    """``pairs`` as a tuple of (i, j) int tuples: hashable, and cheap to
+    check on every launch."""
+    return tuple((int(i), int(j))
+                 for i, j in np.reshape(pairs, (-1, 2)).tolist())
+
+
+def device_pairs(pairs: Sequence[Tuple[int, int]], device) -> torch.Tensor:
+    """``pairs`` as int32 [m, 2] on ``device``, copied there once per
+    process (a host→card copy from pageable memory waits for the card,
+    which would stall the stream before every launch)."""
+    return _device_pairs(pairs_key(pairs), torch.device(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _device_pairs(key, device) -> torch.Tensor:
+    return torch.tensor(key, dtype=torch.int32, device=device).reshape(-1, 2)
 
 
 def _check_input(x: torch.Tensor, pairs) -> Tuple[int, int, int]:
@@ -112,23 +131,74 @@ def accumulate_banks_plain(x: torch.Tensor, pairs, n_banks: int,
     return cross, psd, sums
 
 
-def chunk_segments(n_st: int, n_seg: int) -> int:
-    """Segments per stage-1 chunk: scratch stays within SCRATCH_BYTES."""
-    per_seg = n_st * FFT_LEN * 8
-    return max(1, min(n_seg, SCRATCH_BYTES // per_seg))
+def bank_run(n_st: int, n_banks: int, n_seg: int) -> int:
+    """Segments each bank gives one chunk: as many as keep a scratch
+    buffer (all stations of the chunk's segments) within
+    SCRATCH_BUF_BYTES, at least one, at most the longest bank."""
+    per_run = n_st * n_banks * FFT_LEN * 8
+    return max(1, min(SCRATCH_BUF_BYTES // per_run, -(-n_seg // n_banks)))
+
+
+def chunk_plan(n_seg: int, n_banks: int, run: int) -> np.ndarray:
+    """The kernel's schedule: int32 [n_chunks, n_banks·run], row c
+    holding the segments of chunk c — for each bank (``bank_bounds``)
+    its next ``run`` segments in order, −1 past the bank's end."""
+    b = bank_bounds(n_seg, n_banks)
+    n_chunks = -(-max(np.diff(b)) // run)
+    plan = np.full((n_chunks, n_banks, run), -1, np.int32)
+    for k in range(n_banks):
+        flat = np.full(n_chunks * run, -1, np.int32)
+        flat[:b[k + 1] - b[k]] = np.arange(b[k], b[k + 1])
+        plan[:, k] = flat.reshape(n_chunks, run)
+    return plan.reshape(n_chunks, n_banks * run)
+
+
+def kernel_config(n_st: int, m: int, track_sums: bool, n_banks: int,
+                  bf16: bool = True, device=None) -> dict:
+    """The launch the kernel chooses on ``device`` (default: the current
+    card): whether each CTA keeps its items' accumulators in shared
+    memory for the whole launch (``resident``) or reloads one item's per
+    chunk, the grid, CTAs per SM, (bank, row) items per CTA and shared
+    memory per CTA. Computed once per device and shape."""
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if device is None else torch.device(device)
+    return dict(_kernel_config(n_st, m, bool(track_sums), n_banks, bool(bf16),
+                               dev.index))
+
+
+@functools.lru_cache(maxsize=64)
+def _kernel_config(n_st, m, track_sums, n_banks, bf16, index):
+    from tdoa_tpu_torch.ops.kernels import _build
+
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(index):
+        err = _build.load().tdoa_corr_accum_config(
+            n_st, m, int(track_sums), n_banks, int(bf16), out)
+    if err != 0:
+        raise RuntimeError(f"corr_accum has no launch for {n_st} stations, "
+                           f"{m} pairs, {n_banks} banks: CUDA error {err}")
+    return tuple(zip(("resident", "grid", "blocks_per_sm", "items_per_cta",
+                      "smem_bytes"), (int(v) for v in out)))
+
+
+@functools.lru_cache(maxsize=64)
+def _device_plan(n_seg: int, n_banks: int, run: int, device) -> torch.Tensor:
+    return torch.from_numpy(chunk_plan(n_seg, n_banks, run)).to(device)
 
 
 def fits_device(n_st: int, m: int, track_sums: bool, n_banks: int,
                 device: torch.device) -> bool:
-    """Whether the kernel's shared memory (the stage-2 CTA's footprint,
-    by the kernel's own formula in the built library) and its device
-    buffers (chunk scratch plus the bank accumulators) fit ``device``."""
+    """Whether the kernel runs on ``device``: a CTA holds one item's
+    accumulators (the reload branch's footprint, by the kernel's own
+    formula in the built library) and the device holds the two scratch
+    buffers of the largest chunk plus the bank accumulators."""
     from tdoa_tpu_torch.ops.kernels import _build
 
-    smem = _build.load().tdoa_corr_accum_smem_bytes(n_st, m, int(track_sums))
+    smem = _build.load().tdoa_corr_accum_smem_bytes(n_st, m, int(track_sums), 1)
     if smem > SM90_SMEM_OPTIN:
         return False
-    scratch = n_st * chunk_segments(n_st, 1 << 30) * FFT_LEN * 8
+    run = bank_run(n_st, n_banks, 1 << 30)
+    scratch = 2 * n_st * n_banks * run * FFT_LEN * 8
     acc = n_banks * FFT_LEN * (8 * m + 4 * n_st + (8 * n_st if track_sums
                                                     else 0))
     free, _ = torch.cuda.mem_get_info(device)
@@ -157,19 +227,25 @@ def accumulate_banks(x: torch.Tensor, pairs, n_banks: int = 1,
         raise ValueError(f"n_banks {n_banks} outside [1, {n_seg} segments]")
     lib = _build.load()
     dev = x.device
-    pairs_d = _pairs_tensor(pairs, dev)
-    chunk = chunk_segments(n_st, n_seg)
-    scratch = torch.empty(n_st * chunk * FFT_LEN * 2, dtype=torch.float32,
-                          device=dev)
+    bf16 = x.dtype == torch.bfloat16
+    cfg = kernel_config(n_st, m, track_sums, n_banks, bf16, dev)
+    pairs_d = device_pairs(pairs, dev)
+    run = bank_run(n_st, n_banks, n_seg)
+    plan = _device_plan(n_seg, n_banks, run, dev)
+    scratch = torch.empty(2 * n_st * n_banks * run * FFT_LEN * 2,
+                          dtype=torch.float32, device=dev)
+    bar = torch.empty(1, dtype=torch.int32, device=dev)
     cross = torch.empty(n_banks, m, FFT_LEN, dtype=torch.complex64, device=dev)
     psd = torch.empty(n_banks, n_st, FFT_LEN, dtype=torch.float32, device=dev)
     sums = (torch.empty(n_banks, n_st, FFT_LEN, dtype=torch.complex64,
                         device=dev) if track_sums else None)
     err = lib.tdoa_corr_accum(
         ctypes.c_void_p(x[0].data_ptr()), ctypes.c_void_p(x[1].data_ptr()),
-        int(x.dtype == torch.bfloat16), int(x.stride(1)), n_st, n_seg,
+        int(bf16), int(x.stride(1)), n_st,
         ctypes.c_void_p(pairs_d.data_ptr()), m, n_banks, int(track_sums),
-        ctypes.c_void_p(scratch.data_ptr()), chunk,
+        ctypes.c_void_p(plan.data_ptr()), int(plan.shape[0]), run,
+        ctypes.c_void_p(scratch.data_ptr()), ctypes.c_void_p(bar.data_ptr()),
+        cfg["resident"], cfg["grid"], cfg["items_per_cta"], cfg["smem_bytes"],
         ctypes.c_void_p(cross.data_ptr()), ctypes.c_void_p(psd.data_ptr()),
         ctypes.c_void_p(0 if sums is None else sums.data_ptr()),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),

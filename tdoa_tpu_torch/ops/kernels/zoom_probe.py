@@ -12,7 +12,8 @@ Like the TPU kernel it drops ``_weight_factor``'s per-row
 ``snr_w / max(snr_w)`` normalization: a positive per-row scalar leaves
 the window's argmax and parabolic offset unchanged.
 
-``loo_zoom_windows`` is the wrapper of ``csrc/zoom_probe.cu``: a CUDA
+``loo_zoom_windows`` is the wrapper of ``csrc/zoom_probe.cu`` (one
+cooperative launch; the zoom basis as ``zoom_basis`` builds it): a CUDA
 tensor launches it (or raises), a CPU tensor takes
 ``loo_zoom_windows_plain``, the same formula in torch.
 """
@@ -20,13 +21,17 @@ tensor launches it (or raises), a CPU tensor takes
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import numpy as np
 import torch
 
+from tdoa_tpu_torch.ops.kernels.corr_accum import device_pairs, pairs_key
 from tdoa_tpu_torch.ops.peaks import parabolic_peak
 
-TILE = 128  # frequency bins per CTA of the CUDA kernel
+TILE = 128  # smallest FFT length the CUDA kernel takes (4 bins a lane)
+CHUNK = 256  # frequency bins per warp item of the CUDA kernel
 HALF_WIDTH = 16  # zoom window: ±16 lags around the coarse peak
 W = 2 * HALF_WIDTH + 1
 
@@ -39,8 +44,8 @@ def _check(cross_g, psd_g, pairs, coarse, n_seg_loo):
             or psd_g.dtype != torch.float32:
         raise ValueError("psd_g must be float32 [K, n_st, F]")
     n_st = psd_g.shape[1]
-    p = np.asarray(pairs).reshape(-1, 2)
-    if len(p) != m or p.min() < 0 or p.max() >= n_st:
+    p = pairs_key(pairs)
+    if len(p) != m or min(map(min, p)) < 0 or max(map(max, p)) >= n_st:
         raise ValueError(f"pairs {pairs!r} do not match m={m}, n_st={n_st}")
     if coarse.shape != (m,) or n_seg_loo.shape != (K * m,):
         raise ValueError("coarse must be [m] and n_seg_loo [K*m]")
@@ -98,6 +103,41 @@ def loo_zoom_windows_plain(cross_g, psd_g, pairs, coarse, n_seg_loo,
     return der @ basis
 
 
+def zoom_basis(F: int) -> torch.Tensor:
+    """The CUDA kernel's zoom basis exp(+2πi·k_signed·δ/F), complex64
+    [F, W] on the CPU: lag 1 from the exact angle (2·k_signed/F half
+    turns, what ``sincospif`` takes, correctly rounded), lags 2..16 by
+    the float32 recurrence b_{n+1} = b_n·b_1, negative lags the
+    conjugates. Its error grows by about one rounding a step (≲ 2e-6 at
+    lag 16), below the plain version's own f32 angle rounding."""
+    k = torch.arange(F, dtype=torch.float64)
+    ang = math.pi * (2.0 * torch.where(k < F // 2, k, k - F) / F)
+    c1, s1 = torch.cos(ang).float(), torch.sin(ang).float()
+    br, bi = c1, s1
+    pos_re, pos_im = [], []
+    for _ in range(HALF_WIDTH):
+        pos_re.append(br)
+        pos_im.append(bi)
+        br, bi = br * c1 - bi * s1, br * s1 + bi * c1
+    re = pos_re[::-1] + [torch.ones(F)] + pos_re
+    im = [-v for v in pos_im[::-1]] + [torch.zeros(F)] + pos_im
+    return torch.complex(torch.stack(re, -1), torch.stack(im, -1))
+
+
+@functools.lru_cache(maxsize=64)
+def _kernel_config(K: int, m: int, F: int, index) -> tuple:
+    """(grid, shared memory bytes) of the kernel's launch on a device."""
+    from tdoa_tpu_torch.ops.kernels import _build
+
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(index):
+        err = _build.load().tdoa_zoom_probe_config(K, m, F, out)
+    if err != 0:
+        raise RuntimeError(f"zoom_probe has no launch for K={K}, m={m}, "
+                           f"F={F}: CUDA error {err}")
+    return int(out[0]), int(out[1])
+
+
 def loo_zoom_windows(cross_g: torch.Tensor, psd_g: torch.Tensor, pairs,
                      coarse: torch.Tensor, n_seg_loo: torch.Tensor,
                      eps: float = 1e-3) -> torch.Tensor:
@@ -120,22 +160,28 @@ def loo_zoom_windows(cross_g: torch.Tensor, psd_g: torch.Tensor, pairs,
         raise ValueError("cross_g and psd_g must be contiguous")
     lib = _build.load()
     dev = cross_g.device
-    pairs_d = torch.tensor(np.asarray(pairs, np.int32).reshape(-1, 2),
-                           dtype=torch.int32, device=dev)
-    coarse_d = torch.round(coarse).to(device=dev, dtype=torch.int32)
+    grid, smem = _kernel_config(K, m, F, dev.index)
+    pairs_d = device_pairs(pairs, dev)
+    coarse_d = coarse.to(device=dev, dtype=torch.float32).contiguous()
     nseg_d = n_seg_loo.to(device=dev, dtype=torch.float32).contiguous()
-    KM, n_tiles = K * m, F // TILE
-    part = torch.empty(KM * n_tiles * 2, dtype=torch.float32, device=dev)
-    means = torch.empty(KM * 2, dtype=torch.float32, device=dev)
-    zpart = torch.empty(KM * n_tiles * W, dtype=torch.complex64, device=dev)
+    KM, n_ch = K * m, F // min(CHUNK, F)
+    # One scratch allocation: per-bin float4 [KM, F] | chunk sums
+    # [KM, n_ch, 2] | chunk windows [KM, n_ch, 2W] | barrier counter.
+    scratch = torch.empty(KM * F * 4 + KM * n_ch * (2 + 2 * W) + 1,
+                          dtype=torch.float32, device=dev)
+    base = scratch.data_ptr()
+    part_at = base + 4 * KM * F * 4
+    zpart_at = part_at + 4 * KM * n_ch * 2
+    bar_at = zpart_at + 4 * KM * n_ch * 2 * W
     out = torch.empty(KM, W, dtype=torch.complex64, device=dev)
     err = lib.tdoa_zoom_probe(
         ctypes.c_void_p(cross_g.data_ptr()), ctypes.c_void_p(psd_g.data_ptr()),
         ctypes.c_void_p(pairs_d.data_ptr()),
         ctypes.c_void_p(coarse_d.data_ptr()),
         ctypes.c_void_p(nseg_d.data_ptr()), K, m, n_st, F, float(eps),
-        ctypes.c_void_p(part.data_ptr()), ctypes.c_void_p(means.data_ptr()),
-        ctypes.c_void_p(zpart.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+        ctypes.c_void_p(base), ctypes.c_void_p(part_at),
+        ctypes.c_void_p(zpart_at), ctypes.c_void_p(bar_at), grid, smem,
+        ctypes.c_void_p(out.data_ptr()),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     if err != 0:

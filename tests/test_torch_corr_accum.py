@@ -21,10 +21,13 @@ from tdoa_tpu_torch.ops.corr import correlate_pairs_fused
 from tdoa_tpu_torch.ops.kernels import corr_accum
 from tdoa_tpu_torch.ops.kernels.corr_accum import (
     FFT_LEN,
+    SCRATCH_BUF_BYTES,
     SEG_LEN,
     accumulate_banks,
     accumulate_cross_spectra,
     bank_bounds,
+    bank_run,
+    chunk_plan,
 )
 
 PAIRS = ((0, 1), (0, 2), (1, 2))
@@ -114,6 +117,40 @@ def test_bank_bounds_match_split_bounds(n_seg, K):
         n_seg, K, SEG_LEN)
 
 
+@pytest.mark.parametrize("n_seg", [5, 16, 100, 443, 1480])
+@pytest.mark.parametrize("K", [1, 2, 4])
+def test_chunk_plan_covers_every_segment_once(n_seg, K):
+    """The kernel's schedule: chunk c holds, for every bank, its next
+    `run` segments in order, −1 only past the bank's end; over the
+    chunks every segment of every bank appears exactly once, in the
+    bank's order (1480 segments is the 100 s maximum capture). Checked
+    at the run the kernel takes (3 stations) and at 1 and 7."""
+    b = bank_bounds(n_seg, K)
+    for run in sorted({bank_run(3, K, n_seg), 1, 7}):
+        plan = chunk_plan(n_seg, K, run)
+        assert plan.dtype == np.int32
+        assert plan.shape == (-(-max(np.diff(b)) // run), K * run)
+        per_bank = plan.reshape(plan.shape[0], K, run)
+        for k in range(K):
+            flat = per_bank[:, k].reshape(-1)
+            n = b[k + 1] - b[k]
+            np.testing.assert_array_equal(flat[:n], np.arange(b[k], b[k + 1]))
+            assert (flat[n:] == -1).all()
+        got = np.sort(plan[plan >= 0])
+        np.testing.assert_array_equal(got, np.arange(n_seg))
+
+
+@pytest.mark.parametrize("n_st,K", [(3, 4), (3, 1), (12, 2)])
+def test_bank_run_keeps_a_scratch_buffer_in_its_bound(n_st, K):
+    """A chunk's stage-1 spectra (all stations of n_banks·run segments)
+    stay within SCRATCH_BUF_BYTES unless one segment a bank already
+    exceeds it; the run never passes the longest bank."""
+    for n_seg in (K, 443, 1480):
+        run = bank_run(n_st, K, n_seg)
+        assert 1 <= run <= -(-n_seg // K)
+        assert run == 1 or n_st * K * run * FFT_LEN * 8 <= SCRATCH_BUF_BYTES
+
+
 def test_short_capture_rejected():
     x = torch.zeros(2, 2, SEG_LEN - 1)
     with pytest.raises(ValueError, match="shorter than one kernel segment"):
@@ -158,21 +195,29 @@ def test_cpu_tensors_take_the_plain_version():
     assert accumulate_banks.launches == before
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n_st,n_seg,K", [(3, 16, 4), (3, 100, 4), (12, 5, 2)])
-def test_cuda_kernel_matches_plain(cuda_sm90, n_st, n_seg, K):
-    """The CUDA kernel against its plain version on the card: 3
-    stations, K = 4, sums on, bf16, at 16 segments (one stage-1 chunk)
-    and at 100 segments (chunks of corr_accum.chunk_segments(3, 100), so
-    banks cross chunk boundaries and stage 2 reloads its accumulators),
-    and a 12-station network (66 pairs, 198 KB of shared memory per
-    CTA); within 1e-4 of each row's peak magnitude (f32 FFTs, different
-    summation orders)."""
+def _cuda_block(n_st, n_seg, device):
     pairs = tuple((i, j) for i in range(n_st) for j in range(i + 1, n_st))
     delays = np.linspace(-40.0, 40.0, n_st)
     x = torch.from_numpy(fm_block(n_st, n_seg * SEG_LEN, delays, seed=5,
-                                  dc=(0.01, 0.0))).to(cuda_sm90)
-    x = x.to(torch.bfloat16).contiguous()
+                                  dc=(0.01, 0.0))).to(device)
+    return x.to(torch.bfloat16).contiguous(), pairs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_st,n_seg,K", [(3, 16, 4), (3, 100, 4), (12, 5, 2),
+                                          (3, 443, 4)])
+def test_cuda_kernel_matches_plain(cuda_sm90, n_st, n_seg, K):
+    """The CUDA kernel against its plain version on the card: 3
+    stations, K = 4, sums on, bf16, at 16 segments (one chunk), at 100
+    and at a 10 s block's 443 segments (chunks of corr_accum.bank_run
+    segments a bank, each CTA keeping its items' accumulators on chip
+    from chunk to chunk), and a 12-station network (66 pairs: one item
+    takes 172 KB, so the reload branch carries the accumulators from
+    chunk to chunk through the outputs); within 1e-4 of each row's peak
+    magnitude (f32 FFTs, different summation orders)."""
+    x, pairs = _cuda_block(n_st, n_seg, cuda_sm90)
+    cfg = corr_accum.kernel_config(n_st, len(pairs), True, K)
+    assert cfg["resident"] == (n_st == 3)
     before = accumulate_banks.launches
     got = accumulate_banks(x, pairs, K, True)
     assert accumulate_banks.launches == before + 1
@@ -181,3 +226,16 @@ def test_cuda_kernel_matches_plain(cuda_sm90, n_st, n_seg, K):
     for g, w in zip(got, want):
         peak = w.abs().amax(dim=-1, keepdim=True)
         assert float(((g - w).abs() / peak).max()) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_st,n_seg,K", [(3, 100, 4), (12, 5, 2)])
+def test_cuda_kernel_is_deterministic(cuda_sm90, n_st, n_seg, K):
+    """No float atomics: two launches on the same input give bitwise-
+    equal outputs, in both branches."""
+    x, pairs = _cuda_block(n_st, n_seg, cuda_sm90)
+    a = accumulate_banks(x, pairs, K, True)
+    b = accumulate_banks(x, pairs, K, True)
+    torch.cuda.synchronize()
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)

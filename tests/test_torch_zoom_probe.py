@@ -23,8 +23,10 @@ from tdoa_tpu_torch import convert
 from tdoa_tpu_torch.ops.corr import _weight_factor, _zoom_corr_delay
 from tdoa_tpu_torch.ops.kernels import zoom_probe
 from tdoa_tpu_torch.ops.kernels.zoom_probe import (
+    HALF_WIDTH,
     loo_zoom_delays,
     loo_zoom_windows,
+    zoom_basis,
     zoom_probe_supported,
 )
 
@@ -127,6 +129,32 @@ def test_probe_formula_matches_the_plain_zoom_path():
                                ds_plain.numpy(), atol=2e-3)
 
 
+@pytest.mark.parametrize("F", [128, 4096, 65536])
+def test_kernel_basis_matches_the_plain_basis(F):
+    """The CUDA kernel's basis rule (lag 1 from the exact angle, the
+    other lags by a float32 recurrence; ``zoom_basis``) against the
+    plain version's basis exp(i·(k_signed·2π/F)·δ) from float32 angles,
+    δ ∈ [−16, 16]: within 1e-5. Against the exact basis (float64) the
+    rule is within 3e-6, closer than the plain version's own angles at
+    F = 65536, where they reach ~50 rad."""
+    k = torch.arange(F)
+    k_signed = torch.where(k < F // 2, k, k - F).to(torch.float32)
+    step = torch.tensor(2.0 * np.pi / F, dtype=torch.float32)
+    delta = torch.arange(-HALF_WIDTH, HALF_WIDTH + 1, dtype=torch.float32)
+    ang = (k_signed * step)[:, None] * delta[None, :]
+    plain = torch.polar(torch.ones_like(ang), ang)
+    got = zoom_basis(F)
+    assert got.shape == plain.shape and got.dtype == torch.complex64
+    assert float((got - plain).abs().max()) < 1e-5
+    k64 = k.to(torch.float64)
+    exact = torch.exp(2j * np.pi * torch.where(k64 < F // 2, k64, k64 - F)[:, None]
+                      * delta.to(torch.float64)[None, :] / F)
+    err = (got.to(torch.complex128) - exact).abs().max()
+    assert float(err) < 3e-6
+    if F == 65536:
+        assert float(err) < float((plain.to(torch.complex128) - exact).abs().max())
+
+
 def test_support_gate():
     assert zoom_probe_supported(65536, 20000, "ht")
     assert zoom_probe_supported(4096, 512, "ml")
@@ -154,11 +182,13 @@ def test_convert_carries_banks_and_config():
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_matches_plain(cuda_sm90):
+@pytest.mark.parametrize("F", [65536, 4096])
+def test_cuda_kernel_matches_plain(cuda_sm90, F):
     """The CUDA probe against its plain version on the card at the slice's
-    shape (K = 4, m = 3, F = 65536): windows within 1e-4 of each row's
-    peak, delays within 2e-3 samples."""
-    pairs, cr, ci, psd, coarse, n_seg_loo = _probe_case(F=65536, seed=2)
+    shape (K = 4, m = 3, F = 65536) and at the segmented path's smallest
+    FFT (4096): windows within 1e-4 of each row's peak, delays within
+    2e-3 samples."""
+    pairs, cr, ci, psd, coarse, n_seg_loo = _probe_case(F=F, seed=2)
     cross, psd_t, _ = convert.banks_from_planar(
         cr, ci, psd, np.zeros(psd.shape[:2]), device=cuda_sm90)
     coarse_t = torch.from_numpy(coarse).to(cuda_sm90)
@@ -174,3 +204,18 @@ def test_cuda_kernel_matches_plain(cuda_sm90):
     ds_cpu = loo_zoom_delays(cross.cpu(), psd_t.cpu(), pairs, coarse_t.cpu(),
                              nseg_t.cpu())
     np.testing.assert_allclose(ds.cpu().numpy(), ds_cpu.numpy(), atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_is_deterministic(cuda_sm90):
+    """Every cross-warp sum runs in a fixed order: two launches give
+    bitwise-equal windows."""
+    pairs, cr, ci, psd, coarse, n_seg_loo = _probe_case(F=65536, seed=4)
+    cross, psd_t, _ = convert.banks_from_planar(
+        cr, ci, psd, np.zeros(psd.shape[:2]), device=cuda_sm90)
+    args = (cross, psd_t, pairs, torch.from_numpy(coarse).to(cuda_sm90),
+            torch.from_numpy(n_seg_loo).to(cuda_sm90))
+    a = loo_zoom_windows(*args)
+    b = loo_zoom_windows(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
