@@ -20,10 +20,10 @@ Phases, each printing its own lines; any failure exits non-zero:
              same input (the outputs must be bitwise equal), then each
              timed at the main path's shapes beside its bound (bytes
              over 3.35 TB/s or f32 operations over 67 TFLOP/s, the
-             larger): the kernel's own device time per call from
-             ``torch.profiler`` (``ms``), and CUDA events around a loop
-             of wrapper calls (``wrapper_ms``, the host's share
-             included where it is the slower side);
+             larger): CUDA events around a loop of wrapper calls
+             (``ms``, the host's share included where it is the slower
+             side), and the kernel's own device time per call from
+             ``torch.profiler`` (``device_ms``);
 4. slice   — a synthesized 3-station 30 s capture (three 10 s blocks of
              20 M samples, ``lat-lon-table.csv`` geometry, an FM-like
              source, per-station clock offsets, noise) written as u8
@@ -62,9 +62,6 @@ FM_DECIM = 8
 # Published H100 SXM peaks (NVIDIA data sheet) for the bounds.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
-# Kernels 1 and 2 before their redesign (chip_smoke.py phase 3, NVIDIA
-# H100 80GB HBM3, 700 W): the rows the redesign is measured against.
-PREVIOUS_MS = {"corr_accum": 3.201, "zoom_probe": 0.215}
 
 
 def _smi() -> str:
@@ -299,12 +296,12 @@ def phase_kernels(dev):
     k1_call = lambda: corr_accum.accumulate_banks(x443, pairs, K, True)  # noqa: E731
     k2_call = lambda: zoom_probe.loo_zoom_windows(  # noqa: E731
         cross_g, psd_g, pairs, coarse, nseg)
-    k1_ms = _device_ms(k1_call, "corr_accum_kernel", 5)
-    k1_wrap = _time_ms(k1_call, 5)
+    k1_ms = _time_ms(k1_call, 5)
+    k1_dev = _device_ms(k1_call, "corr_accum_kernel", 5)
     k1_plain = _time_ms(lambda: corr_accum.accumulate_banks_plain(
         x443, pairs, K, True), 2)
-    k2_ms = _device_ms(k2_call, "zoom_probe_kernel", 20)
-    k2_wrap = _time_ms(k2_call, 20)
+    k2_ms = _time_ms(k2_call, 20)
+    k2_dev = _device_ms(k2_call, "zoom_probe_kernel", 20)
     k2_plain = _time_ms(lambda: zoom_probe.loo_zoom_windows_plain(
         cross_g, psd_g, pairs, coarse, nseg), 20)
     F, n_st, m, n_seg = corr_accum.FFT_LEN, 3, len(pairs), 443
@@ -322,15 +319,13 @@ def phase_kernels(dev):
     b2 = _bound(K * F * (8 * m + 4 * n_st) + K * m * W * 8,
                 K * m * F * (8 * W + 40))
     print(f"time corr_accum [3 st, 443 seg, K={K}]: kernel {k1_ms:.3f} ms "
-          f"(wrapper loop {k1_wrap:.3f} ms; before the redesign "
-          f"{PREVIOUS_MS['corr_accum']} ms), "
-          f"plain {k1_plain:.3f} ms, bound {b1['bound_ms']:.4f} ms "
+          f"(device time {k1_dev:.3f} ms), plain {k1_plain:.3f} ms, "
+          f"bound {b1['bound_ms']:.4f} ms "
           f"({b1['bound_by']}: {b1['bytes'] / 1e6:.1f} MB, "
           f"{b1['ops'] / 1e9:.2f} GFLOP)")
     print(f"time zoom_probe [K={K}, m=3, F=65536]: kernel {k2_ms:.4f} ms "
-          f"(wrapper loop {k2_wrap:.4f} ms; before the redesign "
-          f"{PREVIOUS_MS['zoom_probe']} ms), "
-          f"plain {k2_plain:.3f} ms, bound {b2['bound_ms']:.4f} ms "
+          f"(device time {k2_dev:.4f} ms), plain {k2_plain:.3f} ms, "
+          f"bound {b2['bound_ms']:.4f} ms "
           f"({b2['bound_by']}: {b2['bytes'] / 1e6:.2f} MB, "
           f"{b2['ops'] / 1e9:.3f} GFLOP)")
     del x443, got443
@@ -340,20 +335,20 @@ def phase_kernels(dev):
          "source": "tdoa_tpu_torch/csrc/corr_accum.cu",
          "replaces": "tdoa_tpu/ops/pallas/corr_accum.py:634",
          "max_abs_err": k1_abs, "max_rel_err_row_peak": k1_rel,
-         "ms": k1_ms, "wrapper_ms": k1_wrap, "plain_ms": k1_plain,
+         "ms": k1_ms, "device_ms": k1_dev, "plain_ms": k1_plain,
          "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
-         "library_ms": None, "previous_ms": PREVIOUS_MS["corr_accum"],
-         "redesigned": True, "bitwise_deterministic": True,
+         "library_ms": None, "redesigned": True,
+         "bitwise_deterministic": True,
          "launch": k1_cfg},
         {"name": "zoom_probe", "route": "cuda",
          "source": "tdoa_tpu_torch/csrc/zoom_probe.cu",
          "replaces": "tdoa_tpu/ops/pallas/zoom_probe.py:244",
          "max_abs_err": k2_abs, "max_rel_err_row_peak": k2_rel,
          "max_delay_err_samples": k2_delay, "ms": k2_ms,
-         "wrapper_ms": k2_wrap, "plain_ms": k2_plain,
+         "device_ms": k2_dev, "plain_ms": k2_plain,
          "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"],
-         "library_ms": None, "previous_ms": PREVIOUS_MS["zoom_probe"],
-         "redesigned": True, "bitwise_deterministic": True},
+         "library_ms": None, "redesigned": True,
+         "bitwise_deterministic": True},
         k3,
     ]
 
@@ -391,8 +386,8 @@ def _kernel3(dev, g):
         raise RuntimeError("fm_demod is not deterministic")
     del got, want, again
     k3_call = lambda: fm_demod.fm_demod_decimate(x, FS, decim=FM_DECIM)  # noqa: E731
-    k3_ms = _device_ms(k3_call, "fm_demod_kernel", 20)
-    k3_wrap = _time_ms(k3_call, 20)
+    k3_ms = _time_ms(k3_call, 20)
+    k3_dev = _device_ms(k3_call, "fm_demod_kernel", 20)
     k3_plain = _time_ms(lambda: fm_demod.fm_demod_decimate_plain(
         x, FS, decim=FM_DECIM), 2)
     # IQ read once (8 bytes a sample), audio written once; operations:
@@ -402,14 +397,15 @@ def _kernel3(dev, g):
     b3 = _bound(C * n * 8 + C * n_out * 4,
                 C * n * 27 + C * n_out * 2 * fm_demod.NUM_TAPS)
     print(f"time fm_demod [{C} ch x {n}, D={FM_DECIM}]: kernel {k3_ms:.3f} "
-          f"ms (wrapper loop {k3_wrap:.3f} ms), plain {k3_plain:.3f} ms, bound {b3['bound_ms']:.4f} ms "
+          f"ms (device time {k3_dev:.3f} ms), plain {k3_plain:.3f} ms, "
+          f"bound {b3['bound_ms']:.4f} ms "
           f"({b3['bound_by']}: {b3['bytes'] / 1e6:.1f} MB, "
           f"{b3['ops'] / 1e9:.2f} GFLOP)")
     del x
     return {"name": "fm_demod", "route": "cuda",
             "source": "tdoa_tpu_torch/csrc/fm_demod.cu",
             "replaces": "tdoa_tpu/ops/pallas/fm_demod.py:189",
-            "max_abs_err": err, "ms": k3_ms, "wrapper_ms": k3_wrap,
+            "max_abs_err": err, "ms": k3_ms, "device_ms": k3_dev,
             "plain_ms": k3_plain, "bitwise_deterministic": True,
             "bound_ms": b3["bound_ms"], "bound_by": b3["bound_by"],
             "library_ms": None}

@@ -1,0 +1,121 @@
+#!/usr/bin/env python3
+"""Per-phase timelines of the port's two persistent kernels on the card.
+
+    python3 scripts/kernel_timeline.py
+
+Kernels 1 (``csrc/corr_accum.cu``) and 2 (``csrc/zoom_probe.cu``) each
+run as one cooperative launch whose phases are separated by grid-wide
+barriers, so a profiler sees one kernel. This script builds the kernels
+with ``-DTDOA_TIMELINE``, which compiles their ``%globaltimer`` stamps
+(``TDOA_TL`` in the sources), and runs both through their wrappers at
+the main path's shapes:
+
+- kernel 1 (3 stations, 443 segments, K = 4, bf16, DC sums): for the
+  first and the last CTA, the median stage-1 time, stage-2 time and
+  barrier wait of a phase, the prologue and the final store;
+- kernel 2 (K = 4, m = 3, F = 65536): its three phases and two barriers
+  as CTA 0 sees them.
+
+Needs one CUDA card; imports nothing of JAX. The instrumented build
+lives beside the plain one under ``build/`` (its own source hash).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+TL_PH = 128  # phases kernel 1 stamps (csrc/corr_accum.cu)
+
+
+def _us(ns) -> float:
+    return float(ns) / 1e3
+
+
+def _k1_rows(a, n_ph):
+    """Per-CTA summaries of kernel 1's stamps (a: [2, TL_PH + 1, 4] of
+    phase start, stage-1 ns, stage-2 ns, phase end; row TL_PH: kernel
+    start, store start, end)."""
+    rows = []
+    for slot, who in ((0, "first CTA"), (1, "last CTA")):
+        p = a[slot, :min(n_ph, TL_PH)]
+        start, store, end = a[slot, TL_PH, :3]
+        wait = p[:-1, 3] - p[:-1, 0] - p[:-1, 1] - p[:-1, 2]
+        rows.append({
+            "cta": who, "kernel_us": _us(end - start),
+            "prologue_us": _us(p[0, 0] - start), "store_us": _us(end - store),
+            "stage1_us": _us(np.median(p[:-1, 1])),
+            "stage2_us": _us(np.median(p[1:, 2])),
+            "barrier_us": _us(np.median(wait)),
+        })
+    return rows
+
+
+def main() -> int:
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device: the timelines need the card", file=sys.stderr)
+        return 2
+    from tdoa_tpu_torch.ops.kernels import _build, corr_accum, zoom_probe
+    from tdoa_tpu_torch.ops.kernels.corr_accum import SEG_LEN
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(f"nvidia-smi: {smi}  torch {torch.__version__}")
+    lib = _build.load(("TDOA_TIMELINE",))
+    lib.tdoa_corr_accum_timeline.argtypes = [ctypes.c_void_p]
+    lib.tdoa_zoom_probe_timeline.argtypes = [ctypes.c_void_p]
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1234)
+    pairs = ((0, 1), (0, 2), (1, 2))
+    x = (0.3 * torch.randn(2, 3, 443 * SEG_LEN, device=dev, generator=g)
+         + 0.01).to(torch.bfloat16)
+    run = corr_accum.bank_run(3, 4, 443)
+    n_ph = corr_accum.chunk_plan(443, 4, run).shape[0] + 1
+    for _ in range(2):
+        corr_accum.accumulate_banks(x, pairs, 4, True)
+    torch.cuda.synchronize()
+    buf = (ctypes.c_ulonglong * (2 * (TL_PH + 1) * 4))()
+    if lib.tdoa_corr_accum_timeline(ctypes.addressof(buf)) != 0:
+        raise RuntimeError("could not read kernel 1's stamps")
+    a = np.array(buf, np.int64).reshape(2, TL_PH + 1, 4)
+    for row in _k1_rows(a, n_ph):
+        print(f"corr_accum [3 st, 443 seg, K=4, run {run}, {n_ph} phases] "
+              f"{row['cta']}: kernel {row['kernel_us']:.1f} us (prologue "
+              f"{row['prologue_us']:.1f}, store {row['store_us']:.1f}); "
+              f"median a phase: stage 1 {row['stage1_us']:.2f} us, stage 2 "
+              f"{row['stage2_us']:.2f} us, barrier wait "
+              f"{row['barrier_us']:.2f} us")
+
+    K, m, F = 4, 3, 65536
+    cross = torch.randn(K, m, F, dtype=torch.complex64, device=dev,
+                        generator=g)
+    psd = torch.rand(K, 3, F, device=dev, generator=g) + 0.5
+    coarse = torch.tensor([37.0, -12.0, -49.0], device=dev)
+    nseg = torch.full((K * m,), 332.0, device=dev)
+    for _ in range(3):
+        zoom_probe.loo_zoom_windows(cross, psd, pairs, coarse, nseg)
+    torch.cuda.synchronize()
+    buf = (ctypes.c_ulonglong * 6)()
+    if lib.tdoa_zoom_probe_timeline(ctypes.addressof(buf)) != 0:
+        raise RuntimeError("could not read kernel 2's stamps")
+    t = np.array(buf, np.int64)
+    names = ("phase 0", "barrier 1", "phase 1", "barrier 2", "phase 2")
+    spans = {n: _us(t[i + 1] - t[i]) for i, n in enumerate(names)}
+    spans["kernel"] = _us(t[5] - t[0])
+    print(f"zoom_probe [K={K}, m={m}, F={F}] CTA 0: " + ", ".join(
+        f"{k} {v:.2f} us" for k, v in spans.items()))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -51,8 +51,10 @@
 //    from the first segment to the last and reach the outputs once.
 //    Where they do not (12 stations: 172 KB an item), the same kernel
 //    keeps one item's accumulators at a time and reloads them from the
-//    outputs at every chunk (the reload branch). The footprint formula
-//    tdoa_corr_accum_smem_bytes chooses the branch.
+//    outputs at every chunk (the reload branch). One footprint formula,
+//    smem_bytes, chooses the branch and, where not even one item fits
+//    a CTA, tells the routing gate (fits_device) that the kernel cannot
+//    run the shape.
 //  * Loads run one step ahead: a stage-1 unit's input is fetched while
 //    the previous unit computes (the first of a phase before the grid
 //    barrier), a stage-2 round's rows while the previous round
@@ -67,6 +69,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <vector>
+
 #include "grid_sync.cuh"
 
 namespace {
@@ -79,7 +84,16 @@ constexpr int SEG_LEN = SEG_ROWS * R;
 constexpr int THREADS = 256;  // 16 lane groups of 16, one transform each
 constexpr int GROUPS = THREADS / 16;
 constexpr int SLOT = 16 * 17 + 1;  // float2 per transform buffer (padded)
-constexpr int MAX_BLOCKS_PER_SM = 4;
+// CTAs per SM the registers allow: __launch_bounds__(THREADS,
+// BLOCKS_PER_SM) holds a thread to 128 of them, 2 x 256 x 128 = the
+// SM's 64K.
+constexpr int BLOCKS_PER_SM = 2;
+
+#ifdef TDOA_TIMELINE
+constexpr int TL_PH = 128;  // phases stamped; row TL_PH: start, store, end
+// [first CTA, last CTA][phase][start, stage-1 ns, stage-2 ns, end]
+__device__ unsigned long long tl_k1[2][TL_PH + 1][4];
+#endif
 
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
   return make_float2(a.x + b.x, a.y + b.y);
@@ -498,7 +512,7 @@ __device__ __forceinline__ void store_items(const Params& P, const float* acc,
 // runs stage 1 of chunk p into scratch buffer p & 1 and stage 2 of chunk
 // p - 1 from buffer (p - 1) & 1, then a grid-wide barrier.
 template <typename T>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 corr_accum_kernel(Params P) {
   extern __shared__ float4 smem_raw[];
   const int n_st = P.n_st, run = P.run, S = P.n_banks * run;
@@ -525,6 +539,9 @@ corr_accum_kernel(Params P) {
   const int jstride = P.resident ? nsl * R : 0;
   const long long buf_len = (long long)n_st * S * FFT_LEN;
   const int n_units = n_st * S * 16;
+  TDOA_TL(const int tl = t != 0 ? -1 : cta == 0 ? 0 : cta == G - 1 ? 1 : -1;
+          if (tl >= 0) tl_k1[tl][TL_PH][0] = tdoa::now_ns();
+          unsigned long long T0 = 0, D1 = 0, D2 = 0;)
 
   {
     float s, c;
@@ -545,6 +562,7 @@ corr_accum_kernel(Params P) {
   s1_fetch<T>(P, 0, cta, raw);
   for (int ph = 0; ph <= P.n_chunks; ++ph) {
     const int c = ph - 1;  // the chunk of stage 2
+    TDOA_TL(T0 = tdoa::now_ns();)
     const float2* src = P.scratch + (c & 1) * buf_len;
     const int* plan_c = P.plan + (long long)c * S;
     float2 v[16];
@@ -564,6 +582,7 @@ corr_accum_kernel(Params P) {
       }
     }
 
+    TDOA_TL(D1 = tdoa::now_ns() - T0;)
     if (ph >= 1) {
       for (int r = 0; r < nr; ++r) {
         const int n_tr = nt * n_st;
@@ -594,12 +613,22 @@ corr_accum_kernel(Params P) {
         __syncthreads();  // xbuf and flags are refilled by the next round
       }
     }
+    TDOA_TL(D2 = tdoa::now_ns() - T0 - D1;)
     if (ph < P.n_chunks) {
       s1_fetch<T>(P, ph + 1, cta, raw);
       tdoa::grid_sync(P.bar, (unsigned)G * (ph + 1));
     }
+    TDOA_TL(if (tl >= 0 && ph < TL_PH) {
+      tl_k1[tl][ph][0] = T0;
+      tl_k1[tl][ph][1] = D1;
+      tl_k1[tl][ph][2] = D2;
+      tl_k1[tl][ph][3] = tdoa::now_ns();
+    })
   }
+  TDOA_TL(if (tl >= 0) tl_k1[tl][TL_PH][1] = tdoa::now_ns();)
   if (P.resident) store_items(P, acc, item0, n_mine);
+  TDOA_TL(__syncthreads();
+          if (tl >= 0) tl_k1[tl][TL_PH][2] = tdoa::now_ns();)
 }
 
 template <typename T>
@@ -607,14 +636,20 @@ const void* kernel_fn() {
   return reinterpret_cast<const void*>(&corr_accum_kernel<T>);
 }
 
-// The launch shape: the most CTAs per SM (up to MAX_BLOCKS_PER_SM) at
-// which every CTA holds its items' accumulators (resident branch), else
-// the reload branch with one item's. out = {resident, grid,
-// blocks_per_sm, items_per_cta, smem bytes}. Also opts the kernel into
-// the shared memory it needs, so it runs before the first launch on a
-// device. Returns 0 or a cudaError_t (cudaErrorInvalidConfiguration
-// when not even one item fits a CTA).
-int choose(int n_st, int m, int track, int n_banks, int is_bf16, int* out) {
+// A launch shape: whether each CTA keeps its items' accumulators in
+// shared memory (resident) or reloads one item's per chunk, the grid,
+// CTAs per SM, items per CTA and dynamic shared memory bytes.
+struct Shape {
+  int resident, grid, bps, ipc, smem;
+};
+
+// The launch shape on the current device: the most CTAs per SM (up to
+// BLOCKS_PER_SM) at which every CTA holds its items' accumulators,
+// else the reload branch with one item's. Opts the kernel into the
+// shared memory it needs. Returns 0 or a cudaError_t
+// (cudaErrorInvalidConfiguration when not even one item fits a CTA:
+// the kernel cannot run this shape on this device).
+int choose(int n_st, int m, int track, int n_banks, int is_bf16, Shape* out) {
   const void* fn = is_bf16 ? kernel_fn<unsigned short>() : kernel_fn<float>();
   int dev, n_sm, optin;
   cudaError_t e = cudaGetDevice(&dev);
@@ -632,7 +667,7 @@ int choose(int n_st, int m, int track, int n_banks, int is_bf16, int* out) {
   if (e != cudaSuccess) return (int)e;
   const int n_items = R * n_banks;
   for (int resident = 1; resident >= 0; --resident) {
-    for (int bps = MAX_BLOCKS_PER_SM; bps >= 1; --bps) {
+    for (int bps = BLOCKS_PER_SM; bps >= 1; --bps) {
       const int grid = bps * n_sm;
       const int ipc = (n_items + grid - 1) / grid;
       const int smem = smem_bytes(n_st, m, track, resident ? ipc : 1);
@@ -642,11 +677,7 @@ int choose(int n_st, int m, int track, int n_banks, int is_bf16, int* out) {
                                                         smem);
       if (e != cudaSuccess) return (int)e;
       if (fit >= bps) {
-        out[0] = resident;
-        out[1] = grid;
-        out[2] = bps;
-        out[3] = ipc;
-        out[4] = smem;
+        *out = Shape{resident, grid, bps, ipc, smem};
         return 0;
       }
     }
@@ -654,25 +685,59 @@ int choose(int n_st, int m, int track, int n_banks, int is_bf16, int* out) {
   return (int)cudaErrorInvalidConfiguration;
 }
 
-}  // namespace
-
-// The shared memory a CTA needs to hold the accumulators of n_res items:
-// the one footprint formula behind the branch choice and, with n_res = 1
-// (the reload branch), behind the routing gate fits_device.
-extern "C" int tdoa_corr_accum_smem_bytes(int n_st, int m, int track,
-                                          int n_res) {
-  return smem_bytes(n_st, m, track, n_res);
+// choose, computed once per device and shape.
+int shape_for(int n_st, int m, int track, int n_banks, int is_bf16,
+              Shape* out) {
+  struct Entry {
+    int key[6];
+    Shape shape;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> cache;
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const int key[6] = {dev, n_st, m, track, n_banks, is_bf16};
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& c : cache) {
+    bool hit = true;
+    for (int i = 0; i < 6; ++i) hit = hit && c.key[i] == key[i];
+    if (hit) {
+      *out = c.shape;
+      return 0;
+    }
+  }
+  const int err = choose(n_st, m, track, n_banks, is_bf16, out);
+  if (err != 0) return err;
+  Entry c;
+  for (int i = 0; i < 6; ++i) c.key[i] = key[i];
+  c.shape = *out;
+  cache.push_back(c);
+  return 0;
 }
 
-// The launch shape on the current device (see choose); call it once per
-// device and shape before tdoa_corr_accum.
+}  // namespace
+
+// The launch shape tdoa_corr_accum takes on the current device: out =
+// {resident, grid, CTAs per SM, items per CTA, shared memory bytes}.
+// Returns 0, cudaErrorInvalidConfiguration where the kernel cannot run
+// the shape on this device (the routing gate fits_device), or another
+// cudaError_t.
 extern "C" int tdoa_corr_accum_config(int n_st, int m, int track, int n_banks,
                                       int is_bf16, int* out) {
-  return choose(n_st, m, track, n_banks, is_bf16, out);
+  Shape sh;
+  const int e = shape_for(n_st, m, track, n_banks, is_bf16, &sh);
+  if (e != 0) return e;
+  out[0] = sh.resident;
+  out[1] = sh.grid;
+  out[2] = sh.bps;
+  out[3] = sh.ipc;
+  out[4] = sh.smem;
+  return 0;
 }
 
 // Accumulate one capture on `stream` in one cooperative launch of the
-// shape tdoa_corr_accum_config chose. Returns 0 or the cudaError_t of
+// shape tdoa_corr_accum_config gives. Returns 0 or the cudaError_t of
 // the refused launch (a grid that cannot be resident is refused, never
 // shrunk).
 extern "C" int tdoa_corr_accum(const void* xr, const void* xi, int is_bf16,
@@ -680,9 +745,11 @@ extern "C" int tdoa_corr_accum(const void* xr, const void* xi, int is_bf16,
                                const int* pairs, int m, int n_banks,
                                int track, const int* plan, int n_chunks,
                                int run, void* scratch, void* bar,
-                               int resident, int grid, int ipc, int smem,
                                void* cross, void* psd, void* sums,
                                void* stream) {
+  Shape sh;
+  const int err = shape_for(n_st, m, track, n_banks, is_bf16, &sh);
+  if (err != 0) return err;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemsetAsync(bar, 0, sizeof(unsigned), s);
   if (e != cudaSuccess) return (int)e;
@@ -700,15 +767,22 @@ extern "C" int tdoa_corr_accum(const void* xr, const void* xi, int is_bf16,
   P.run = run;
   P.scratch = static_cast<float2*>(scratch);
   P.bar = static_cast<unsigned*>(bar);
-  P.resident = resident;
-  P.ipc = ipc;
+  P.resident = sh.resident;
+  P.ipc = sh.ipc;
   P.cross = static_cast<float2*>(cross);
   P.psd = static_cast<float*>(psd);
   P.sums = static_cast<float2*>(sums);
   void* args[] = {&P};
   const void* fn = is_bf16 ? kernel_fn<unsigned short>() : kernel_fn<float>();
-  e = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(THREADS), args,
-                                  (size_t)smem, s);
+  e = cudaLaunchCooperativeKernel(fn, dim3(sh.grid), dim3(THREADS), args,
+                                  (size_t)sh.smem, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
+
+#ifdef TDOA_TIMELINE
+// The last launch's stamps, tl_k1 as laid out above.
+extern "C" int tdoa_corr_accum_timeline(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, tl_k1, sizeof(tl_k1));
+}
+#endif

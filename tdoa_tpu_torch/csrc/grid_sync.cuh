@@ -1,10 +1,17 @@
-// Grid-wide barrier for the kernels that run as one cooperative launch
-// (corr_accum.cu, zoom_probe.cu).
+// Grid-wide barrier and timeline stamps for the kernels that run as one
+// cooperative launch (corr_accum.cu, zoom_probe.cu).
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace tdoa {
+
+// The SM's nanosecond clock (%globaltimer).
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
 
 // Every CTA arrives once per barrier on *bar, which the host zeroes
 // before the launch, so the n-th barrier (n = 1, 2, ...) waits for the
@@ -17,16 +24,14 @@ __device__ __forceinline__ void grid_sync(unsigned* bar, unsigned target) {
   if (threadIdx.x == 0) {
     __threadfence();
     atomicAdd(bar, 1u);
-    unsigned long long t0, t1;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+    const unsigned long long t0 = now_ns();
     unsigned seen;
     for (;;) {
       asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
                    : "=r"(seen) : "l"(bar) : "memory");
       if (seen >= target) break;
       __nanosleep(32);
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t1));
-      if (t1 - t0 > 10000000000ull) __trap();
+      if (now_ns() - t0 > 10000000000ull) __trap();
     }
     __threadfence();
   }
@@ -34,3 +39,12 @@ __device__ __forceinline__ void grid_sync(unsigned* bar, unsigned target) {
 }
 
 }  // namespace tdoa
+
+// Timeline stamps: the statements inside TDOA_TL(...) are compiled only
+// with -DTDOA_TIMELINE (scripts/kernel_timeline.py builds the kernels so
+// and reads the stamps back); otherwise they vanish.
+#ifdef TDOA_TIMELINE
+#define TDOA_TL(...) __VA_ARGS__
+#else
+#define TDOA_TL(...)
+#endif

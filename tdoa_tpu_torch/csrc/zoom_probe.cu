@@ -51,6 +51,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <vector>
+
 #include "grid_sync.cuh"
 
 namespace {
@@ -62,6 +65,12 @@ constexpr int HALF_WIDTH = 16;
 constexpr int W = 2 * HALF_WIDTH + 1;
 constexpr int RED = 2 * W + 1;  // a lane's row in the transpose (padded)
 constexpr int BPL = CHUNK / 32;  // bins a lane takes of an item
+
+#ifdef TDOA_TIMELINE
+// CTA 0's start, end of phase 0, of barrier 1, of phase 1, of barrier 2
+// and of phase 2.
+__device__ unsigned long long tl_k2[6];
+#endif
 
 struct Params {
   const float2* cross;  // [K, m, F]
@@ -104,6 +113,8 @@ zoom_probe_kernel(Params P) {
   const int F = P.F, KM = P.K * P.m;
   const int clen = min(CHUNK, F), n_ch = F / clen, bpl = clen / 32;
   const int n_items = KM * n_ch;
+  TDOA_TL(const bool tl = blockIdx.x == 0 && threadIdx.x == 0;
+          if (tl) tl_k2[0] = tdoa::now_ns();)
 
   // Phase 0: per bin the LOO |C| and den and the bank's own cross-
   // spectrum deramped, and the chunk sums of |C| and den. A lane's bins
@@ -165,7 +176,9 @@ zoom_probe_kernel(Params P) {
       P.part[((long long)r * n_ch + ch) * 2 + 1] = sd;
     }
   }
+  TDOA_TL(if (tl) tl_k2[1] = tdoa::now_ns();)
   tdoa::grid_sync(P.bar, gridDim.x);
+  TDOA_TL(if (tl) tl_k2[2] = tdoa::now_ns();)
 
   // Phase 1: the weight and the chunk's zoom window.
   const float inv_f = 1.0f / (float)F;
@@ -243,7 +256,9 @@ zoom_probe_kernel(Params P) {
     }
     __syncwarp();
   }
+  TDOA_TL(if (tl) tl_k2[3] = tdoa::now_ns();)
   tdoa::grid_sync(P.bar, 2 * gridDim.x);
+  TDOA_TL(if (tl) tl_k2[4] = tdoa::now_ns();)
 
   // Phase 2: a warp per (row, lag) sums the chunk windows.
   for (int o = gw; o < KM * W; o += n_warps) {
@@ -259,18 +274,15 @@ zoom_probe_kernel(Params P) {
     si = warp_sum(si);
     if (lane == 0) P.out[o] = make_float2(sr, si);
   }
+  TDOA_TL(if (tl) tl_k2[5] = tdoa::now_ns();)
 }
 
 constexpr int SMEM = WARPS * 32 * RED * 4;
 
-}  // namespace
-
-// The launch shape on the current device: out = {grid, shared memory
-// bytes}. The grid is as many CTAs as the work has warps for, at most as
-// many as can be resident. Also opts the kernel into its shared memory,
-// so it runs before the first launch on a device. Returns 0 or a
-// cudaError_t.
-extern "C" int tdoa_zoom_probe_config(int K, int m, int F, int* out) {
+// The grid on the current device: as many CTAs as the work has warps
+// for, at most as many as can be resident. Opts the kernel into its
+// shared memory. Returns 0 or a cudaError_t.
+int choose(int K, int m, int F, int* grid) {
   const void* fn = reinterpret_cast<const void*>(&zoom_probe_kernel);
   int dev, n_sm, fit = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -287,24 +299,51 @@ extern "C" int tdoa_zoom_probe_config(int K, int m, int F, int* out) {
   const int items = K * m * (F / clen);
   const int work = items > K * m * W ? items : K * m * W;
   const int want = (work + WARPS - 1) / WARPS;
-  out[0] = want < fit * n_sm ? want : fit * n_sm;
-  out[1] = SMEM;
+  *grid = want < fit * n_sm ? want : fit * n_sm;
   return 0;
 }
 
+// choose, computed once per device and shape.
+int grid_for(int K, int m, int F, int* grid) {
+  struct Entry {
+    int key[4];
+    int grid;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> cache;
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& c : cache) {
+    if (c.key[0] == dev && c.key[1] == K && c.key[2] == m && c.key[3] == F) {
+      *grid = c.grid;
+      return 0;
+    }
+  }
+  const int err = choose(K, m, F, grid);
+  if (err != 0) return err;
+  cache.push_back(Entry{{dev, K, m, F}, *grid});
+  return 0;
+}
+
+}  // namespace
+
 // Zoom windows [K*m, W] (complex, float2) of every LOO-weighted probe on
-// `stream`, in one cooperative launch of the shape
-// tdoa_zoom_probe_config chose. Scratch: loo [K*m, F] float4, part
-// [K*m, F/256, 2] f32,
-// zpart [K*m, F/256, 2W] f32 (F/256 -> 1 when F < 256), bar one int.
-// Returns 0 or the cudaError_t of the refused launch.
+// `stream`, in one cooperative launch (its grid chosen once per device
+// and shape). Scratch: loo [K*m, F] float4, part
+// [K*m, F/256, 2] f32, zpart [K*m, F/256, 2W] f32 (F/256 -> 1 when
+// F < 256), bar one int. Returns 0 or the cudaError_t of the refused
+// launch.
 extern "C" int tdoa_zoom_probe(const void* cross, const void* psd,
                                const int* pairs, const float* coarse,
                                const float* nseg, int K, int m, int n_st,
                                int F, float eps, void* loo, void* part,
-                               void* zpart,
-                               void* bar, int grid, int smem, void* out,
+                               void* zpart, void* bar, void* out,
                                void* stream) {
+  int grid;
+  const int err = grid_for(K, m, F, &grid);
+  if (err != 0) return err;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemsetAsync(bar, 0, sizeof(unsigned), s);
   if (e != cudaSuccess) return (int)e;
@@ -327,7 +366,14 @@ extern "C" int tdoa_zoom_probe(const void* cross, const void* psd,
   void* args[] = {&P};
   e = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(&zoom_probe_kernel), dim3(grid),
-      dim3(THREADS), args, (size_t)smem, s);
+      dim3(THREADS), args, (size_t)SMEM, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
+
+#ifdef TDOA_TIMELINE
+// The last launch's stamps, tl_k2 as laid out above.
+extern "C" int tdoa_zoom_probe_timeline(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, tl_k2, sizeof(tl_k2));
+}
+#endif

@@ -5,6 +5,4 @@ the JAX package.
 ``zoom_probe.py`` replaces ``tdoa_tpu/ops/pallas/zoom_probe.py`` and
 ``fm_demod.py`` replaces ``tdoa_tpu/ops/pallas/fm_demod.py``; their CUDA
 sources are ``tdoa_tpu_torch/csrc/*.cu``, built by ``_build.py``.
-``timeline.py`` times the phases of kernels 1 and 2 on the card from an
-instrumented copy of their sources.
 """

@@ -20,7 +20,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Sequence
 
 PKG_DIR = Path(__file__).resolve().parents[2]  # tdoa_tpu_torch/
 CSRC_DIR = PKG_DIR / "csrc"
@@ -37,18 +37,23 @@ NVCC_FLAGS = (
 )
 
 _lib: Optional[ctypes.CDLL] = None
+_lib_defines: tuple = ()
 
 
 def _sources():
     return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
 
 
-def _digest() -> str:
+def _flags(defines: Sequence[str]) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def _digest(flags: tuple) -> str:
     h = hashlib.sha256()
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
 
 
@@ -63,11 +68,14 @@ def nvcc_path() -> str:
     return cand
 
 
-def build() -> Path:
+def build(defines: Sequence[str] = ()) -> Path:
     """Compile the library unless this source hash is already built;
-    returns its path. The ptxas report (registers, shared memory,
-    spills per kernel) is kept beside it as ``ptxas.txt``."""
-    out_dir = BUILD_ROOT / _digest()
+    returns its path. ``defines`` are preprocessor macros of the build
+    (``TDOA_TIMELINE`` compiles the kernels' timeline stamps). The ptxas
+    report (registers, shared memory, spills per kernel) is kept beside
+    it as ``ptxas.txt``."""
+    flags = _flags(defines)
+    out_dir = BUILD_ROOT / _digest(flags)
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
@@ -81,7 +89,7 @@ def build() -> Path:
             jobs = []
             for src in sorted(CSRC_DIR.glob("*.cu")):
                 obj = out_dir / f"{src.stem}.o"
-                cmd = [nvcc, *NVCC_FLAGS, f"-I{CSRC_DIR}", "-c", "-o",
+                cmd = [nvcc, *flags, f"-I{CSRC_DIR}", "-c", "-o",
                        str(obj), str(src)]
                 jobs.append((cmd, obj, subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -120,13 +128,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i,               # n_banks, track_sums
         p, i, i,            # chunk plan [n_chunks, n_banks*run] int32, n_chunks, run
         p, p,               # scratch 2 x [n_st, n_banks*run, F] float2, barrier int32
-        i, i, i, i,         # resident, grid, items per CTA, shared memory bytes
         p, p, p,            # cross float2 [K, m, F], psd [K, n_st, F], sums float2
         p,                  # stream
     ]
     lib.tdoa_corr_accum.restype = i
-    lib.tdoa_corr_accum_smem_bytes.argtypes = [i, i, i, i]  # n_st, m, track, items
-    lib.tdoa_corr_accum_smem_bytes.restype = i
     lib.tdoa_corr_accum_config.argtypes = [i, i, i, i, i, p]  # ..., n_banks, bf16, out[5]
     lib.tdoa_corr_accum_config.restype = i
     lib.tdoa_zoom_probe.argtypes = [
@@ -135,13 +140,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i, i,         # K, m, n_st, F
         ctypes.c_float,     # eps
         p, p, p, p,         # per-bin scratch float4, chunk sums, chunk windows, barrier
-        i, i,               # grid, shared memory bytes
         p,                  # out window float2 [K*m, W]
         p,                  # stream
     ]
     lib.tdoa_zoom_probe.restype = i
-    lib.tdoa_zoom_probe_config.argtypes = [i, i, i, p]  # K, m, F, out[2]
-    lib.tdoa_zoom_probe_config.restype = i
     lib.tdoa_fm_demod.argtypes = [
         p, p,               # x re, x im rows (f32)
         ctypes.c_longlong,  # channel stride (elements)
@@ -155,11 +157,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tdoa_fm_demod.restype = i
 
 
-def load() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call in a process)."""
-    global _lib
+def load(defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """The loaded kernel library, built on the first call in a process
+    with that call's ``defines`` (see ``build``). A process holds one
+    build: later calls without ``defines`` return it, a call with other
+    ``defines`` raises."""
+    global _lib, _lib_defines
+    defines = tuple(defines)
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = ctypes.CDLL(str(build(defines)))
         _declare(lib)
-        _lib = lib
+        _lib, _lib_defines = lib, defines
+    elif defines and defines != _lib_defines:
+        raise RuntimeError(f"the kernel library is loaded with defines "
+                           f"{_lib_defines}, not {defines}")
     return _lib

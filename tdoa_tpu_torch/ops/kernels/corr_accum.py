@@ -39,8 +39,9 @@ SEG_LEN = SEG_ROWS * R  # 45056
 # H100's 50 MB L2: 3 stations × 4 banks × 4 segments. Two 12 MB buffers
 # measured slower (more phases, each ending in a grid-wide barrier).
 SCRATCH_BUF_BYTES = 24 << 20
-# Largest dynamic shared memory one CTA may opt into on sm_90.
-SM90_SMEM_OPTIN = 232448
+# The CUDA error the kernel's launch-shape choice returns where not even
+# one (bank, row) item's accumulators fit a CTA.
+_NO_SHAPE = 9  # cudaErrorInvalidConfiguration
 
 
 @functools.lru_cache(maxsize=None)
@@ -153,32 +154,34 @@ def chunk_plan(n_seg: int, n_banks: int, run: int) -> np.ndarray:
     return plan.reshape(n_chunks, n_banks * run)
 
 
-def kernel_config(n_st: int, m: int, track_sums: bool, n_banks: int,
-                  bf16: bool = True, device=None) -> dict:
-    """The launch the kernel chooses on ``device`` (default: the current
-    card): whether each CTA keeps its items' accumulators in shared
-    memory for the whole launch (``resident``) or reloads one item's per
-    chunk, the grid, CTAs per SM, (bank, row) items per CTA and shared
-    memory per CTA. Computed once per device and shape."""
-    dev = torch.device("cuda", torch.cuda.current_device()) \
-        if device is None else torch.device(device)
-    return dict(_kernel_config(n_st, m, bool(track_sums), n_banks, bool(bf16),
-                               dev.index))
-
-
-@functools.lru_cache(maxsize=64)
-def _kernel_config(n_st, m, track_sums, n_banks, bf16, index):
+def _launch_shape(n_st, m, track_sums, n_banks, bf16, device):
+    """(CUDA error, shape) of the kernel's launch on ``device``, as the
+    built library chooses it (once per device and shape)."""
     from tdoa_tpu_torch.ops.kernels import _build
 
     out = (ctypes.c_int * 5)()
-    with torch.cuda.device(index):
+    with torch.cuda.device(device):
         err = _build.load().tdoa_corr_accum_config(
             n_st, m, int(track_sums), n_banks, int(bf16), out)
+    return err, dict(zip(("resident", "grid", "blocks_per_sm",
+                          "items_per_cta", "smem_bytes"),
+                         (int(v) for v in out)))
+
+
+def kernel_config(n_st: int, m: int, track_sums: bool, n_banks: int,
+                  bf16: bool = True, device=None) -> dict:
+    """The launch the kernel takes on ``device`` (default: the current
+    card): whether each CTA keeps its items' accumulators in shared
+    memory for the whole launch (``resident``) or reloads one item's per
+    chunk, the grid, CTAs per SM, (bank, row) items per CTA and shared
+    memory per CTA."""
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if device is None else torch.device(device)
+    err, cfg = _launch_shape(n_st, m, track_sums, n_banks, bf16, dev)
     if err != 0:
         raise RuntimeError(f"corr_accum has no launch for {n_st} stations, "
                            f"{m} pairs, {n_banks} banks: CUDA error {err}")
-    return tuple(zip(("resident", "grid", "blocks_per_sm", "items_per_cta",
-                      "smem_bytes"), (int(v) for v in out)))
+    return cfg
 
 
 @functools.lru_cache(maxsize=64)
@@ -188,15 +191,16 @@ def _device_plan(n_seg: int, n_banks: int, run: int, device) -> torch.Tensor:
 
 def fits_device(n_st: int, m: int, track_sums: bool, n_banks: int,
                 device: torch.device) -> bool:
-    """Whether the kernel runs on ``device``: a CTA holds one item's
-    accumulators (the reload branch's footprint, by the kernel's own
-    formula in the built library) and the device holds the two scratch
-    buffers of the largest chunk plus the bank accumulators."""
-    from tdoa_tpu_torch.ops.kernels import _build
-
-    smem = _build.load().tdoa_corr_accum_smem_bytes(n_st, m, int(track_sums), 1)
-    if smem > SM90_SMEM_OPTIN:
+    """Whether the kernel runs on ``device``: the built library finds it
+    a launch shape there (at least one item's accumulators fit a CTA's
+    shared memory, by the kernel's own footprint formula against the
+    device's opt-in limit) and the device holds the two scratch buffers
+    of the largest chunk plus the bank accumulators."""
+    err, _ = _launch_shape(n_st, m, track_sums, n_banks, True, device)
+    if err == _NO_SHAPE:
         return False
+    if err != 0:
+        raise RuntimeError(f"corr_accum launch shape: CUDA error {err}")
     run = bank_run(n_st, n_banks, 1 << 30)
     scratch = 2 * n_st * n_banks * run * FFT_LEN * 8
     acc = n_banks * FFT_LEN * (8 * m + 4 * n_st + (8 * n_st if track_sums
@@ -228,7 +232,6 @@ def accumulate_banks(x: torch.Tensor, pairs, n_banks: int = 1,
     lib = _build.load()
     dev = x.device
     bf16 = x.dtype == torch.bfloat16
-    cfg = kernel_config(n_st, m, track_sums, n_banks, bf16, dev)
     pairs_d = device_pairs(pairs, dev)
     run = bank_run(n_st, n_banks, n_seg)
     plan = _device_plan(n_seg, n_banks, run, dev)
@@ -245,7 +248,6 @@ def accumulate_banks(x: torch.Tensor, pairs, n_banks: int = 1,
         ctypes.c_void_p(pairs_d.data_ptr()), m, n_banks, int(track_sums),
         ctypes.c_void_p(plan.data_ptr()), int(plan.shape[0]), run,
         ctypes.c_void_p(scratch.data_ptr()), ctypes.c_void_p(bar.data_ptr()),
-        cfg["resident"], cfg["grid"], cfg["items_per_cta"], cfg["smem_bytes"],
         ctypes.c_void_p(cross.data_ptr()), ctypes.c_void_p(psd.data_ptr()),
         ctypes.c_void_p(0 if sums is None else sums.data_ptr()),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),

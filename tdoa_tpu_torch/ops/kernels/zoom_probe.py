@@ -21,7 +21,6 @@ tensor launches it (or raises), a CPU tensor takes
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import numpy as np
@@ -124,20 +123,6 @@ def zoom_basis(F: int) -> torch.Tensor:
     return torch.complex(torch.stack(re, -1), torch.stack(im, -1))
 
 
-@functools.lru_cache(maxsize=64)
-def _kernel_config(K: int, m: int, F: int, index) -> tuple:
-    """(grid, shared memory bytes) of the kernel's launch on a device."""
-    from tdoa_tpu_torch.ops.kernels import _build
-
-    out = (ctypes.c_int * 2)()
-    with torch.cuda.device(index):
-        err = _build.load().tdoa_zoom_probe_config(K, m, F, out)
-    if err != 0:
-        raise RuntimeError(f"zoom_probe has no launch for K={K}, m={m}, "
-                           f"F={F}: CUDA error {err}")
-    return int(out[0]), int(out[1])
-
-
 def loo_zoom_windows(cross_g: torch.Tensor, psd_g: torch.Tensor, pairs,
                      coarse: torch.Tensor, n_seg_loo: torch.Tensor,
                      eps: float = 1e-3) -> torch.Tensor:
@@ -160,7 +145,6 @@ def loo_zoom_windows(cross_g: torch.Tensor, psd_g: torch.Tensor, pairs,
         raise ValueError("cross_g and psd_g must be contiguous")
     lib = _build.load()
     dev = cross_g.device
-    grid, smem = _kernel_config(K, m, F, dev.index)
     pairs_d = device_pairs(pairs, dev)
     coarse_d = coarse.to(device=dev, dtype=torch.float32).contiguous()
     nseg_d = n_seg_loo.to(device=dev, dtype=torch.float32).contiguous()
@@ -180,7 +164,7 @@ def loo_zoom_windows(cross_g: torch.Tensor, psd_g: torch.Tensor, pairs,
         ctypes.c_void_p(coarse_d.data_ptr()),
         ctypes.c_void_p(nseg_d.data_ptr()), K, m, n_st, F, float(eps),
         ctypes.c_void_p(base), ctypes.c_void_p(part_at),
-        ctypes.c_void_p(zpart_at), ctypes.c_void_p(bar_at), grid, smem,
+        ctypes.c_void_p(zpart_at), ctypes.c_void_p(bar_at),
         ctypes.c_void_p(out.data_ptr()),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )

@@ -151,6 +151,30 @@ def test_bank_run_keeps_a_scratch_buffer_in_its_bound(n_st, K):
         assert run == 1 or n_st * K * run * FFT_LEN * 8 <= SCRATCH_BUF_BYTES
 
 
+def test_timeline_build_has_its_own_hash():
+    """A build with the timeline stamps compiled in (-DTDOA_TIMELINE)
+    goes into its own directory: it never replaces the plain build."""
+    from tdoa_tpu_torch.ops.kernels import _build
+
+    plain = _build._digest(_build._flags(()))
+    assert plain == _build._digest(_build._flags(()))
+    assert plain != _build._digest(_build._flags(("TDOA_TIMELINE",)))
+
+
+def test_load_keeps_one_build_per_process(monkeypatch):
+    """Once a build is loaded, a call without defines returns it and a
+    call asking for other defines raises instead of mixing builds."""
+    from tdoa_tpu_torch.ops.kernels import _build
+
+    loaded = object()
+    monkeypatch.setattr(_build, "_lib", loaded)
+    monkeypatch.setattr(_build, "_lib_defines", ())
+    assert _build.load() is loaded
+    assert _build.load(()) is loaded
+    with pytest.raises(RuntimeError, match="TDOA_TIMELINE"):
+        _build.load(("TDOA_TIMELINE",))
+
+
 def test_short_capture_rejected():
     x = torch.zeros(2, 2, SEG_LEN - 1)
     with pytest.raises(ValueError, match="shorter than one kernel segment"):
