@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``tdoa_tpu_torch``) on one H100.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernel3-only   # phases 1-2 and kernel 3 alone
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -16,7 +17,9 @@ Phases, each printing its own lines; any failure exits non-zero:
              branch that reloads its accumulators; kernel 2: K = 4,
              m = 3, F = 65536 on the 443-segment banks, and the
              segmented path's 9 pairs of 9 channels; kernel 3: 9
-             channels × 20 M samples, D = 8), each launched twice on the
+             channels × 20 M samples, D = 8, then 3 channels × 2 M
+             samples on rows that are not 16-byte aligned, its scalar
+             loads, and at D = 16), each launched twice on the
              same input (the outputs must be bitwise equal), then each
              timed at the main path's shapes beside its bound (bytes
              over 3.35 TB/s or f32 operations over 67 TFLOP/s, the
@@ -41,6 +44,7 @@ then ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import argparse
 import json
 import shutil
 import subprocess
@@ -88,9 +92,11 @@ def _time_ms(fn, iters: int) -> float:
 
 
 def _device_ms(fn, kernel: str, iters: int) -> float:
-    """The device time per call of the CUDA kernel whose name contains
-    ``kernel`` (its launches only, not the wrapper's other ops), from a
-    ``torch.profiler`` trace of ``iters`` calls after a warm-up."""
+    """The device time per launch of the CUDA kernel whose name contains
+    ``kernel`` (each wrapper call launches it once; the wrapper's other
+    ops are left out), from a ``torch.profiler`` trace of ``iters``
+    calls after a warm-up. Divided by the launches the trace holds: the
+    profiler can drop events of a cycle."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -101,11 +107,12 @@ def _device_ms(fn, kernel: str, iters: int) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.key_averages()
-             if kernel in e.key and e.device_time_total > 0)
-    if us <= 0:
+    seen = [e for e in prof.key_averages()
+            if kernel in e.key and e.device_time_total > 0]
+    if not seen:
         raise RuntimeError(f"the profiler saw no device time of {kernel}")
-    return us / iters / 1e3
+    return (sum(e.device_time_total for e in seen)
+            / sum(e.count for e in seen) / 1e3)
 
 
 def _same(a, b) -> bool:
@@ -385,6 +392,25 @@ def _kernel3(dev, g):
     if not same:
         raise RuntimeError("fm_demod is not deterministic")
     del got, want, again
+    # Rows off the 16-byte grid (a view that starts one float in: the
+    # kernel's scalar loads) and a second decimation, at a ragged length.
+    n2 = 2_000_003
+    for what, view, decim in (
+            ("unaligned rows", x[:, 3:6, 1:1 + n2], FM_DECIM),
+            ("aligned rows", x[:, 6:9, :n2], 16)):
+        if fm_demod.rows_aligned(view) != (what == "aligned rows"):
+            raise RuntimeError(f"fm_demod [{what}]: not the rows meant")
+        got = fm_demod.fm_demod_decimate(view, FS, decim=decim)
+        want = fm_demod.fm_demod_decimate_plain(view, FS, decim=decim)
+        torch.cuda.synchronize()
+        e2 = float((got - want).abs().max())
+        print(f"fm_demod [3 ch x {n2} samples, {what}, D={decim}]: max "
+              f"|kernel - plain| = {e2:.3e} (tol {K3_TOL:g})")
+        if not e2 < K3_TOL:
+            raise RuntimeError(f"fm_demod disagrees with its plain version "
+                               f"({what})")
+        err = max(err, e2)
+        del got, want
     k3_call = lambda: fm_demod.fm_demod_decimate(x, FS, decim=FM_DECIM)  # noqa: E731
     k3_ms = _time_ms(k3_call, 20)
     k3_dev = _device_ms(k3_call, "fm_demod_kernel", 20)
@@ -408,7 +434,7 @@ def _kernel3(dev, g):
             "max_abs_err": err, "ms": k3_ms, "device_ms": k3_dev,
             "plain_ms": k3_plain, "bitwise_deterministic": True,
             "bound_ms": b3["bound_ms"], "bound_by": b3["bound_by"],
-            "library_ms": None}
+            "library_ms": None, "redesigned": True}
 
 
 def _synthesize(dev, out_dir: Path):
@@ -575,6 +601,12 @@ def phase_slice(dev):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernel3-only", action="store_true",
+                    help="phases 1 and 2, then kernel 3's checks and times "
+                         "alone (for work on that kernel; prints no result "
+                         "line)")
+    args = ap.parse_args()
     if not (ROOT / "tdoa_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
               "(tdoa_tpu_torch/ not found beside it)", file=sys.stderr)
@@ -587,6 +619,10 @@ def main() -> int:
         return 2
     dev = phase_device()
     phase_build()
+    if args.kernel3_only:
+        print(json.dumps({"kernels": [_kernel3(
+            dev, torch.Generator(device=dev).manual_seed(SEED))]}))
+        return 0
     kernels = phase_kernels(dev)
     paths = phase_slice(dev)
     for k in kernels:

@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
-"""Per-phase timelines of the port's two persistent kernels on the card.
+"""Per-phase timelines of the port's kernels on the card.
 
-    python3 scripts/kernel_timeline.py
+    python3 scripts/kernel_timeline.py [--kernels 1 2 3]
 
-Kernels 1 (``csrc/corr_accum.cu``) and 2 (``csrc/zoom_probe.cu``) each
-run as one cooperative launch whose phases are separated by grid-wide
-barriers, so a profiler sees one kernel. This script builds the kernels
-with ``-DTDOA_TIMELINE``, which compiles their ``%globaltimer`` stamps
-(``TDOA_TL`` in the sources), and runs both through their wrappers at
-the main path's shapes:
+Each kernel is one launch whose phases a profiler cannot tell apart
+(kernels 1, ``csrc/corr_accum.cu``, and 2, ``csrc/zoom_probe.cu``, are
+cooperative launches with grid-wide barriers between the phases; kernel
+3, ``csrc/fm_demod.cu``, has a CTA-wide barrier between its two). This
+script builds the kernels with ``-DTDOA_TIMELINE``, which compiles their
+``%globaltimer`` stamps (``TDOA_TL`` in the sources), and runs them
+through their wrappers at the main path's shapes:
 
 - kernel 1 (3 stations, 443 segments, K = 4, bf16, DC sums): for the
   first and the last CTA, the median stage-1 time, stage-2 time and
   barrier wait of a phase, the prologue and the final store;
 - kernel 2 (K = 4, m = 3, F = 65536): its three phases and two barriers
-  as CTA 0 sees them.
+  as CTA 0 sees them;
+- kernel 3 (9 channels × 20 M samples, D = 8): over all CTAs of a
+  launch, the mean time a CTA spends in its load+discriminate phase and
+  in its FIR phase (other CTAs share its SM meanwhile), the launch's
+  span from the first CTA's start to the last one's end, and the mean
+  number of CTAs in flight per SM.
 
 Needs one CUDA card; imports nothing of JAX. The instrumented build
 lives beside the plain one under ``build/`` (its own source hash).
@@ -22,6 +28,7 @@ lives beside the plain one under ``build/`` (its own source hash).
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -31,6 +38,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 TL_PH = 128  # phases kernel 1 stamps (csrc/corr_accum.cu)
+PAIRS = ((0, 1), (0, 2), (1, 2))
 
 
 def _us(ns) -> float:
@@ -56,33 +64,46 @@ def _k1_rows(a, n_ph):
     return rows
 
 
-def main() -> int:
-    sys.path.insert(0, str(ROOT))
+def _kernel3(lib, dev, g) -> None:
     import torch
 
-    if not torch.cuda.is_available():
-        print("no CUDA device: the timelines need the card", file=sys.stderr)
-        return 2
-    from tdoa_tpu_torch.ops.kernels import _build, corr_accum, zoom_probe
+    from tdoa_tpu_torch.ops.kernels import fm_demod
+
+    lib.tdoa_fm_demod_timeline.argtypes = [ctypes.c_void_p]
+    C, n, decim, fs = 9, 20_000_000, 8, 2e6
+    phase = torch.cumsum(0.3 * torch.randn(C, n, device=dev, generator=g), 1)
+    x = torch.stack([0.3 * torch.cos(phase), 0.3 * torch.sin(phase)])
+    del phase
+    x += 0.1 * torch.randn(2, C, n, device=dev, generator=g)
+    for _ in range(3):
+        fm_demod.fm_demod_decimate(x, fs, decim=decim)
+    torch.cuda.synchronize()
+    buf = (ctypes.c_ulonglong * 5)()
+    if lib.tdoa_fm_demod_timeline(ctypes.addressof(buf)) != 0:
+        raise RuntimeError("could not read kernel 3's stamps")
+    load, fir, ctas, start, end = (int(v) for v in buf)
+    span = end - start
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"fm_demod [{C} ch x {n} samples, D={decim}] {ctas} CTAs: mean a "
+          f"CTA: load+discriminate {_us(load / ctas):.2f} us, FIR "
+          f"{_us(fir / ctas):.2f} us (FIR / load {fir / load:.2f}); launch "
+          f"span {_us(span):.1f} us; mean CTAs in flight per SM "
+          f"{(load + fir) / span / sms:.2f}")
+
+
+def _kernel1(lib, dev, g) -> None:
+    import torch
+
+    from tdoa_tpu_torch.ops.kernels import corr_accum
     from tdoa_tpu_torch.ops.kernels.corr_accum import SEG_LEN
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
-    print(f"nvidia-smi: {smi}  torch {torch.__version__}")
-    lib = _build.load(("TDOA_TIMELINE",))
     lib.tdoa_corr_accum_timeline.argtypes = [ctypes.c_void_p]
-    lib.tdoa_zoom_probe_timeline.argtypes = [ctypes.c_void_p]
-
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(1234)
-    pairs = ((0, 1), (0, 2), (1, 2))
     x = (0.3 * torch.randn(2, 3, 443 * SEG_LEN, device=dev, generator=g)
          + 0.01).to(torch.bfloat16)
     run = corr_accum.bank_run(3, 4, 443)
     n_ph = corr_accum.chunk_plan(443, 4, run).shape[0] + 1
     for _ in range(2):
-        corr_accum.accumulate_banks(x, pairs, 4, True)
+        corr_accum.accumulate_banks(x, PAIRS, 4, True)
     torch.cuda.synchronize()
     buf = (ctypes.c_ulonglong * (2 * (TL_PH + 1) * 4))()
     if lib.tdoa_corr_accum_timeline(ctypes.addressof(buf)) != 0:
@@ -96,6 +117,13 @@ def main() -> int:
               f"{row['stage2_us']:.2f} us, barrier wait "
               f"{row['barrier_us']:.2f} us")
 
+
+def _kernel2(lib, dev, g) -> None:
+    import torch
+
+    from tdoa_tpu_torch.ops.kernels import zoom_probe
+
+    lib.tdoa_zoom_probe_timeline.argtypes = [ctypes.c_void_p]
     K, m, F = 4, 3, 65536
     cross = torch.randn(K, m, F, dtype=torch.complex64, device=dev,
                         generator=g)
@@ -103,7 +131,7 @@ def main() -> int:
     coarse = torch.tensor([37.0, -12.0, -49.0], device=dev)
     nseg = torch.full((K * m,), 332.0, device=dev)
     for _ in range(3):
-        zoom_probe.loo_zoom_windows(cross, psd, pairs, coarse, nseg)
+        zoom_probe.loo_zoom_windows(cross, psd, PAIRS, coarse, nseg)
     torch.cuda.synchronize()
     buf = (ctypes.c_ulonglong * 6)()
     if lib.tdoa_zoom_probe_timeline(ctypes.addressof(buf)) != 0:
@@ -114,6 +142,31 @@ def main() -> int:
     spans["kernel"] = _us(t[5] - t[0])
     print(f"zoom_probe [K={K}, m={m}, F={F}] CTA 0: " + ", ".join(
         f"{k} {v:.2f} us" for k, v in spans.items()))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernels", type=int, nargs="+", default=[1, 2, 3],
+                    choices=[1, 2, 3], help="which kernels to run")
+    args = ap.parse_args()
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device: the timelines need the card", file=sys.stderr)
+        return 2
+    from tdoa_tpu_torch.ops.kernels import _build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(f"nvidia-smi: {smi}  torch {torch.__version__}")
+    lib = _build.load(("TDOA_TIMELINE",))
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1234)
+    sections = {1: _kernel1, 2: _kernel2, 3: _kernel3}
+    for k in sorted(set(args.kernels)):
+        sections[k](lib, dev, g)
     return 0
 
 

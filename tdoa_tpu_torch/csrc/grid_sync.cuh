@@ -1,5 +1,6 @@
-// Grid-wide barrier and timeline stamps for the kernels that run as one
-// cooperative launch (corr_accum.cu, zoom_probe.cu).
+// Grid-wide barrier for the kernels that run as one cooperative launch
+// (corr_accum.cu, zoom_probe.cu), and the timeline stamps of all three
+// kernels.
 #pragma once
 
 #include <cuda_runtime.h>

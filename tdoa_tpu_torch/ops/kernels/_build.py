@@ -150,8 +150,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         i,                  # C channels
         ctypes.c_longlong,  # n samples per channel
         i,                  # decim
+        ctypes.c_double,    # sample rate (with decim, the key of the taps)
         ctypes.c_float,     # fs / (2*pi*dev)
-        p, p,               # taps [128] f32, out [C, n / decim] f32
+        p, i,               # taps [128] f32 (host), rows 16-byte aligned
+        p,                  # out [C, n / decim] f32
         p,                  # stream
     ]
     lib.tdoa_fm_demod.restype = i

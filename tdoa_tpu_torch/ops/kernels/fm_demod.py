@@ -19,7 +19,11 @@ left to the caller. ``D`` must divide 128, as for the TPU kernel.
 ``fm_demod_decimate`` is the wrapper of ``csrc/fm_demod.cu``: a CUDA
 tensor launches it (or raises), a CPU tensor takes
 ``fm_demod_decimate_plain``, the same sums in torch (``torch.atan2`` and
-a loop of strided slices over the taps, no convolution).
+a loop of strided slices over the taps, no convolution). The kernel
+keeps its taps in constant memory, keyed by ``(sample_rate, decim)`` on
+the C side: the wrapper hands it the host taps and makes no copy of its
+own. Rows that start on 16-byte boundaries (``rows_aligned``) take the
+kernel's 16-byte loads, any other view its scalar loads.
 """
 
 from __future__ import annotations
@@ -81,6 +85,14 @@ def fm_demod_decimate_plain(x: torch.Tensor, sample_rate: float,
     return y
 
 
+def rows_aligned(x: torch.Tensor) -> bool:
+    """Whether every channel row of planar f32 ``x`` ``[2, C, n]`` starts
+    on a 16-byte boundary: both planes' base pointers do, and the channel
+    stride is a multiple of 4 elements (or there is one channel)."""
+    return (x[0].data_ptr() % 16 == 0 and x[1].data_ptr() % 16 == 0
+            and (x.shape[1] == 1 or x.stride(1) % 4 == 0))
+
+
 def fm_demod_decimate(x: torch.Tensor, sample_rate: float,
                       decim: int = 8) -> torch.Tensor:
     """Demodulate and decimate every channel of planar f32 ``x``
@@ -105,14 +117,17 @@ def fm_demod_decimate(x: torch.Tensor, sample_rate: float,
     if C == 0 or n_out == 0:
         return out
     lib = _build.load()
-    taps = torch.from_numpy(fm_taps(sample_rate, decim)).to(x.device)
-    err = lib.tdoa_fm_demod(
-        ctypes.c_void_p(x[0].data_ptr()), ctypes.c_void_p(x[1].data_ptr()),
-        int(x.stride(1)), C, n, decim,
-        ctypes.c_float(_inv_dev(sample_rate)),
-        ctypes.c_void_p(taps.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
-    )
+    taps = fm_taps(float(sample_rate), decim)  # cached: the pointer stays
+    with torch.cuda.device(x.device):  # the taps are per device
+        err = lib.tdoa_fm_demod(
+            ctypes.c_void_p(x[0].data_ptr()),
+            ctypes.c_void_p(x[1].data_ptr()),
+            int(x.stride(1)), C, n, decim, float(sample_rate),
+            ctypes.c_float(_inv_dev(sample_rate)),
+            ctypes.c_void_p(taps.ctypes.data), int(rows_aligned(x)),
+            ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+        )
     if err != 0:
         raise RuntimeError(f"fm_demod kernel launch failed: CUDA error {err}")
     fm_demod_decimate.launches += 1

@@ -26,6 +26,7 @@ from tdoa_tpu_torch.ops.kernels.fm_demod import (
     fm_demod_decimate,
     fm_demod_decimate_plain,
     fm_taps,
+    rows_aligned,
 )
 
 FS = 2e6
@@ -65,8 +66,12 @@ def _pallas(iq, decim):
         interpret=True))
 
 
-@pytest.mark.parametrize("decim", [4, 8, 16])
-@pytest.mark.parametrize("n", [10_000, 65_535, 32 * 1024 + 7, 1 << 15])
+@pytest.mark.parametrize(
+    "n,decim",
+    [(n, d) for d in (4, 8, 16)
+     for n in (10_000, 65_535, 32 * 1024 + 7, 1 << 15)]
+    # every other decimation the reference accepts, at the ragged length
+    + [(32 * 1024 + 7, d) for d in (1, 2, 32, 64, 128)])
 def test_plain_matches_pallas_kernel(n, decim):
     iq, _ = _fm_iq(n, seed=n % 97 + decim, noise=0.05)
     want = _pallas(iq, decim)
@@ -139,8 +144,37 @@ def test_short_input_gives_empty_audio():
     assert fm_demod_decimate(x, FS, decim=8).shape == (1, 0)
 
 
+def test_rows_aligned_rule():
+    """The wrapper's routing rule: the kernel's 16-byte loads only for
+    rows that all start on 16-byte boundaries."""
+    x = torch.zeros(2, 3, 64)
+    assert rows_aligned(x)
+    assert rows_aligned(x[:, ::2]) and rows_aligned(x[:, :, 4:])
+    assert not rows_aligned(x[:, :, 1:])            # base one float in
+    assert not rows_aligned(torch.zeros(2, 3, 63))  # odd channel stride
+    one = torch.zeros(2, 1, 64)
+    assert rows_aligned(one[:, :, :63])             # one channel: no stride
+    assert not rows_aligned(one[:, :, 2:])
+    assert not rows_aligned(torch.zeros(2, 1, 63))  # the im plane is off
+
+
+@pytest.mark.parametrize("decim", [1, 2, 32, 64, 128])
+def test_taps_padded_to_128_for_every_decim(decim):
+    """The taps the kernel keeps in constant memory, for the decimations
+    beyond the FM path's: 127 symmetric lowpass taps of unit DC gain and
+    a zero, cached per (sample_rate, decim) so the pointer handed to the
+    kernel stays valid."""
+    taps = fm_taps(FS, decim)
+    assert taps.dtype == np.float32 and taps.shape == (128,)
+    assert taps.flags["C_CONTIGUOUS"] and taps[127] == 0.0
+    np.testing.assert_array_equal(taps[:127], taps[126::-1])
+    assert abs(float(taps.sum()) - 1.0) < 1e-5
+    assert fm_taps(float(FS), decim) is taps
+    assert fm_taps(FS / 2, decim) is not taps
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("decim", [4, 8, 16])
+@pytest.mark.parametrize("decim", [1, 2, 4, 8, 16, 32, 64, 128])
 def test_cuda_kernel_matches_plain(cuda_sm90, decim):
     """csrc/fm_demod.cu on the card against the plain version on the
     same inputs (9 channels, ragged length, a strided channel view):
@@ -157,3 +191,67 @@ def test_cuda_kernel_matches_plain(cuda_sm90, decim):
                                atol=TOL)
     np.testing.assert_allclose(sub.cpu().numpy(), want[1::3].cpu().numpy(),
                                atol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decim", [1, 8, 16, 128])
+@pytest.mark.parametrize("rows", ["aligned", "odd_stride", "offset_base"])
+def test_cuda_kernel_row_alignment(cuda_sm90, rows, decim):
+    """Rows on the 16-byte grid take the kernel's 16-byte loads, rows off
+    it (an odd channel stride; a base pointer one float in) its scalar
+    loads: both within 2e-4 of the plain version, on a length that is no
+    multiple of 4 and spans several tiles."""
+    n = 40_002
+    iqs = np.stack([_fm_iq(n, seed=20 + s, noise=0.1)[0] for s in range(3)])
+    width, start = {"aligned": (n + 2, 0), "odd_stride": (n + 1, 0),
+                    "offset_base": (n + 2, 1)}[rows]
+    buf = torch.zeros(2, 3, width, device=cuda_sm90)
+    view = buf[:, :, start:start + n]
+    view.copy_(_planar(iqs))
+    assert rows_aligned(view) == (rows == "aligned")
+    got = fm_demod_decimate(view, FS, decim=decim)
+    want = fm_demod_decimate_plain(view, FS, decim=decim)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 130, 8191, 8193])
+def test_cuda_kernel_short_and_ragged_lengths(cuda_sm90, n):
+    """n < 4, n no multiple of 4, n around one tile: D = 1 keeps every
+    sample an output, so the first (d[0] = 0) and the last are checked."""
+    x = torch.from_numpy(np.random.default_rng(40 + n).standard_normal(
+        (2, 2, n)).astype(np.float32)).to(cuda_sm90)
+    for decim in (1, 2):
+        got = fm_demod_decimate(x, FS, decim=decim)
+        want = fm_demod_decimate_plain(x, FS, decim=decim)
+        assert got.shape == (2, n // decim)
+        assert bool(torch.isfinite(want).all())
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   atol=TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_taps_follow_sample_rate_and_decim(cuda_sm90):
+    """The kernel's constant-memory taps are keyed by (sample_rate,
+    decim): launches that alternate between pairs, with and without a
+    host sync between them, and from two streams in turn, each get their
+    own taps."""
+    x = _planar(np.stack([_fm_iq(50_000, seed=60 + s, noise=0.1)[0]
+                          for s in range(2)])).to(cuda_sm90)
+    keys = [(FS, 8), (FS / 2, 8), (FS, 16), (FS, 8), (FS / 2, 16)]
+    want = {k: fm_demod_decimate_plain(x, k[0], decim=k[1]).cpu().numpy()
+            for k in set(keys)}
+    for k in keys * 2:  # the host waits for each result
+        got = fm_demod_decimate(x, k[0], decim=k[1])
+        np.testing.assert_allclose(got.cpu().numpy(), want[k], atol=TOL)
+    outs = [(k, fm_demod_decimate(x, k[0], decim=k[1])) for k in keys * 4]
+    main = torch.cuda.current_stream(cuda_sm90)
+    side = torch.cuda.Stream(device=cuda_sm90)
+    side.wait_stream(main)
+    for i, k in enumerate(keys * 4):  # streams in turn, keys out of step
+        with torch.cuda.stream(side if i % 2 else main):
+            outs.append((k, fm_demod_decimate(x, k[0], decim=k[1])))
+    torch.cuda.synchronize()
+    for k, got in outs:
+        np.testing.assert_allclose(got.cpu().numpy(), want[k], atol=TOL)
