@@ -14,7 +14,10 @@ Phases, each printing its own lines; any failure exits non-zero:
              (kernel 1: 3 stations, K = 4, DC sums on, bf16, at 16
              segments and at a 10 s block's 443 segments, whose banks
              span many chunks, and 12 stations × 5 segments × K = 2, the
-             branch that reloads its accumulators; kernel 2: K = 4,
+             branch that reloads its accumulators, and at the streaming
+             shapes: one bank over 9 rows × 96 segments, 9 rows × 59
+             segments (a capture's short last chunk) and 3 rows × 96
+             segments; kernel 2: K = 4,
              m = 3, F = 65536 on the 443-segment banks, and the
              segmented path's 9 pairs of 9 channels; kernel 3: 9
              channels × 20 M samples, D = 8, then 3 channels × 2 M
@@ -36,7 +39,19 @@ Phases, each printing its own lines; any failure exits non-zero:
              the fused IQ path (kernels 1 and 2; within 0.5 sample /
              200 m of the truth), ``accumulator="xla"`` (the segmented
              correlator and kernel 2, not kernel 1; 0.5 sample / 200 m)
-             and ``mode="fm"`` (kernel 3; 16 samples / 4 km).
+             and ``mode="fm"`` (kernel 3; 16 samples / 4 km);
+5. overlap — the same files through ``process_files_overlapped`` (warm-up,
+             then timed beside a batch run: within 0.5 sample / 200 m of
+             the truth and 0.05 sample of phase 4's fused result, one
+             launch of kernel 1 per planned chunk, every σ > 0); the
+             streaming loop alone under
+             ``torch.cuda.set_sync_debug_mode("error")`` (no chunk makes
+             the host wait for the card), its state through ``acc_save``
+             and ``acc_load`` to a bitwise-equal finalize; and a
+             ``TailIngest`` session fed the files in ten growth steps
+             (every chunk within the first nine tenths dispatched before
+             the last tenth lands), finished by
+             ``process_captures(caps, tail=session)`` to the same bounds.
 
 The last two lines are the card's ``nvidia-smi`` name and power limit,
 then ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -63,6 +78,11 @@ K1_TOL = 1e-4  # relative to each row's peak magnitude
 K2_TOL = 2e-3  # samples
 K3_TOL = 2e-4  # audio, absolute (tests/test_pallas_fm.py's tolerance)
 FM_DECIM = 8
+# Kernel 1's streaming shapes (stations or stacked rows, segments,
+# banks): a default chunk and a 10 s block's short last chunk (443 =
+# 4·96 + 59) over the stacked 9 rows, a default chunk over a tail
+# session's 3 rows.
+STREAM_SHAPES = ((9, 96, 1), (9, 59, 1), (3, 96, 1))
 # Published H100 SXM peaks (NVIDIA data sheet) for the bounds.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
@@ -173,6 +193,30 @@ def _bound(n_bytes: float, n_ops: float) -> dict:
             "bytes": n_bytes, "ops": n_ops}
 
 
+def _k1_bound(n_st: int, m: int, n_seg: int, n_banks: int) -> dict:
+    """Kernel 1's bound: bf16 planar input read once; cross, psd and
+    DC-sum banks written once. Operations: a 5·F·log2(F) complex FFT per
+    station and segment, 8 per bin per pair (cross MAC), 4 (PSD) and 2
+    (sums) per bin per station."""
+    from tdoa_tpu_torch.ops.kernels.corr_accum import FFT_LEN as F
+    from tdoa_tpu_torch.ops.kernels.corr_accum import SEG_LEN
+
+    return _bound(
+        2 * n_st * n_seg * SEG_LEN * 2
+        + n_banks * F * (8 * m + 4 * n_st + 8 * n_st),
+        n_seg * F * (n_st * 5 * 16 + 8 * m + 6 * n_st))
+
+
+def _pair_list(n_st: int, stacked: bool) -> list:
+    """All pairs of ``n_st`` stations; ``stacked``: the 3-station pairs of
+    each block of ``n_st // 3`` stacked blocks, offset into the row axis
+    (the overlapped ingest's layout: 9 rows carry 9 pairs)."""
+    if stacked:
+        return [(3 * b + i, 3 * b + j) for b in range(n_st // 3)
+                for i, j in ((0, 1), (0, 2), (1, 2))]
+    return [(i, j) for i in range(n_st) for j in range(i + 1, n_st)]
+
+
 def _errs(got, want) -> tuple:
     """(max |got − want|, max |got − want| / the row's peak |want|)."""
     diff = (got - want).abs()
@@ -207,10 +251,15 @@ def phase_kernels(dev):
     # at 12 stations (66 pairs, 172 KB of accumulators an item: the
     # branch that reloads them from the outputs at every chunk). Each is
     # launched twice: the outputs must be bitwise equal.
+    # The streaming shapes come last: one bank (K = 1) over the stacked
+    # 9 rows × 9 pairs of a default chunk and of a capture's short last
+    # chunk, and over a tail session's 3 rows.
     k1_abs, k1_rel, k1_cfg = 0.0, 0.0, {}
-    for n_st, n_seg, kb in ((3, 16, K), (3, 443, K), (12, 5, 2)):
+    stream_x, stream_err = {}, {}
+    for n_st, n_seg, kb in ((3, 16, K), (3, 443, K), (12, 5, 2),
+                            *STREAM_SHAPES):
         x = block(n_seg, n_st)
-        pn = [(i, j) for i in range(n_st) for j in range(i + 1, n_st)]
+        pn = _pair_list(n_st, stacked=kb == 1)
         cfg = corr_accum.kernel_config(n_st, len(pn), True, kb)
         run = corr_accum.bank_run(n_st, kb, n_seg)
         cfg.update(run=run, chunks=int(corr_accum.chunk_plan(
@@ -221,8 +270,12 @@ def phase_kernels(dev):
         torch.cuda.synchronize()
         errs = [_errs(a, b) for a, b in zip(got, want)]
         a_err, r_err = max(e[0] for e in errs), max(e[1] for e in errs)
-        k1_abs, k1_rel = max(k1_abs, a_err), max(k1_rel, r_err)
         same = _same(got, again)
+        if kb == 1:
+            stream_x[(n_st, n_seg, kb)] = x
+            stream_err[(n_st, n_seg, kb)] = (a_err, r_err)
+        else:
+            k1_abs, k1_rel = max(k1_abs, a_err), max(k1_rel, r_err)
         k1_cfg[f"{n_st} st, {n_seg} seg, K={kb}"] = cfg
         print(f"corr_accum [{n_st} st, {n_seg} seg, K={kb}, bf16, sums]: "
               f"launch {cfg}; max |kernel - plain| = {a_err:.3e}, / row "
@@ -311,14 +364,8 @@ def phase_kernels(dev):
     k2_dev = _device_ms(k2_call, "zoom_probe_kernel", 20)
     k2_plain = _time_ms(lambda: zoom_probe.loo_zoom_windows_plain(
         cross_g, psd_g, pairs, coarse, nseg), 20)
-    F, n_st, m, n_seg = corr_accum.FFT_LEN, 3, len(pairs), 443
-    # Kernel 1: bf16 planar input read once; cross, psd and DC-sum banks
-    # written once. Operations: a 5·F·log2(F) complex FFT per station
-    # and segment, 8 per bin per pair (cross MAC), 4 (PSD) and 2 (sums)
-    # per bin per station.
-    b1 = _bound(2 * n_st * n_seg * SEG_LEN * 2 + K * F * (8 * m + 4 * n_st
-                                                         + 8 * n_st),
-                n_seg * F * (n_st * 5 * 16 + 8 * m + 6 * n_st))
+    F, n_st, m = corr_accum.FFT_LEN, 3, len(pairs)
+    b1 = _k1_bound(3, len(pairs), 443, K)
     # Kernel 2: the cross and PSD banks read once, the windows written
     # once. Operations per (probe row, bin): 8 per lag of the 33-lag
     # zoom DFT, ~40 for the LOO weighting and the deramp.
@@ -336,6 +383,34 @@ def phase_kernels(dev):
           f"({b2['bound_by']}: {b2['bytes'] / 1e6:.2f} MB, "
           f"{b2['ops'] / 1e9:.3f} GFLOP)")
     del x443, got443
+    streaming = []
+    for shape in STREAM_SHAPES:
+        n_s, n_seg_s, kb = shape
+        xs = stream_x.pop(shape)
+        pn = _pair_list(n_s, stacked=True)
+        call = lambda: corr_accum.accumulate_banks(xs, pn, kb, True)  # noqa: E731
+        ms = _time_ms(call, 10)
+        dev_ms = _device_ms(call, "corr_accum_kernel", 10)
+        plain = _time_ms(lambda: corr_accum.accumulate_banks_plain(
+            xs, pn, kb, True), 2)
+        bs = _k1_bound(n_s, len(pn), n_seg_s, kb)
+        name = f"corr_accum[{n_s}x{n_seg_s},K={kb}]"
+        print(f"time {name}: kernel {ms:.3f} ms (device time {dev_ms:.3f} "
+              f"ms), plain {plain:.3f} ms, bound {bs['bound_ms']:.4f} ms "
+              f"({bs['bound_by']}: {bs['bytes'] / 1e6:.1f} MB, "
+              f"{bs['ops'] / 1e9:.2f} GFLOP)")
+        streaming.append(
+            {"name": name, "route": "cuda",
+             "source": "tdoa_tpu_torch/csrc/corr_accum.cu",
+             "replaces": "tdoa_tpu/ops/pallas/corr_accum.py:634",
+             "shape": list(shape),
+             "max_abs_err": stream_err[shape][0],
+             "max_rel_err_row_peak": stream_err[shape][1],
+             "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+             "bound_ms": bs["bound_ms"], "bound_by": bs["bound_by"],
+             "library_ms": None, "bitwise_deterministic": True,
+             "launch": k1_cfg[f"{n_s} st, {n_seg_s} seg, K={kb}"]})
+        del xs
     k3 = _kernel3(dev, g)
     return [
         {"name": "corr_accum", "route": "cuda",
@@ -357,6 +432,7 @@ def phase_kernels(dev):
          "library_ms": None, "redesigned": True,
          "bitwise_deterministic": True},
         k3,
+        *streaming,
     ]
 
 
@@ -575,7 +651,200 @@ def _run_path(dev, paths, tau_tgt, tgt_tx, name, cfg, tdoa_tol, fix_tol,
         raise RuntimeError(f"{name}: fix {fix_err:.1f} m from the "
                            f"transmitter")
     return {"wall_s": wall, "launches": launches,
-            "tdoa_err_samples": err.tolist(), "fix_err_m": fix_err}
+            "tdoa_err_samples": err.tolist(), "fix_err_m": fix_err,
+            "tdoa_by_pair": _by_pair(res)}
+
+
+def _by_pair(res) -> dict:
+    """Corrected TDOAs keyed by (earlier name, later name) of the sorted
+    pair, signed for that order: comparable between station orders."""
+    out = {}
+    for (i, j), t in zip(res.pair_idx, res.corrected_tdoa_samples):
+        a, b = res.station_names[i], res.station_names[j]
+        out[(a, b) if a < b else (b, a)] = float(t if a < b else -t)
+    return out
+
+
+def _check_overlap_result(what, res, tau_tgt, tgt_tx, fused_by_pair):
+    """An overlapped or tail result against the truth (0.5 sample, 200 m)
+    and against phase 4's fused batch result (0.05 sample: per-chunk
+    against per-block DC removal and the interleaved slots differ)."""
+    import numpy as np
+
+    from tdoa_tpu_torch.geo import lla_to_enu
+
+    got = _by_pair(res)
+    err_truth = {k: v - (tau_tgt[k[1]] - tau_tgt[k[0]])
+                 for k, v in got.items()}
+    err_batch = {k: v - fused_by_pair[k] for k, v in got.items()}
+    fix_err = float(np.linalg.norm(lla_to_enu(
+        np.array([res.fix.lat, res.fix.lon, tgt_tx[2]]), tgt_tx)[:2]))
+    for k in got:
+        print(f"  {k[0]}-{k[1]}: TDOA {got[k]:+.4f} samples (truth err "
+              f"{err_truth[k]:+.4f}, against the fused batch path "
+              f"{err_batch[k]:+.4f})")
+    print(f"  fix {res.fix.lat:.6f}, {res.fix.lon:.6f}: {fix_err:.1f} m from "
+          f"the planted transmitter; 1σ {(res.tdoa_std_s * FS).round(4)}")
+    if not all(abs(v) < 0.5 for v in err_truth.values()):
+        raise RuntimeError(f"{what}: corrected TDOAs off the truth")
+    if not all(abs(v) < 0.05 for v in err_batch.values()):
+        raise RuntimeError(f"{what}: corrected TDOAs off the batch path's")
+    if not fix_err < 200.0:
+        raise RuntimeError(f"{what}: fix {fix_err:.1f} m from the transmitter")
+    if not np.all(res.tdoa_std_s > 0):
+        raise RuntimeError(f"{what}: a σ is not positive")
+    return {"tdoa_err_samples": list(err_truth.values()),
+            "tdoa_vs_batch_samples": list(err_batch.values()),
+            "fix_err_m": fix_err}
+
+
+def phase_overlap(dev, paths, tau_tgt, tgt_tx, fused_by_pair):
+    """Phase 5 on phase 4's files: overlapped ingest, the streaming loop
+    without a host wait, a checkpoint round trip, a tail session."""
+    import numpy as np
+    import torch
+
+    from tdoa_tpu_torch.io.datfile import iq_bytes_as_u16
+    from tdoa_tpu_torch.ops.kernels.corr_accum import SEG_LEN
+    from tdoa_tpu_torch.pipeline import TDOAProcessor, ingest, streaming
+    from tdoa_tpu_torch.pipeline.processor import HostCapture
+    from tdoa_tpu_torch.solve.multilateration import station_pairs
+
+    print("== phase 5: overlapped ingest, checkpoint, tail session")
+    proc = TDOAProcessor.from_csv(162_400_000.0, 101_900_000.0,
+                                  str(ROOT / "lat-lon-table.csv"), device=dev)
+    counters = _counters()
+    chunk, spans = ingest.plan_chunks(BLOCK, SEG_LEN)
+    n_chunks = len(spans)
+    if {(9, n // SEG_LEN, 1) for _, n in spans} != set(STREAM_SHAPES[:2]) \
+            or STREAM_SHAPES[2] != (3, chunk // SEG_LEN, 1):
+        raise RuntimeError(f"phase 3 checked kernel 1 at {STREAM_SHAPES}, "
+                           f"the plan has chunks {spans}")
+
+    def timed(fn):
+        for c in counters.values():
+            c.launches = 0
+        counters["corr_accum"].launch_shapes.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(paths)  # results are host arrays: synced
+        return res, time.perf_counter() - t0, {
+            k: c.launches for k, c in counters.items()}
+
+    t0 = time.perf_counter()
+    proc.process_files_overlapped(paths)  # warm-up: pinned buffers, plans
+    print(f"-- process_files_overlapped: first run "
+          f"{time.perf_counter() - t0:.3f} s")
+    res, wall, launches = timed(proc.process_files_overlapped)
+    shapes = dict(counters["corr_accum"].launch_shapes)
+    diag = dict(proc.ingest_diag)
+    _, wall_batch, _ = timed(proc.process_files)
+    print(f"timed run: process_files_overlapped {wall:.3f} s, process_files "
+          f"{wall_batch:.3f} s right after it  [{_smi()}]")
+    print(f"chunks {diag['n_chunks']} of {diag['chunk_segs']} segments; "
+          f"gather {diag['gather_s'] * 1e3:.1f} ms on the host, copy stream "
+          f"{diag['transfer_stream_s'] * 1e3:.1f} ms; kernel launches "
+          f"{launches}, kernel 1 by (rows, segments, banks) {shapes}")
+    out = {"overlapped": _check_overlap_result(
+        "overlapped", res, tau_tgt, tgt_tx, fused_by_pair)}
+    out["overlapped"].update(wall_s=wall, batch_wall_s=wall_batch,
+                             launches=launches, diag=diag,
+                             k1_shapes={str(k): v for k, v in shapes.items()})
+    if launches["corr_accum"] != n_chunks or diag["n_chunks"] != n_chunks:
+        raise RuntimeError(f"overlapped: {launches['corr_accum']} launches of "
+                           f"kernel 1 for a plan of {n_chunks} chunks")
+    if launches["zoom_probe"] != 1 or launches["fm_demod"]:
+        raise RuntimeError(f"overlapped: unexpected launches {launches}")
+
+    # The streaming loop alone, every device synchronisation an error:
+    # gather, copy stream, decode and kernel 1 for every chunk.
+    names = res.station_names
+    views = []
+    for n in names:
+        path = next(p for p in paths if f"-{n}-" in p)
+        raw = np.memmap(path, dtype=np.uint8, mode="r")
+        views.append(iq_bytes_as_u16(raw[: (raw.size // 2) * 2]))
+    pairs = station_pairs(len(names))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, all_pairs, fft_len = ingest.accumulate_overlapped(
+            views, pairs, block_len=BLOCK, device=dev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"-- streaming loop under set_sync_debug_mode('error'): "
+          f"{state.n_chunks} chunks, {state.n_seg} segments, no host wait")
+    if (state.n_chunks, state.n_seg) != (n_chunks, BLOCK // SEG_LEN):
+        raise RuntimeError("the streaming loop dropped a chunk")
+
+    # Checkpoint round trip at full width: save from the card, load back,
+    # finalize both.
+    ck = str(Path(paths[0]).parent / "acc_state.npz")
+    streaming.acc_save(ck, state)
+    back = streaming.acc_load(ck, device=dev)
+    fin_a = streaming.acc_finalize(state, all_pairs, 20000, fft_len=fft_len)
+    fin_b = streaming.acc_finalize(back, all_pairs, 20000, fft_len=fft_len)
+    torch.cuda.synchronize()
+    same = _same(tuple(fin_a), tuple(fin_b))
+    print(f"-- acc_save → acc_load ({Path(ck).stat().st_size / 1e6:.1f} MB): "
+          f"finalize bitwise equal: {same}")
+    if not same:
+        raise RuntimeError("a checkpointed state finalizes differently")
+
+    # A tail session over the growing files: views cut to k/10.
+    t_names = sorted(names)
+    t_views = [views[names.index(n)] for n in t_names]
+    total = t_views[0].shape[0]
+
+    def tail_run():
+        sess = proc.tail_session(t_names, BLOCK)
+        before = 0
+        for k in range(1, 10):
+            before += sess.feed([v[:total * k // 10] for v in t_views])
+        caps = {n: HostCapture(u16=v, block_len=BLOCK)
+                for n, v in zip(t_names, t_views)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()  # the last byte lands now
+        r = proc.process_captures(caps, tail=sess)
+        return r, sess, before, time.perf_counter() - t0
+
+    tail_run()  # warm-up at the 3-row shapes
+    for c in counters.values():
+        c.launches = 0
+    counters["corr_accum"].launch_shapes.clear()
+    res_t, sess, before, after_s = tail_run()
+    launches_t = {k: c.launches for k, c in counters.items()}
+    shapes_t = dict(counters["corr_accum"].launch_shapes)
+    print(f"-- tail session: {before}/{sess.total_chunks} chunks dispatched "
+          f"before the last tenth of the files; last byte → fix "
+          f"{after_s:.3f} s; launches {launches_t}, kernel 1 by shape "
+          f"{shapes_t}; copy stream "
+          f"{sess.link_diag['transfer_stream_s'] * 1e3:.1f} ms")
+    # Every chunk whose samples lay within the first nine tenths of the
+    # files went out before the last tenth arrived (with four or fewer
+    # chunks a block that is all but two of them).
+    ready = sum(1 for b in range(3) for start, n in spans
+                if b * BLOCK + start + n <= total * 9 // 10)
+    if before != ready or ready < sess.total_chunks - len(spans) // 2:
+        raise RuntimeError(f"the tail session dispatched {before} chunks "
+                           f"before the last tenth, {ready} were ready")
+    if launches_t["corr_accum"] != sess.total_chunks \
+            or launches_t["zoom_probe"] != 3:
+        raise RuntimeError(f"tail: unexpected launches {launches_t}")
+    out["tail"] = _check_overlap_result("tail", res_t, tau_tgt, tgt_tx,
+                                        fused_by_pair)
+    out["tail"].update(wall_s=after_s, launches=launches_t,
+                       k1_shapes={str(k): v for k, v in shapes_t.items()},
+                       chunks_before_close=before,
+                       total_chunks=sess.total_chunks)
+    print(json.dumps({"overlap": {
+        "overlapped_s": wall, "batch_s": wall_batch,
+        "copy_stream_s": diag["transfer_stream_s"],
+        "gather_s": diag["gather_s"], "chunk_segs": diag["chunk_segs"],
+        "n_chunks": diag["n_chunks"], "tail_last_byte_to_fix_s": after_s,
+        "tail_chunks_before_close": before}}))
+    return out
 
 
 def phase_slice(dev):
@@ -595,6 +864,8 @@ def phase_slice(dev):
             out[name] = _run_path(dev, paths, tau_tgt, tgt_tx, name, cfg,
                                   tdoa_tol, fix_tol, must, must_not)
             torch.cuda.empty_cache()
+        out.update(phase_overlap(dev, paths, tau_tgt, tgt_tx,
+                                 out["fused IQ"]["tdoa_by_pair"]))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
@@ -626,10 +897,17 @@ def main() -> int:
     kernels = phase_kernels(dev)
     paths = phase_slice(dev)
     for k in kernels:
-        by_path = {p: r["launches"][k["name"]] for p, r in paths.items()}
+        if "shape" in k:  # kernel 1 at one streaming shape
+            by_path = {p: r["k1_shapes"].get(str(tuple(k["shape"])), 0)
+                       for p, r in paths.items() if "k1_shapes" in r}
+        else:
+            by_path = {p: r["launches"][k["name"]] for p, r in paths.items()}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
+        if k["launches"] < 1:
+            raise RuntimeError(f"{k['name']} was launched on no path")
     for p, r in paths.items():
+        r.pop("tdoa_by_pair", None)
         print(f"slice wall time, {p}: {r['wall_s']:.3f} s")
     print(json.dumps({"kernels": kernels}))
     print(_smi())

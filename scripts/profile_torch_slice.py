@@ -3,6 +3,8 @@
 
     python3 scripts/profile_torch_slice.py [--runs 12] [--mode iq|fm]
         [--accumulator auto|xla] [--out chiprun_out/profile_torch_slice.json]
+    python3 scripts/profile_torch_slice.py --overlap
+        [--chunk-segs 12 24 48 96 192]
 
 Needs one CUDA card (sm_90a) and imports nothing of JAX. It synthesizes
 the capture ``chip_smoke.py`` runs (three 10 s blocks of 20 M samples
@@ -20,6 +22,13 @@ IQ correlator; the defaults: the fused IQ kernels):
 3. traces one ``process_captures`` with ``torch.profiler`` and prints
    its wall time, the card's busy time (sum of the device kernels' and
    copies' own time) and the device ops that take the most of it.
+
+``--overlap`` measures the overlapped ingest instead (fused IQ only):
+capture→fix of ``process_files_overlapped`` and of ``process_files`` in
+turns within the one process (``--runs`` pairs), with the host's gather
+time and the copy stream's time (CUDA events) of every overlapped run;
+with ``--chunk-segs`` the overlapped path at each chunk size, the sizes
+taken in turns; and one traced ``process_files_overlapped``.
 
 Everything printed also goes into the JSON file given by ``--out``.
 """
@@ -58,12 +67,106 @@ def _device_time(evt) -> float:
     return 0.0
 
 
+def _trace(fn) -> dict:
+    """Wall time, the card's busy time and the top device ops of one
+    traced call of ``fn``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ops = [(e.key, _device_time(e) / 1e3, e.count)
+           for e in prof.key_averages()]
+    ops = sorted((o for o in ops if o[1] > 0), key=lambda o: -o[1])
+    busy = sum(o[1] for o in ops)
+    print(f"traced: wall {wall:.2f} ms, card busy {busy:.2f} ms "
+          f"({100 * busy / wall:.1f} %)")
+    if not ops:
+        print("  the trace holds no device time: the profiler did not "
+              "see the card")
+    for k, t, c in ops[:15]:
+        print(f"  {t:8.3f} ms  x{c:<5d} {k[:90]}")
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "device_busy_share": busy / wall,
+            "top_device_ops": [{"op": k, "ms": t, "count": c}
+                               for k, t, c in ops[:15]]}
+
+
+def _timed_ms(fn) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()  # the result is host arrays: the card has finished
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _overlap(proc, paths, runs: int, chunk_segs) -> dict:
+    """The overlapped ingest beside the batch path, in turns."""
+    from tdoa_tpu_torch.pipeline import ingest
+
+    report = {}
+    proc.process_files_overlapped(paths)  # warm-up: pinned buffers, plans
+    over, batch, gather, copy = [], [], [], []
+    for _ in range(runs):
+        over.append(_timed_ms(lambda: proc.process_files_overlapped(paths)))
+        gather.append(proc.ingest_diag["gather_s"] * 1e3)
+        copy.append(proc.ingest_diag["transfer_stream_s"] * 1e3)
+        batch.append(_timed_ms(lambda: proc.process_files(paths)))
+    report["capture_to_fix_ms"] = {
+        "process_files_overlapped": _quantiles(over),
+        "process_files": _quantiles(batch),
+        "overlapped_gather": _quantiles(gather),
+        "overlapped_copy_stream": _quantiles(copy),
+        "chunk_segs": proc.ingest_diag["chunk_segs"],
+        "n_chunks": proc.ingest_diag["n_chunks"]}
+    for name in ("process_files_overlapped", "process_files",
+                 "overlapped_gather", "overlapped_copy_stream"):
+        q = report["capture_to_fix_ms"][name]
+        print(f"{name:26s} median {q['median']:.1f} ms  q25 {q['q25']:.1f}"
+              f"  q75 {q['q75']:.1f}  max {q['max']:.1f}  ({runs} runs)")
+    if chunk_segs:
+        default = ingest.DEFAULT_CHUNK_SEGS
+        times = {n: [] for n in chunk_segs}
+        try:
+            for n in chunk_segs:  # warm-up: buffers and plans of each size
+                ingest.DEFAULT_CHUNK_SEGS = n
+                proc.process_files_overlapped(paths)
+            for _ in range(runs):
+                for n in chunk_segs:
+                    ingest.DEFAULT_CHUNK_SEGS = n
+                    times[n].append(_timed_ms(
+                        lambda: proc.process_files_overlapped(paths)))
+        finally:
+            ingest.DEFAULT_CHUNK_SEGS = default
+        report["chunk_size_sweep_ms"] = {
+            str(n): _quantiles(t) for n, t in times.items()}
+        for n, t in times.items():
+            q = _quantiles(t)
+            print(f"chunk of {n:3d} segments: median {q['median']:.1f} ms  "
+                  f"q25 {q['q25']:.1f}  q75 {q['q75']:.1f}  max "
+                  f"{q['max']:.1f}  ({runs} runs, sizes in turns)")
+    print("one traced process_files_overlapped:")
+    report["trace"] = _trace(lambda: proc.process_files_overlapped(paths))
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=12)
     ap.add_argument("--mode", default="iq", choices=["iq", "fm"])
     ap.add_argument("--accumulator", default="auto",
                     choices=["auto", "xla", "pallas"])
+    ap.add_argument("--overlap", action="store_true",
+                    help="measure process_files_overlapped beside "
+                         "process_files (fused IQ)")
+    ap.add_argument("--chunk-segs", type=int, nargs="*", default=[],
+                    help="with --overlap: chunk sizes (segments) to sweep")
     ap.add_argument("--out", default=None,
                     help="JSON report (default: chiprun_out/"
                          "profile_torch_slice[_<mode>_<accumulator>].json)")
@@ -95,6 +198,17 @@ def main() -> int:
                                       device=dev, mode=args.mode,
                                       accumulator=args.accumulator)
         proc.process_files(paths)  # warm-up: build, cuFFT plans, allocator
+        if args.overlap:
+            if (args.mode, args.accumulator) != ("iq", "auto"):
+                raise SystemExit("--overlap measures the fused IQ path")
+            report["overlap"] = _overlap(proc, paths, args.runs,
+                                         args.chunk_segs)
+            out = Path(args.out or ROOT / "chiprun_out"
+                       / "profile_torch_slice_overlap.json")
+            out.parent.mkdir(parents=True, exist_ok=True)
+            out.write_text(json.dumps(report, indent=1, default=float))
+            print(f"wrote {out}")
+            return 0
         # The decode dtype load_files picks for this path (bf16 for the
         # fused kernels, f32 for the segmented correlator).
         dtype = next(iter(proc.load_files(paths).values()))[0].dtype
@@ -147,31 +261,8 @@ def main() -> int:
         # 3. One traced process_captures.
         caps = proc.load_files(paths)
         torch.cuda.synchronize()
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            proc.process_captures(caps)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        ops = [(e.key, _device_time(e) / 1e3, e.count)
-               for e in prof.key_averages()]
-        ops = sorted((o for o in ops if o[1] > 0), key=lambda o: -o[1])
-        busy = sum(o[1] for o in ops)
-        report["trace"] = {
-            "wall_ms": wall, "device_busy_ms": busy,
-            "device_busy_share": busy / wall,
-            "top_device_ops": [{"op": k, "ms": t, "count": c}
-                               for k, t, c in ops[:15]],
-        }
-        print(f"traced process_captures: wall {wall:.2f} ms, card busy "
-              f"{busy:.2f} ms ({100 * busy / wall:.1f} %)")
-        if not ops:
-            print("  the trace holds no device time: the profiler did not "
-                  "see the card")
-        for k, t, c in ops[:15]:
-            print(f"  {t:8.3f} ms  x{c:<5d} {k[:90]}")
+        print("one traced process_captures:")
+        report["trace"] = _trace(lambda: proc.process_captures(caps))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     suffix = ("" if (args.mode, args.accumulator) == ("iq", "auto")

@@ -8,6 +8,8 @@ plain versions on the CPU instead), correlates raw IQ (the fused
 kernels, or the segmented correlator for short blocks, lags beyond
 20480 or ``--seg-len``) or FM-demodulated audio (``--mode fm``) with
 dual-REF clock correction, prints per-pair TDOAs and the position fix.
+``--overlap-ingest`` keeps the files on the host and streams them to the
+device chunk by chunk (``TDOAProcessor.process_files_overlapped``).
 Flags of ``tdoa_tpu.cli.processor`` whose paths are not ported yet are
 accepted and rejected with a message naming the ROADMAP item.
 """
@@ -20,39 +22,18 @@ import sys
 
 import numpy as np
 
+from tdoa_tpu_torch.cli import parse_prior, rewrite_prior_argv
+
 # Flags of the reference CLI this port does not run yet: their default
 # (accepted) and the ROADMAP item that ports them.
 _UNPORTED = {
     "lo_compensation": (False, "LO compensation, CAF/velocity, multi-emitter"),
     "solve_velocity": (False, "LO compensation, CAF/velocity, multi-emitter"),
     "multi_emitter": (1, "LO compensation, CAF/velocity, multi-emitter"),
-    "overlap_ingest": (False, "streaming and ingest"),
     "geojson": (None, "host tools"),
     "profile": (False, "port benchmark"),
     "trace": (None, "port benchmark"),
 }
-
-
-def _rewrite_prior_argv(argv):
-    """argparse reads "-33.9,18.4,25" as an option; use --prior=VALUE."""
-    argv = list(argv)
-    for k, a in enumerate(argv[:-1]):
-        if a == "--prior" and argv[k + 1].startswith("-"):
-            argv[k:k + 2] = ["--prior=" + argv[k + 1]]
-            break
-    return argv
-
-
-def _parse_prior(spec, error):
-    try:
-        lat_s, lon_s, rad_s = spec.split(",")
-        prior = (float(lat_s), float(lon_s), float(rad_s) * 1000.0)
-    except ValueError:
-        error("--prior expects LAT,LON,RADIUS_KM (e.g. 41.2,-96.0,25)")
-    if not (-90.0 <= prior[0] <= 90.0 and -180.0 <= prior[1] <= 180.0
-            and prior[2] > 0.0):
-        error("--prior out of range: |lat|<=90, |lon|<=180, radius>0")
-    return prior
 
 
 def main(argv=None) -> int:
@@ -96,22 +77,25 @@ def main(argv=None) -> int:
                         "none is visible — pass cpu to run on the CPU)")
     p.add_argument("--json", action="store_true",
                    help="emit one machine-readable JSON line")
+    p.add_argument("--overlap-ingest", action="store_true",
+                   help="stream the captures host->device chunk-by-chunk "
+                        "with the file read, the copy and the correlation "
+                        "overlapped; standard IQ pipeline only")
     # Reference flags whose paths are not ported yet.
     p.add_argument("--lo-compensation", action="store_true")
     p.add_argument("--solve-velocity", action="store_true")
     p.add_argument("--multi-emitter", type=int, default=1)
-    p.add_argument("--overlap-ingest", action="store_true")
     p.add_argument("--geojson", default=None)
     p.add_argument("--profile", action="store_true")
     p.add_argument("--trace", default=None)
     args = p.parse_args(
-        _rewrite_prior_argv(sys.argv[1:] if argv is None else argv))
+        rewrite_prior_argv(sys.argv[1:] if argv is None else argv))
     for name, (default, item) in _UNPORTED.items():
         if getattr(args, name) != default:
             p.error(f"--{name.replace('_', '-')} is not ported to "
                     f"tdoa_tpu_torch yet (ROADMAP.md: \"{item}\"); "
                     f"use python -m tdoa_tpu.cli.processor")
-    prior = None if args.prior is None else _parse_prior(args.prior, p.error)
+    prior = None if args.prior is None else parse_prior(args.prior, p.error)
 
     from tdoa_tpu_torch.pipeline import TDOAProcessor
     from tdoa_tpu_torch.utils.constants import DEFAULT_SAMPLE_RATE
@@ -140,7 +124,9 @@ def main(argv=None) -> int:
           f"{args.target_freq/1e6:.4f} MHz)",
           file=sys.stderr if args.json else sys.stdout)
     try:
-        res = proc.process_files(args.dat_files)
+        run = (proc.process_files_overlapped if args.overlap_ingest
+               else proc.process_files)
+        res = run(args.dat_files)
     except (FileNotFoundError, ValueError, NotImplementedError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

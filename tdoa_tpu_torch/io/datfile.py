@@ -34,6 +34,30 @@ def bytes_to_iq_planar(raw: torch.Tensor,
     return x.to(dtype).view(-1, 2).t().contiguous()
 
 
+def u16_to_iq_planar(packed: torch.Tensor,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Decode little-endian-packed uint16 I/Q words ``[..., L]`` (I = low
+    byte, Q = high byte) to planar ``[2, ..., L]`` ``dtype`` on
+    ``packed``'s device. The words are read as the bytes they are (no
+    uint16 arithmetic) with ``bytes_to_iq_planar``'s arithmetic: f32,
+    one rounding to ``dtype``."""
+    iq = packed.contiguous().view(torch.uint8).unflatten(-1, (-1, 2))
+    x = (iq.to(torch.float32) - IQ_CENTER) / IQ_SCALE
+    return x.to(dtype).movedim(-1, 0).contiguous()
+
+
+def iq_bytes_as_u16(raw: np.ndarray) -> np.ndarray:
+    """Host-side zero-copy view of interleaved u8 I/Q bytes as packed
+    uint16 words, one per sample (for ``u16_to_iq_planar``); the byte
+    order is handled explicitly."""
+    u16 = raw.view(np.uint16)
+    if u16.dtype.byteorder == ">" or (
+        u16.dtype.byteorder == "=" and not np.little_endian
+    ):
+        u16 = u16.byteswap()
+    return u16
+
+
 def iq_to_bytes(iq) -> np.ndarray:
     """Encode complex samples (numpy or torch) to interleaved u8 I/Q
     bytes: scale by 127.5, offset by 127.5, round half up, clamp to

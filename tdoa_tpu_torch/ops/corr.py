@@ -303,6 +303,22 @@ def _combine_splits(cross_g: torch.Tensor, psd_g: torch.Tensor,
     return res._replace(delay_std=torch.maximum(res.delay_std, sigma_emp))
 
 
+def _split_half_sigma(cross_a: torch.Tensor, cross_b: torch.Tensor,
+                      wfac_a: torch.Tensor, wfac_b: torch.Tensor,
+                      coarse: torch.Tensor, fft_len: int,
+                      max_lag: int) -> torch.Tensor:
+    """Empirical 1σ (samples) from two half-capture cross-spectra: each
+    half's zoom-DFT peak near the full-capture coarse delay, half the
+    disagreement, scaled by the MAD consistency constant 1.4826 (a
+    single absolute deviation's median is 0.674 σ). ``wfac_a`` weights
+    half a's probe and must be computed WITHOUT half a, and vice versa:
+    a half must not weight itself, and the full capture's factor would
+    drag a corrupted half's probe to the full delay."""
+    da = _zoom_corr_delay(cross_a * wfac_a, coarse, fft_len, max_lag)
+    db = _zoom_corr_delay(cross_b * wfac_b, coarse, fft_len, max_lag)
+    return (0.5 * _SPLIT_STD_SCALE[2]) * (da - db).abs()
+
+
 def auto_seg_len(n: int, max_lag: int, seg_len: Optional[int],
                  target_segs: int = 8, floor: int = 4096) -> Optional[int]:
     """Shrink a configured segment length so SHORT captures still hold

@@ -22,6 +22,7 @@ also what the kernel is held against on the card.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Sequence, Tuple
@@ -50,9 +51,11 @@ def _dc_window_np() -> np.ndarray:
     return d.astype(np.complex64)
 
 
+@functools.lru_cache(maxsize=8)
 def _dc_window(device) -> torch.Tensor:
     """FFT of the segment's rectangular window (SEG_LEN ones, zero-padded
-    to FFT_LEN), true frequency order, complex64 on ``device``."""
+    to FFT_LEN), true frequency order, complex64 on ``device``; copied
+    there once per process, like ``device_pairs``."""
     return torch.from_numpy(_dc_window_np()).to(device)
 
 
@@ -84,6 +87,11 @@ def device_pairs(pairs: Sequence[Tuple[int, int]], device) -> torch.Tensor:
 @functools.lru_cache(maxsize=64)
 def _device_pairs(key, device) -> torch.Tensor:
     return torch.tensor(key, dtype=torch.int32, device=device).reshape(-1, 2)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_floats(key, device) -> torch.Tensor:
+    return torch.tensor(key, dtype=torch.float32, device=device)
 
 
 def _check_input(x: torch.Tensor, pairs) -> Tuple[int, int, int]:
@@ -217,7 +225,8 @@ def accumulate_banks(x: torch.Tensor, pairs, n_banks: int = 1,
 
     CPU tensors take the plain torch version; CUDA tensors launch
     ``csrc/corr_accum.cu`` and count the launch in
-    ``accumulate_banks.launches``."""
+    ``accumulate_banks.launches`` (and, by ``(n_st, n_seg, n_banks)``, in
+    ``accumulate_banks.launch_shapes``)."""
     if x.device.type == "cpu":
         return accumulate_banks_plain(x, pairs, n_banks, track_sums)
     from tdoa_tpu_torch.ops.kernels import _build
@@ -255,10 +264,12 @@ def accumulate_banks(x: torch.Tensor, pairs, n_banks: int = 1,
     if err != 0:
         raise RuntimeError(f"corr_accum kernel launch failed: CUDA error {err}")
     accumulate_banks.launches += 1
+    accumulate_banks.launch_shapes[(n_st, n_seg, n_banks)] += 1
     return cross, psd, sums
 
 
 accumulate_banks.launches = 0
+accumulate_banks.launch_shapes = collections.Counter()
 
 
 def _finalize_banks(cross, psd, sums, pairs, seg_g, remove_dc: bool,
@@ -268,14 +279,16 @@ def _finalize_banks(cross, psd, sums, pairs, seg_g, remove_dc: bool,
     axis G. ``seg_g`` is the per-bank segment count. Returns (cross c64
     [G, m, F], psd [G, n_st, F], energy [G, n_st])."""
     dev = cross.device
-    p = np.asarray(pairs, np.int64).reshape(-1, 2)
-    ii, jj = torch.from_numpy(p[:, 0]).to(dev), torch.from_numpy(p[:, 1]).to(dev)
-    seg_g = torch.as_tensor(np.asarray(seg_g, np.float32), device=dev)
+    # Index and count tensors come from per-process caches: a fresh
+    # host→card copy here would make every streamed chunk wait for the
+    # card (see ``device_pairs``).
+    ii, jj = device_pairs(pairs, dev).long().unbind(1)
+    seg_g = _device_floats(tuple(float(s) for s in seg_g), dev)
     use_g = seg_g * SEG_LEN  # [G]
     if remove_dc:
         # Bank mean from the spectral sum's DC bin: Σ_seg X(0) = Σ xₙ.
         mean = sums[:, :, 0] / use_g[:, None]  # [G, n_st] c64
-        a = mean[..., None] * _dc_window(dev)  # A_st = m_st · D
+        a = mean[..., None] * _dc_window(torch.device(dev))  # A_st = m_st · D
         aj, ai = a[:, jj], a[:, ii]
         si, sj = sums[:, ii], sums[:, jj]
         ns = seg_g[:, None, None]

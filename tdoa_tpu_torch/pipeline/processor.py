@@ -12,6 +12,9 @@ Torch port of ``tdoa_tpu.pipeline.processor`` for the IQ and FM modes:
   split-σ probe (kernel 2 for HT/ML), then remove each pair's clock
   offset, interpolated between the two REF blocks, with the known REF
   transmitter's geometry;
+- ``process_files_overlapped`` and ``tail_session`` keep the captures
+  on the host (``HostCapture``) and stream them to the device chunk by
+  chunk (``pipeline/ingest.py``) instead of staging whole blocks;
 - the host gates, the float32 multistart LM solve, the multipath σ
   accounting and the ghost/outlier analysis follow the reference line
   for line (numpy / CPU tensors).
@@ -31,7 +34,11 @@ import torch
 
 from tdoa_tpu_torch.dsp.multipath import lobe_centroid_drift as _lobe_centroid_drift
 from tdoa_tpu_torch.geo import lla_to_ecef, lla_to_enu
-from tdoa_tpu_torch.io.datfile import load_dat
+from tdoa_tpu_torch.io.datfile import (
+    iq_bytes_as_u16,
+    load_dat,
+    u16_to_iq_planar,
+)
 from tdoa_tpu_torch.io.stations import (
     StationTable,
     load_station_table,
@@ -123,6 +130,65 @@ class TDOAResult:
     multipath_echo_separation_samples: Optional[np.ndarray] = None  # [m]
     multipath_echo_ratio: Optional[np.ndarray] = None  # [m]
     ghost: Optional[GhostVerdict] = None
+
+
+@dataclasses.dataclass
+class HostCapture:
+    """Host-resident capture handle for the overlapped-ingest path
+    (pipeline/ingest.py): the station's packed-u16 view of its .dat
+    bytes (io.datfile.iq_bytes_as_u16 over a read-only mmap — nothing
+    is decoded or transferred until the chunk pipeline streams it) plus
+    its per-block sample count."""
+
+    u16: np.ndarray  # [3·block_len] packed I/Q words
+    block_len: int
+
+    def subsample_planar(self, block: int, limit: int = 1 << 20,
+                         run: int = 1 << 18,
+                         device: Optional[torch.device] = None
+                         ) -> torch.Tensor:
+        """Decode ``limit`` samples of one block (0=REF1, 1=TGT,
+        2=REF2) as ``limit // run`` CONTIGUOUS runs evenly spaced
+        across the block, to planar f32 ``[2, limit]`` on ``device``
+        (default: the card) — for the eager analyses (received-power
+        ghost ranking). Contiguous runs, not a bare stride: strided
+        decimation has no anti-alias filter, so out-of-band energy
+        folds into the Welch PSD `_station_signal_power` computes, and
+        per-station strides (block_len is per station) land the common
+        emitter band on different bins per station. Runs of 2¹⁸ keep
+        every downstream 4096-sample Welch segment inside one
+        contiguous span (joints fall on segment boundaries), and every
+        station returns exactly ``limit`` samples regardless of its
+        block length. Mean |x|² still samples the whole block (the
+        runs are spread), so keyed/intermittent emitters average the
+        same way the stride did."""
+        dev = default_device() if device is None else torch.device(device)
+        base = block * self.block_len
+        if self.block_len <= limit:
+            # a copy: the mmap is read-only, a tensor wants writable memory
+            words = np.array(self.u16[base:base + self.block_len])
+        else:
+            nruns = max(1, limit // run)
+            span = self.block_len - run
+            words = np.concatenate([
+                self.u16[base + (span * k) // max(nruns - 1, 1):
+                         base + (span * k) // max(nruns - 1, 1) + run]
+                for k in range(nruns)
+            ])
+        return u16_to_iq_planar(torch.from_numpy(words).to(dev))
+
+
+def _stack_station_subsamples(subs: List[torch.Tensor]) -> torch.Tensor:
+    """Stack per-station subsample_planar outputs ``[2, L_s]`` into one
+    planar ``[2, n_st, L]`` block. subsample_planar returns exactly
+    ``limit`` samples only for stations whose block exceeds the limit; a
+    station below it returns its whole (shorter) block, so a capture set
+    straddling the limit is ragged. Trim every station to the shortest —
+    truncation keeps the power estimates honest (every retained sample
+    is real data, and the Welch estimator drops any final partial
+    segment itself)."""
+    n = min(int(s.shape[-1]) for s in subs)
+    return torch.stack([s[:, :n] for s in subs], dim=1)
 
 
 def process_blocks(
@@ -290,6 +356,9 @@ class TDOAProcessor:
         self.stations = stations
         self.device = torch.device(device) if device is not None \
             else default_device()
+        # What the last overlapped ingest did (``ingest_overlapped``'s
+        # ``diag``): chunk size and count, gather and copy-stream times.
+        self.ingest_diag: dict = {}
 
     @classmethod
     def from_csv(
@@ -753,16 +822,71 @@ class TDOAProcessor:
                 )
         return fix, w, excluded, ghost_verdict
 
-    def process_captures(self, captures: Dict[str, Tuple]) -> TDOAResult:
+    def process_captures(
+        self, captures: Dict[str, Tuple], *,
+        tail: Optional["TailIngest"] = None,
+    ) -> TDOAResult:
         """Run the pipeline on in-memory blocks {station: (ref1, tgt,
         ref2)}: complex arrays (numpy or torch) or planar [2, L] tensors
-        (the ``.dat`` ingest path)."""
+        (the ``.dat`` ingest path) — or on ``HostCapture`` handles, which
+        stream through the overlapped ingest.
+
+        ``tail``: a ``pipeline.ingest.TailIngest`` session that already
+        streamed (part of) this window while its files were growing —
+        the correlate step then drains and finalizes the session
+        instead of re-streaming from byte 0, and everything downstream
+        (gates, warnings, solve, ghost/outlier analysis) runs
+        unchanged. Requires every capture to be a ``HostCapture`` in
+        the session's exact station order."""
         cfg = self.config
-        self._check_supported()
         names = [n for n in captures.keys()]
         if len(names) < 3:
             raise ValueError("need at least 3 stations for a 2D fix")
         pairs = station_pairs(len(names))
+
+        # Overlapped-ingest mode: every station arrives as a
+        # host-resident HostCapture and the correlation step streams it
+        # chunk-by-chunk (pipeline/ingest.py) instead of staging whole
+        # blocks on device. Everything downstream of the correlate step
+        # runs UNCHANGED. The analyses that sample the waveform eagerly
+        # (received-power ghost ranking) read contiguous-run host
+        # subsamples.
+        host_mode = all(
+            isinstance(captures[n], HostCapture) for n in names
+        )
+        if tail is not None:
+            if not host_mode:
+                raise ValueError(
+                    "tail sessions need HostCapture captures"
+                )
+            if tail.names != names:
+                raise ValueError(
+                    f"tail session stations {tail.names} != window "
+                    f"stations {names}"
+                )
+            if not tail.check_final_sizes(
+                [captures[n].u16.shape[0] for n in names]
+            ):
+                raise ValueError(
+                    f"tail session block-length mismatch — "
+                    f"{tail.mismatch}; reprocess via the batch path"
+                )
+        if host_mode:
+            unsupported = [
+                opt for opt, on in (
+                    ("mode='fm'", cfg.mode != "iq"),
+                    ("lo_compensation", cfg.lo_compensation == "auto"),
+                    ("solve_velocity", cfg.solve_velocity),
+                    ("multi_emitter", cfg.multi_emitter > 1),
+                ) if on
+            ]
+            if unsupported:
+                raise ValueError(
+                    "overlapped ingest supports the standard IQ path; "
+                    f"{', '.join(unsupported)} need the whole blocks on "
+                    "device — use process_files/process_captures"
+                )
+        self._check_supported()
 
         def prep(b) -> torch.Tensor:
             b = _planar(b, self.device)
@@ -770,35 +894,72 @@ class TDOAProcessor:
                 b = b[:, :cfg.truncate_samples]
             return b
 
-        # Capture-time geometry: REF1/REF2 midpoints are two ORIGINAL
-        # block lengths apart even when the analysis window is truncated.
-        orig_block_len = min(int(captures[n][0].shape[-1]) for n in names)
-
         def stack(idx: int) -> torch.Tensor:
             return torch.stack([prep(captures[n][idx]) for n in names], dim=1)
 
-        ref1, tgt, ref2 = stack(0), stack(1), stack(2)
-        accumulator = cfg.accumulator
-        if accumulator == "auto":
-            accumulator = (
-                "pallas"
-                if self._fused_eligible(len(names), int(ref1.shape[-1]))
-                else "xla"
-            )
+        # Capture-time geometry: REF1/REF2 midpoints are two ORIGINAL
+        # block lengths apart even when the analysis window is truncated.
+        if host_mode:
+            orig_block_len = min(captures[n].block_len for n in names)
+
+            # Small contiguous-run subsamples stand in for the waveform
+            # in the eager power analyses (mean power AND the Welch
+            # spectral estimator — see HostCapture.subsample_planar).
+            def stack_sub(idx: int) -> torch.Tensor:
+                return _stack_station_subsamples([
+                    captures[n].subsample_planar(idx, device=self.device)
+                    for n in names
+                ])
+
+            ref1, tgt, ref2 = stack_sub(0), stack_sub(1), stack_sub(2)
+        else:
+            orig_block_len = min(int(captures[n][0].shape[-1])
+                                 for n in names)
+            ref1, tgt, ref2 = stack(0), stack(1), stack(2)
         warnings: List[str] = []
         ref_geo = self._ref_geo_tdoa_samples(names, pairs)
-        out = process_blocks(
-            ref1, tgt, ref2, pairs,
-            torch.as_tensor(ref_geo, dtype=torch.float32),
-            max_lag=cfg.max_lag,
-            seg_len=cfg.seg_len,
-            weighting=cfg.weighting,
-            clock_correction=cfg.clock_correction,
-            mode=cfg.mode,
-            fm_decim=cfg.fm_decim,
-            sample_rate=cfg.sample_rate,
-            accumulator=accumulator,
-        )
+        if host_mode and tail is not None:
+            out = tail.finalize([captures[n].u16 for n in names])
+        elif host_mode:
+            from tdoa_tpu_torch.pipeline.ingest import ingest_overlapped
+
+            bl = orig_block_len
+            if cfg.truncate_samples is not None:
+                bl = min(bl, cfg.truncate_samples)
+            out = ingest_overlapped(
+                [captures[n].u16 for n in names],
+                pairs,
+                ref_geo,
+                block_len=bl,
+                block_lens=[captures[n].block_len for n in names],
+                max_lag=cfg.max_lag,
+                seg_len=cfg.seg_len,
+                weighting=cfg.weighting,
+                clock_correction=cfg.clock_correction,
+                diag=self.ingest_diag,
+                accumulator=cfg.accumulator,
+                device=self.device,
+            )
+        else:
+            accumulator = cfg.accumulator
+            if accumulator == "auto":
+                accumulator = (
+                    "pallas"
+                    if self._fused_eligible(len(names), int(ref1.shape[-1]))
+                    else "xla"
+                )
+            out = process_blocks(
+                ref1, tgt, ref2, pairs,
+                torch.as_tensor(ref_geo, dtype=torch.float32),
+                max_lag=cfg.max_lag,
+                seg_len=cfg.seg_len,
+                weighting=cfg.weighting,
+                clock_correction=cfg.clock_correction,
+                mode=cfg.mode,
+                fm_decim=cfg.fm_decim,
+                sample_rate=cfg.sample_rate,
+                accumulator=accumulator,
+            )
         (corrected, tgt_d, ref_d, clock, quality, peaks, corr_std,
          tgt_window, tgt_std, win_c_blocks) = (t.cpu() for t in out)
         win_c_np = win_c_blocks.numpy().astype(np.complex128)  # [3, m, W]
@@ -1142,14 +1303,75 @@ class TDOAProcessor:
         process them."""
         return self.process_captures(self.load_files(dat_paths))
 
-    def process_files_overlapped(self, dat_paths: Sequence[str]) -> TDOAResult:
-        """Host-resident overlapped ingest of the reference."""
-        raise _unported("overlapped ingest", "streaming and ingest")
+    def tail_session(
+        self, station_names: Sequence[str], block_len: int,
+        chunk_samples: Optional[int] = None,
+    ):
+        """Create a ``pipeline.ingest.TailIngest`` session for a
+        growing capture window over these stations — pair basis,
+        REF-transmitter geometry, correlator settings and device all
+        taken from this processor, so ``process_captures(...,
+        tail=session)`` is numerically the processor's own host-mode
+        path. The station order is normalized (sorted) to match the
+        stream service's window grouping; build the captures dict in
+        ``session.names`` order at finalize time."""
+        from tdoa_tpu_torch.pipeline.ingest import TailIngest
 
-    def tail_session(self, station_names: Sequence[str], block_len: int,
-                     chunk_samples: Optional[int] = None):
-        """Growing-window ingest session of the reference."""
-        raise _unported("tail ingest sessions", "streaming and ingest")
+        cfg = self.config
+        names = sorted(station_names)
+        pairs = station_pairs(len(names))
+        bl = int(block_len)
+        if cfg.truncate_samples is not None:
+            bl = min(bl, cfg.truncate_samples)
+        return TailIngest(
+            names,
+            pairs,
+            self._ref_geo_tdoa_samples(names, pairs),
+            block_len=bl,
+            capture_block_len=int(block_len),
+            max_lag=cfg.max_lag,
+            seg_len=cfg.seg_len,
+            weighting=cfg.weighting,
+            clock_correction=cfg.clock_correction,
+            chunk_samples=chunk_samples,
+            accumulator=cfg.accumulator,
+            device=self.device,
+        )
+
+    def process_files_overlapped(
+        self, dat_paths: Sequence[str]
+    ) -> TDOAResult:
+        """Like process_files, but the captures stay HOST-resident and
+        stream to the device chunk by chunk, the file read, the copy and
+        the accumulation overlapped (pipeline/ingest.py). Files are
+        mmap'ed read-only — peak host memory is O(chunk), not
+        O(capture). Standard IQ path only (fm/LO-compensation/velocity/
+        multi-emitter need whole blocks on device and raise)."""
+        captures: Dict[str, HostCapture] = {}
+        known = self.stations.names
+        for path in dat_paths:
+            if not os.path.exists(path):
+                raise FileNotFoundError(
+                    f"capture file not found: {path}")
+            st = station_from_filename(path, known)
+            if st is None:
+                raise ValueError(
+                    f"cannot infer station from filename: {path} "
+                    f"(known stations: {', '.join(known)})"
+                )
+            if st in captures:
+                raise ValueError(
+                    f"two capture files resolve to station '{st}' "
+                    f"(second: {path}); pass one file per station"
+                )
+            raw = np.memmap(path, dtype=np.uint8, mode="r")
+            if raw.size < 6:
+                raise ValueError(f"capture too short: {path}")
+            captures[st] = HostCapture(
+                u16=iq_bytes_as_u16(raw[: (raw.size // 2) * 2]),
+                block_len=raw.size // 2 // 3,
+            )
+        return self.process_captures(captures)
 
     def load_files(
         self, dat_paths: Sequence[str]

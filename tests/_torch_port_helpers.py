@@ -50,6 +50,27 @@ def fm_block(n_st, n, delays, seed, noise=0.3, dc=(0.0, 0.0)):
     return out
 
 
+def noise_block(n_st, n, delays, seed, noise=0.2, dc=(0.0, 0.0)):
+    """Planar f32 [2, n_st, n] of one WIDEBAND source (complex white
+    noise at unit power) delayed per station (frequency-domain fractional
+    delays) plus independent complex noise and DC: delays resolve to a
+    few hundredths of a sample within a few segments."""
+    rng = np.random.default_rng(seed)
+    n_pad = 1 << int(np.ceil(np.log2(n + 256)))
+    src = (rng.standard_normal(n_pad) + 1j * rng.standard_normal(n_pad)) \
+        / np.sqrt(2)
+    spec = np.fft.fft(src)
+    f = np.fft.fftfreq(n_pad)
+    out = np.empty((2, n_st, n), np.float32)
+    for s, d in enumerate(delays):
+        z = np.fft.ifft(spec * np.exp(-2j * np.pi * f * d))[128:128 + n]
+        z = 0.4 * z + noise * (rng.standard_normal(n)
+                               + 1j * rng.standard_normal(n)) / np.sqrt(2)
+        out[0, s] = z.real + dc[0]
+        out[1, s] = z.imag + dc[1]
+    return out
+
+
 @pytest.fixture
 def cuda_sm90():
     """The card, for the kernel-vs-plain tests; skips without one."""

@@ -160,8 +160,7 @@ def test_cli_json_matches_process_files(slice_run, capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--lo-compensation"], ["--solve-velocity"],
-    ["--multi-emitter", "2"], ["--overlap-ingest"]])
+    ["--lo-compensation"], ["--solve-velocity"], ["--multi-emitter", "2"]])
 def test_cli_rejects_unported_flags(flag, capsys):
     with pytest.raises(SystemExit) as e:
         port_cli.main(["1", "2", CSV, "a.dat", "b.dat", "c.dat", *flag])
