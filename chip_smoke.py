@@ -15,9 +15,10 @@ Phases, each printing its own lines; any failure exits non-zero:
              segments and at a 10 s block's 443 segments, whose banks
              span many chunks, and 12 stations × 5 segments × K = 2, the
              branch that reloads its accumulators, and at the streaming
-             shapes: one bank over 9 rows × 96 segments, 9 rows × 59
-             segments (a capture's short last chunk) and 3 rows × 96
-             segments; kernel 2: K = 4,
+             shapes: one bank over 96 segments and over 59 segments (a
+             capture's short last chunk), each on the overlapped
+             ingest's 9 rows and on a tail session's 3; no path may
+             launch it at a shape not checked here; kernel 2: K = 4,
              m = 3, F = 65536 on the 443-segment banks, and the
              segmented path's 9 pairs of 9 channels; kernel 3: 9
              channels × 20 M samples, D = 8, then 3 channels × 2 M
@@ -78,11 +79,12 @@ K1_TOL = 1e-4  # relative to each row's peak magnitude
 K2_TOL = 2e-3  # samples
 K3_TOL = 2e-4  # audio, absolute (tests/test_pallas_fm.py's tolerance)
 FM_DECIM = 8
-# Kernel 1's streaming shapes (stations or stacked rows, segments,
-# banks): a default chunk and a 10 s block's short last chunk (443 =
-# 4·96 + 59) over the stacked 9 rows, a default chunk over a tail
-# session's 3 rows.
-STREAM_SHAPES = ((9, 96, 1), (9, 59, 1), (3, 96, 1))
+# Kernel 1's shape on the batch path (stations, segments, banks), and
+# its streaming shapes: a default chunk and a 10 s block's short last
+# chunk (443 = 4·96 + 59), each over the stacked 9 rows of the
+# overlapped ingest and over the 3 rows of a tail session's block.
+BATCH_SHAPE = (3, 443, 4)
+STREAM_SHAPES = ((9, 96, 1), (9, 59, 1), (3, 96, 1), (3, 59, 1))
 # Published H100 SXM peaks (NVIDIA data sheet) for the bounds.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
@@ -253,7 +255,7 @@ def phase_kernels(dev):
     # launched twice: the outputs must be bitwise equal.
     # The streaming shapes come last: one bank (K = 1) over the stacked
     # 9 rows × 9 pairs of a default chunk and of a capture's short last
-    # chunk, and over a tail session's 3 rows.
+    # chunk, and the same two chunks over a tail session's 3 rows.
     k1_abs, k1_rel, k1_cfg = 0.0, 0.0, {}
     stream_x, stream_err = {}, {}
     for n_st, n_seg, kb in ((3, 16, K), (3, 443, K), (12, 5, 2),
@@ -416,6 +418,7 @@ def phase_kernels(dev):
         {"name": "corr_accum", "route": "cuda",
          "source": "tdoa_tpu_torch/csrc/corr_accum.cu",
          "replaces": "tdoa_tpu/ops/pallas/corr_accum.py:634",
+         "shape": list(BATCH_SHAPE),
          "max_abs_err": k1_abs, "max_rel_err_row_peak": k1_rel,
          "ms": k1_ms, "device_ms": k1_dev, "plain_ms": k1_plain,
          "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
@@ -617,11 +620,13 @@ def _run_path(dev, paths, tau_tgt, tgt_tx, name, cfg, tdoa_tol, fix_tol,
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
+    counters["corr_accum"].launch_shapes.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = proc.process_files(paths)  # results are host arrays: synced
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
+    shapes = dict(counters["corr_accum"].launch_shapes)
     print(f"timed run: process_files {wall:.3f} s  [{_smi()}]")
     print(f"kernel launches in the timed run: {launches}")
     names = res.station_names
@@ -651,6 +656,7 @@ def _run_path(dev, paths, tau_tgt, tgt_tx, name, cfg, tdoa_tol, fix_tol,
         raise RuntimeError(f"{name}: fix {fix_err:.1f} m from the "
                            f"transmitter")
     return {"wall_s": wall, "launches": launches,
+            "k1_shapes": {str(k): v for k, v in shapes.items()},
             "tdoa_err_samples": err.tolist(), "fix_err_m": fix_err,
             "tdoa_by_pair": _by_pair(res)}
 
@@ -714,10 +720,10 @@ def phase_overlap(dev, paths, tau_tgt, tgt_tx, fused_by_pair):
     proc = TDOAProcessor.from_csv(162_400_000.0, 101_900_000.0,
                                   str(ROOT / "lat-lon-table.csv"), device=dev)
     counters = _counters()
-    chunk, spans = ingest.plan_chunks(BLOCK, SEG_LEN)
+    _, spans = ingest.plan_chunks(BLOCK, SEG_LEN)
     n_chunks = len(spans)
-    if {(9, n // SEG_LEN, 1) for _, n in spans} != set(STREAM_SHAPES[:2]) \
-            or STREAM_SHAPES[2] != (3, chunk // SEG_LEN, 1):
+    if {(rows, n // SEG_LEN, 1) for rows in (9, 3)
+            for _, n in spans} != set(STREAM_SHAPES):
         raise RuntimeError(f"phase 3 checked kernel 1 at {STREAM_SHAPES}, "
                            f"the plan has chunks {spans}")
 
@@ -896,10 +902,18 @@ def main() -> int:
         return 0
     kernels = phase_kernels(dev)
     paths = phase_slice(dev)
+    # Kernel 1 is held against its plain version shape by shape: a path
+    # may launch it at no shape that phase 3 did not check, and each of
+    # its entries counts the launches at its own shape.
+    checked = {str(BATCH_SHAPE), *map(str, STREAM_SHAPES)}
+    for p, r in paths.items():
+        if set(r["k1_shapes"]) - checked:
+            raise RuntimeError(f"{p}: kernel 1 launched at {r['k1_shapes']}, "
+                               f"phase 3 checked {sorted(checked)}")
     for k in kernels:
-        if "shape" in k:  # kernel 1 at one streaming shape
+        if "shape" in k:  # kernel 1 at one shape
             by_path = {p: r["k1_shapes"].get(str(tuple(k["shape"])), 0)
-                       for p, r in paths.items() if "k1_shapes" in r}
+                       for p, r in paths.items()}
         else:
             by_path = {p: r["launches"][k["name"]] for p, r in paths.items()}
         k["launches"] = sum(by_path.values())

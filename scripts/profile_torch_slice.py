@@ -28,15 +28,19 @@ capture→fix of ``process_files_overlapped`` and of ``process_files`` in
 turns within the one process (``--runs`` pairs), with the host's gather
 time and the copy stream's time (CUDA events) of every overlapped run;
 with ``--chunk-segs`` the overlapped path at each chunk size, the sizes
-taken in turns; and one traced ``process_files_overlapped``.
+taken in turns (overlapped runs back to back, each with its gather
+time); and one traced ``process_files_overlapped``.
 
-Everything printed also goes into the JSON file given by ``--out``.
+Everything printed also goes into the JSON file given by ``--out``; the
+default name of an ``--overlap`` report carries the time and the process
+id, so that a later call does not overwrite an earlier one's.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import shutil
 import sys
 import tempfile
@@ -128,11 +132,12 @@ def _overlap(proc, paths, runs: int, chunk_segs) -> dict:
     for name in ("process_files_overlapped", "process_files",
                  "overlapped_gather", "overlapped_copy_stream"):
         q = report["capture_to_fix_ms"][name]
-        print(f"{name:26s} median {q['median']:.1f} ms  q25 {q['q25']:.1f}"
-              f"  q75 {q['q75']:.1f}  max {q['max']:.1f}  ({runs} runs)")
+        print(f"{name:26s} median {q['median']:.3f} ms  q25 {q['q25']:.3f}"
+              f"  q75 {q['q75']:.3f}  max {q['max']:.3f}  ({runs} runs)")
     if chunk_segs:
         default = ingest.DEFAULT_CHUNK_SEGS
         times = {n: [] for n in chunk_segs}
+        gathers = {n: [] for n in chunk_segs}
         try:
             for n in chunk_segs:  # warm-up: buffers and plans of each size
                 ingest.DEFAULT_CHUNK_SEGS = n
@@ -142,15 +147,20 @@ def _overlap(proc, paths, runs: int, chunk_segs) -> dict:
                     ingest.DEFAULT_CHUNK_SEGS = n
                     times[n].append(_timed_ms(
                         lambda: proc.process_files_overlapped(paths)))
+                    gathers[n].append(proc.ingest_diag["gather_s"] * 1e3)
         finally:
             ingest.DEFAULT_CHUNK_SEGS = default
         report["chunk_size_sweep_ms"] = {
             str(n): _quantiles(t) for n, t in times.items()}
+        report["chunk_size_sweep_gather_ms"] = {
+            str(n): _quantiles(t) for n, t in gathers.items()}
         for n, t in times.items():
-            q = _quantiles(t)
-            print(f"chunk of {n:3d} segments: median {q['median']:.1f} ms  "
-                  f"q25 {q['q25']:.1f}  q75 {q['q75']:.1f}  max "
-                  f"{q['max']:.1f}  ({runs} runs, sizes in turns)")
+            q, g = _quantiles(t), _quantiles(gathers[n])
+            print(f"chunk of {n:3d} segments: median {q['median']:.3f} ms  "
+                  f"q25 {q['q25']:.3f}  q75 {q['q75']:.3f}  max "
+                  f"{q['max']:.3f}; gather median {g['median']:.3f}  q25 "
+                  f"{g['q25']:.3f}  q75 {g['q75']:.3f}  ({runs} runs, sizes "
+                  f"in turns)")
     print("one traced process_files_overlapped:")
     report["trace"] = _trace(lambda: proc.process_files_overlapped(paths))
     return report
@@ -169,7 +179,9 @@ def main() -> int:
                     help="with --overlap: chunk sizes (segments) to sweep")
     ap.add_argument("--out", default=None,
                     help="JSON report (default: chiprun_out/"
-                         "profile_torch_slice[_<mode>_<accumulator>].json)")
+                         "profile_torch_slice[_<mode>_<accumulator>].json; "
+                         "with --overlap chiprun_out/profile_torch_slice_"
+                         "overlap_<time>_<pid>.json)")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
@@ -203,8 +215,9 @@ def main() -> int:
                 raise SystemExit("--overlap measures the fused IQ path")
             report["overlap"] = _overlap(proc, paths, args.runs,
                                          args.chunk_segs)
-            out = Path(args.out or ROOT / "chiprun_out"
-                       / "profile_torch_slice_overlap.json")
+            out = Path(args.out or ROOT / "chiprun_out" / (
+                "profile_torch_slice_overlap_"
+                f"{time.strftime('%Y%m%dT%H%M%S')}_{os.getpid()}.json"))
             out.parent.mkdir(parents=True, exist_ok=True)
             out.write_text(json.dumps(report, indent=1, default=float))
             print(f"wrote {out}")

@@ -93,7 +93,8 @@ def _geometry(n_rows: int, n_pairs: int, block_len: int, max_lag: int,
     ``n_rows`` channels: kernel 1's geometry with bf16 operands when the
     lag window, the block length and the kernel's single-bank footprint
     on ``device`` allow it and ``accumulator`` is not ``"xla"``, else the
-    segmented geometry (``resolve_seg``) in f32."""
+    segmented geometry (``resolve_seg``) in f32. ``"pallas"``, the
+    reference's name for the kernel route, reads as ``"auto"``."""
     from tdoa_tpu_torch.ops.kernels.corr_accum import FFT_LEN, SEG_LEN
 
     if accumulator not in ("auto", "pallas", "xla"):

@@ -28,6 +28,7 @@ Torch port of ``tdoa_tpu.pipeline.streaming``:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -100,17 +101,30 @@ def kernel_geometry(n_st: int, n_pairs: int, seg_len: int, fft_len: int,
                     device: torch.device) -> bool:
     """Whether a chunk of ``length`` samples goes through kernel 1: its
     fixed geometry, at least one segment, and on CUDA the kernel's own
-    single-bank footprint on ``device``."""
-    from tdoa_tpu_torch.ops.kernels.corr_accum import (
-        FFT_LEN,
-        SEG_LEN,
-        fits_device,
-    )
+    single-bank footprint on ``device`` (decided at the first question
+    for a shape, ``_kernel_fits``)."""
+    from tdoa_tpu_torch.ops.kernels.corr_accum import FFT_LEN, SEG_LEN
 
     ok = fft_len == FFT_LEN and seg_len == SEG_LEN and length >= SEG_LEN
     if ok and device.type == "cuda":
-        ok = fits_device(n_st, n_pairs, remove_dc, 1, device)
+        index = (torch.cuda.current_device() if device.index is None
+                 else device.index)
+        ok = _kernel_fits(n_st, n_pairs, remove_dc, index)
     return ok
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fits(n_st: int, n_pairs: int, remove_dc: bool,
+                 index: int) -> bool:
+    """``fits_device``'s verdict on kernel 1 as a single bank, taken once
+    per shape and card and kept: every chunk of a stream then goes the
+    way its first chunk went (a state never mixes the two accumulators,
+    and no chunk queries the free memory of the card). A later chunk
+    that the card cannot hold raises from the kernel's wrapper."""
+    from tdoa_tpu_torch.ops.kernels.corr_accum import fits_device
+
+    return fits_device(n_st, n_pairs, remove_dc, 1,
+                       torch.device("cuda", index))
 
 
 def acc_update(

@@ -226,6 +226,32 @@ def test_kernel_geometry_gate():
                                   cpu)
 
 
+def test_kernel_route_is_decided_once_per_shape(monkeypatch):
+    """On a card the footprint is asked once per shape: a stream's later
+    chunks go the way its first went, whatever memory is free by then."""
+    from tdoa_tpu_torch.ops.kernels import corr_accum as tkernel
+
+    asked = []
+
+    def fits(n_st, m, track_sums, n_banks, device):
+        asked.append((n_st, m, track_sums, n_banks, device))
+        return len(asked) == 1  # free memory "dips" after the first call
+
+    monkeypatch.setattr(tkernel, "fits_device", fits)
+    ts._kernel_fits.cache_clear()
+    try:
+        card = torch.device("cuda", 0)
+        for n_seg in (96, 59, 96):
+            assert ts.kernel_geometry(9, 9, K_SEG, K_FFT, n_seg * K_SEG, True,
+                                      card)
+        assert asked == [(9, 9, True, 1, card)]
+        assert not ts.kernel_geometry(3, 3, K_SEG, K_FFT, 96 * K_SEG, True,
+                                      card)
+        assert len(asked) == 2
+    finally:
+        ts._kernel_fits.cache_clear()
+
+
 # ---- checkpoints cross between the packages ---------------------------
 
 def test_jax_checkpoint_resumes_in_the_port(tmp_path):
