@@ -52,7 +52,30 @@ Phases, each printing its own lines; any failure exits non-zero:
              ``TailIngest`` session fed the files in ten growth steps
              (every chunk within the first nine tenths dispatched before
              the last tenth lands), finished by
-             ``process_captures(caps, tail=session)`` to the same bounds.
+             ``process_captures(caps, tail=session)`` to the same bounds;
+6. motion  — two more full-width scenes, made the way the JAX package's
+             simulator makes them (``sim/scene.py``, ``sim/delay.py``:
+             each delay rate α turns the carrier by exp(−j2π f α (t −
+             t_mid)), the envelope sits at the block midpoint's delay):
+             (a) per-station receiver LO errors of a few tenths of a ppm
+             (a drifting clock: a delay rate on every block) and a
+             130 m/s mover on TGT, run with ``lo_compensation="auto",
+             solve_velocity=True`` (TDOAs within 0.5 sample of the
+             midpoint geometry, fix within 200 m, velocity within 5 m/s
+             and 5σ + 1 m/s per axis, FDOA within 1 Hz of the planted
+             Doppler, the deramp re-solve taken); (b) a mover and an
+             equal-power static co-channel interferer, run with
+             ``solve_velocity=True, multi_emitter=2`` (two emitters, each
+             fix within 1000 m of its own truth, the mover's velocity
+             within 10 m/s, the static one's within 3σ + 2 m/s of zero).
+             Beside them, printed and not asserted: each option alone
+             (LO compensation, velocity without it, the lag-only
+             multi-emitter route). Every setting is timed in turns with
+             the plain fused path on the same files, with its stages.
+             Kernel 2 is held to the shapes phase 3 checked, by
+             ``(K, m, F)``, as kernel 1 is. Last, the CAF, a block's
+             derotation and the deramp re-correlation are timed alone
+             at the processor's shapes.
 
 The last two lines are the card's ``nvidia-smi`` name and power limit,
 then ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -61,6 +84,7 @@ then ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import shutil
 import subprocess
@@ -85,6 +109,19 @@ FM_DECIM = 8
 # overlapped ingest and over the 3 rows of a tail session's block.
 BATCH_SHAPE = (3, 443, 4)
 STREAM_SHAPES = ((9, 96, 1), (9, 59, 1), (3, 96, 1), (3, 59, 1))
+# Kernel 2's shapes (banks, pairs, FFT length): the split-σ probes of
+# the fused path, the LO probe's coarse pre-alignment and the deramp
+# re-correlations over 2^21 samples (3 pairs), of the segmented and
+# overlapped paths' stacked blocks (9 pairs), and of a deramp over 2^18
+# samples at max_lag 512 (8 segments of 32256 in FFTs of 32768).
+K2_SHAPES = ((4, 3, 65536), (4, 9, 65536), (4, 3, 32768))
+# Phase 6: receiver LO errors (ppm; pairwise up to 0.3 ppm, 49 Hz at the
+# REF carrier), the mover's ENU velocity (130 m/s) and the static
+# co-channel interferer's position.
+LO_PPM = (0.2, -0.1, 0.05)
+MOVER_ENU = (120.0, -50.0, 0.0)
+INTERFERER_LLA = (41.05, -95.99, 340.0)
+REF_FREQ, TGT_FREQ = 162_400_000.0, 101_900_000.0
 # Published H100 SXM peaks (NVIDIA data sheet) for the bounds.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
@@ -320,39 +357,52 @@ def phase_kernels(dev):
     if not k2_same:
         raise RuntimeError("zoom_probe is not deterministic")
 
-    # Kernel 2 at the segmented IQ path's shape too: K = 4 banks of the
-    # 9 pairs of 3 stacked blocks × 3 stations, F = 65536, from the
-    # segmented correlator's own accumulation (8 segments of 45536).
+    # Kernel 2 at the other shapes a path gives it, from the segmented
+    # correlator's own accumulation (8 segments a bank pair): K = 4 banks
+    # of the 9 pairs of 3 stacked blocks × 3 stations, F = 65536 (the
+    # segmented and overlapped paths), and of 3 pairs in FFTs of 32768
+    # (a deramp re-correlation over a 2^18-sample window).
     from tdoa_tpu_torch.ops.corr import _accumulate_cross_spectra
 
-    seg9, n9 = 65536 - 20000, 9
-    x9 = torch.randn(2, n9, 8 * seg9, device=dev, generator=g)
-    for b in range(3):
-        x9[:, 3 * b + 1] += 0.5 * torch.roll(x9[:, 3 * b], 37, dims=-1)
-        x9[:, 3 * b + 2] += 0.5 * torch.roll(x9[:, 3 * b], -12, dims=-1)
-    pairs9 = [(3 * b + i, 3 * b + j) for b in range(3) for i, j in pairs]
-    banks = [_accumulate_cross_spectra(
-        x9[..., 2 * k * seg9:2 * (k + 1) * seg9], pairs9, seg9, 65536)
-        for k in range(K)]
-    cross9 = torch.stack([a[0] for a in banks])
-    psd9 = torch.stack([a[1] for a in banks])
-    coarse9, nseg9 = coarse.repeat(3), torch.full((K * n9,), 6.0, device=dev)
-    w9_k = zoom_probe.loo_zoom_windows(cross9, psd9, pairs9, coarse9, nseg9)
-    w9_p = zoom_probe.loo_zoom_windows_plain(cross9, psd9, pairs9, coarse9,
-                                             nseg9)
-    torch.cuda.synchronize()
-    d9 = float((parabolic_peak(w9_k.abs())[0]
-                - parabolic_peak(w9_p.abs())[0]).abs().max())
-    a9, r9 = _errs(w9_k, w9_p)
-    print(f"zoom_probe [K={K}, m=9, n_st=9, F=65536]: max |delay kernel - "
-          f"plain| = {d9:.3e} samples (tol {K2_TOL:g}); window max |kernel "
-          f"- plain| = {a9:.3e}, / row peak {r9:.3e}")
-    if not d9 < K2_TOL:
-        raise RuntimeError("zoom_probe disagrees with its plain version at "
-                           "the segmented path's shape")
-    k2_abs, k2_rel = max(k2_abs, a9), max(k2_rel, r9)
-    k2_delay = max(k2_delay, d9)
-    del x9, banks, cross9, psd9
+    checked2 = {tuple(cross_g.shape)}
+    for n_ch, F2, what in ((9, 65536, "9 pairs of 9 channels"),
+                           (3, 32768, "3 pairs, the short deramp window")):
+        seg2 = F2 - 20000 if F2 == 65536 else F2 - 512
+        x2 = torch.randn(2, n_ch, 8 * seg2, device=dev, generator=g)
+        for b in range(n_ch // 3):
+            x2[:, 3 * b + 1] += 0.5 * torch.roll(x2[:, 3 * b], 37, dims=-1)
+            x2[:, 3 * b + 2] += 0.5 * torch.roll(x2[:, 3 * b], -12, dims=-1)
+        pairs2 = [(3 * b + i, 3 * b + j) for b in range(n_ch // 3)
+                  for i, j in pairs]
+        banks = [_accumulate_cross_spectra(
+            x2[..., 2 * k * seg2:2 * (k + 1) * seg2], pairs2, seg2, F2)
+            for k in range(K)]
+        cross2 = torch.stack([a[0] for a in banks])
+        psd2 = torch.stack([a[1] for a in banks])
+        coarse2 = coarse.repeat(n_ch // 3)
+        nseg2 = torch.full((K * len(pairs2),), 6.0, device=dev)
+        w2_k = zoom_probe.loo_zoom_windows(cross2, psd2, pairs2, coarse2,
+                                           nseg2)
+        w2_p = zoom_probe.loo_zoom_windows_plain(cross2, psd2, pairs2,
+                                                 coarse2, nseg2)
+        torch.cuda.synchronize()
+        d2 = float((parabolic_peak(w2_k.abs())[0]
+                    - parabolic_peak(w2_p.abs())[0]).abs().max())
+        a2, r2 = _errs(w2_k, w2_p)
+        print(f"zoom_probe [K={K}, m={len(pairs2)}, n_st={n_ch}, F={F2}; "
+              f"{what}]: max |delay kernel - plain| = {d2:.3e} samples "
+              f"(tol {K2_TOL:g}); window max |kernel - plain| = {a2:.3e}, "
+              f"/ row peak {r2:.3e}")
+        if not d2 < K2_TOL:
+            raise RuntimeError(f"zoom_probe disagrees with its plain version "
+                               f"at {tuple(cross2.shape)}")
+        k2_abs, k2_rel = max(k2_abs, a2), max(k2_rel, r2)
+        k2_delay = max(k2_delay, d2)
+        checked2.add(tuple(cross2.shape))
+        del x2, banks, cross2, psd2
+    if checked2 != set(K2_SHAPES):
+        raise RuntimeError(f"phase 3 checked kernel 2 at {checked2}, not at "
+                           f"{K2_SHAPES}")
 
     # Times at the main path's shapes.
     k1_call = lambda: corr_accum.accumulate_banks(x443, pairs, K, True)  # noqa: E731
@@ -516,51 +566,95 @@ def _kernel3(dev, g):
             "library_ms": None, "redesigned": True}
 
 
-def _synthesize(dev, out_dir: Path):
-    """Write one u8 [REF | TGT | REF] .dat per station; return the
-    truth: per-station TGT propagation delays (samples) and the TGT
-    transmitter's lat/lon/elev."""
+def _synthesize(dev, out_dir: Path, lo_ppm=(0.0, 0.0, 0.0), mover_enu=None,
+                interferer_lla=None, prefix: str = "sim"):
+    """Write one u8 [REF | TGT | REF] .dat per station; return (paths,
+    truth). ``truth``: per-station TGT delays (samples) at the TGT
+    block's midpoint geometry (``tau_tgt``), the transmitter's lat/lon/
+    elev there (``tgt_lla``), its per-station delay rates from motion
+    alone (``rate``), and the interferer's delays and position.
+
+    The channel is the JAX package's simulator's (``sim/scene.py``,
+    ``sim/delay.py``): a delay rate α_s — the station's clock drift
+    ``lo_ppm``·1e-6 on every block (a crystal off by ε ppm offsets its
+    LO by ε·f_c as well), plus range rate / c on TGT for a mover — turns
+    the carrier by exp(−j2π f_block α_s (t − t_mid)); the envelope is
+    delayed by the block midpoint's value (geometry, clock offset and
+    drift at the midpoint); a mover starts at the KEVO row and is
+    evaluated at the TGT block's midpoint. The static interferer adds
+    its own source at equal power on TGT. The constant carrier phases
+    are left out, as phase 4 leaves them out."""
     import numpy as np
     import torch
 
-    from tdoa_tpu_torch.geo import lla_to_ecef
+    from tdoa_tpu_torch.geo import ecef_to_lla, enu_to_ecef, lla_to_ecef
     from tdoa_tpu_torch.io.stations import load_station_table
     from tdoa_tpu_torch.utils.constants import SPEED_OF_LIGHT
 
     table = load_station_table(str(ROOT / "lat-lon-table.csv"),
-                               reference_freq=162_400_000.0)
+                               reference_freq=REF_FREQ)
     # The table's KEVO row is the target transmitter; the other
     # callsign rows are the receivers.
-    tgt_tx = table["KEVO"].lla()
+    tgt0 = table["KEVO"].lla()
     names = [n for n in table.names if n != "KEVO"]
     st = lla_to_ecef(table.lla_array(names))
-    clock = np.asarray(CLOCK_OFFSETS_S) * FS
+    t_mid_tgt = 1.5 * BLOCK / FS
+    v_ecef = np.zeros(3)
+    if mover_enu is not None:
+        v_ecef = (enu_to_ecef(np.asarray(mover_enu, np.float64), tgt0)
+                  - enu_to_ecef(np.zeros(3), tgt0))
+    p_tgt = lla_to_ecef(tgt0) + v_ecef * t_mid_tgt
+    u = st - p_tgt
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    rate_motion = -(u @ v_ecef) / SPEED_OF_LIGHT  # d|station - p|/dt / c
+    drift = 1e-6 * np.asarray(lo_ppm, np.float64)
 
-    def delays(tx_lla):
-        d = np.linalg.norm(st - lla_to_ecef(tx_lla), axis=-1)
-        return d / SPEED_OF_LIGHT * FS
+    def delays(tx_ecef):
+        return np.linalg.norm(st - tx_ecef, axis=-1) / SPEED_OF_LIGHT * FS
 
-    tau = {"ref": delays(table.reference_tx.lla()), "tgt": delays(tgt_tx)}
+    tau = {"ref": delays(lla_to_ecef(table.reference_tx.lla())),
+           "tgt": delays(p_tgt)}
+    tau_int = (None if interferer_lla is None
+               else delays(lla_to_ecef(np.asarray(interferer_lla))))
     pad = 4096
     n_fft = 1 << (BLOCK + 2 * pad).bit_length()  # > BLOCK + pad + delays
     g = torch.Generator(device=dev).manual_seed(SEED)
     f = torch.fft.fftfreq(n_fft, device=dev, dtype=torch.float64)
-    raw = {n: [] for n in names}
-    for kind in ("ref", "tgt", "ref"):
+    t_rel = (torch.arange(BLOCK, device=dev, dtype=torch.float64)
+             - (BLOCK - 1) / 2.0) / FS
+
+    def source():
         # FM-like source: a 15 kHz low-passed message at 25 kHz rms
-        # deviation, exp(i·phase) — one per block.
+        # deviation, exp(i·phase).
         msg = torch.fft.fft(torch.randn(n_fft, device=dev, generator=g,
                                         dtype=torch.float64))
         msg[f.abs() > 15e3 / FS] = 0
         msg = torch.fft.ifft(msg).real
         msg = msg / msg.std()
         phase = torch.cumsum(2 * np.pi * 25e3 / FS * msg, 0)
-        spec = torch.fft.fft(torch.polar(torch.ones_like(phase), phase))
-        del msg, phase
+        return torch.fft.fft(torch.polar(torch.ones_like(phase), phase))
+
+    def delayed(spec, d):
+        return torch.fft.ifft(spec * torch.polar(
+            torch.ones_like(f), -2 * np.pi * f * d))[pad:pad + BLOCK]
+
+    raw = {n: [] for n in names}
+    for b, kind in enumerate(("ref", "tgt", "ref")):
+        carrier = TGT_FREQ if kind == "tgt" else REF_FREQ
+        # Each station's clock at this block's midpoint, in samples.
+        clock = (np.asarray(CLOCK_OFFSETS_S)
+                 + drift * (b + 0.5) * BLOCK / FS) * FS
+        rate = drift + (rate_motion if kind == "tgt" else 0.0)
+        spec = source()
+        spec_int = (source() if kind == "tgt" and tau_int is not None
+                    else None)
         for s, name in enumerate(names):
-            d = tau[kind][s] + clock[s]  # fractional delay, samples
-            z = torch.fft.ifft(spec * torch.polar(
-                torch.ones_like(f), -2 * np.pi * f * d))[pad:pad + BLOCK]
+            z = delayed(spec, tau[kind][s] + clock[s])
+            if rate[s] != 0.0:
+                z *= torch.polar(torch.ones_like(t_rel),
+                                 -2 * np.pi * carrier * rate[s] * t_rel)
+            if spec_int is not None:
+                z += delayed(spec_int, tau_int[s] + clock[s])
             noise = torch.randn(2, BLOCK, device=dev, generator=g,
                                 dtype=torch.float64)
             iq = torch.stack([0.3 * z.real + 0.1 * noise[0],
@@ -568,15 +662,21 @@ def _synthesize(dev, out_dir: Path):
             u8 = torch.clamp(torch.floor(iq * 127.5 + 128.0), 0, 255)
             raw[name].append(u8.to(torch.uint8).reshape(-1).cpu().numpy())
             del z, noise, iq, u8
-        del spec
+        del spec, spec_int
     paths = []
     for name in names:
-        p = out_dir / f"sim-{name}-1700000000.dat"
+        p = out_dir / f"{prefix}-{name}-1700000000.dat"
         with open(p, "wb") as fh:
             for part in raw[name]:
                 fh.write(part.tobytes())
         paths.append(str(p))
-    return paths, dict(zip(names, tau["tgt"])), tgt_tx
+    truth = {"tau_tgt": dict(zip(names, tau["tgt"])),
+             "tgt_lla": ecef_to_lla(p_tgt),
+             "rate": dict(zip(names, rate_motion)), "v_ecef": v_ecef,
+             "tau_int": None if tau_int is None else dict(zip(names, tau_int)),
+             "int_lla": (None if interferer_lla is None
+                         else np.asarray(interferer_lla, np.float64))}
+    return paths, truth
 
 
 # The paths phase 4 drives on the same files: (name, processor settings,
@@ -599,6 +699,22 @@ def _counters():
             "fm_demod": fm_demod.fm_demod_decimate}
 
 
+def _reset_counts(counters):
+    """Every launch count and shape count to 0 (then a path runs)."""
+    for fn in counters.values():
+        fn.launches = 0
+    counters["corr_accum"].launch_shapes.clear()
+    counters["zoom_probe"].launch_shapes.clear()
+
+
+def _read_counts(counters):
+    """(launches by kernel, kernel 1's launches by (rows, segments,
+    banks), kernel 2's by (banks, pairs, FFT length)) since the reset."""
+    return ({k: fn.launches for k, fn in counters.items()},
+            {str(k): v for k, v in counters["corr_accum"].launch_shapes.items()},
+            {str(k): v for k, v in counters["zoom_probe"].launch_shapes.items()})
+
+
 def _run_path(dev, paths, tau_tgt, tgt_tx, name, cfg, tdoa_tol, fix_tol,
               must, must_not):
     """One path on the files: a warm-up run, then a timed run with every
@@ -611,22 +727,19 @@ def _run_path(dev, paths, tau_tgt, tgt_tx, name, cfg, tdoa_tol, fix_tol,
     from tdoa_tpu_torch.pipeline import TDOAProcessor
 
     print(f"-- {name}")
-    proc = TDOAProcessor.from_csv(162_400_000.0, 101_900_000.0,
+    proc = TDOAProcessor.from_csv(REF_FREQ, TGT_FREQ,
                                   str(ROOT / "lat-lon-table.csv"),
                                   device=dev, **cfg)
     t0 = time.perf_counter()
     proc.process_files(paths)  # warm-up: cuFFT plans, allocator
     print(f"first run {time.perf_counter() - t0:.3f} s")
     counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
-    counters["corr_accum"].launch_shapes.clear()
+    _reset_counts(counters)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = proc.process_files(paths)  # results are host arrays: synced
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
-    shapes = dict(counters["corr_accum"].launch_shapes)
+    launches, shapes, shapes2 = _read_counts(counters)
     print(f"timed run: process_files {wall:.3f} s  [{_smi()}]")
     print(f"kernel launches in the timed run: {launches}")
     names = res.station_names
@@ -655,8 +768,8 @@ def _run_path(dev, paths, tau_tgt, tgt_tx, name, cfg, tdoa_tol, fix_tol,
     if not fix_err < fix_tol:
         raise RuntimeError(f"{name}: fix {fix_err:.1f} m from the "
                            f"transmitter")
-    return {"wall_s": wall, "launches": launches,
-            "k1_shapes": {str(k): v for k, v in shapes.items()},
+    return {"wall_s": wall, "launches": launches, "k1_shapes": shapes,
+            "k2_shapes": shapes2,
             "tdoa_err_samples": err.tolist(), "fix_err_m": fix_err,
             "tdoa_by_pair": _by_pair(res)}
 
@@ -717,7 +830,7 @@ def phase_overlap(dev, paths, tau_tgt, tgt_tx, fused_by_pair):
     from tdoa_tpu_torch.solve.multilateration import station_pairs
 
     print("== phase 5: overlapped ingest, checkpoint, tail session")
-    proc = TDOAProcessor.from_csv(162_400_000.0, 101_900_000.0,
+    proc = TDOAProcessor.from_csv(REF_FREQ, TGT_FREQ,
                                   str(ROOT / "lat-lon-table.csv"), device=dev)
     counters = _counters()
     _, spans = ingest.plan_chunks(BLOCK, SEG_LEN)
@@ -728,21 +841,18 @@ def phase_overlap(dev, paths, tau_tgt, tgt_tx, fused_by_pair):
                            f"the plan has chunks {spans}")
 
     def timed(fn):
-        for c in counters.values():
-            c.launches = 0
-        counters["corr_accum"].launch_shapes.clear()
+        _reset_counts(counters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = fn(paths)  # results are host arrays: synced
-        return res, time.perf_counter() - t0, {
-            k: c.launches for k, c in counters.items()}
+        return res, time.perf_counter() - t0, _read_counts(counters)
 
     t0 = time.perf_counter()
     proc.process_files_overlapped(paths)  # warm-up: pinned buffers, plans
     print(f"-- process_files_overlapped: first run "
           f"{time.perf_counter() - t0:.3f} s")
-    res, wall, launches = timed(proc.process_files_overlapped)
-    shapes = dict(counters["corr_accum"].launch_shapes)
+    res, wall, (launches, shapes, shapes2) = timed(
+        proc.process_files_overlapped)
     diag = dict(proc.ingest_diag)
     _, wall_batch, _ = timed(proc.process_files)
     print(f"timed run: process_files_overlapped {wall:.3f} s, process_files "
@@ -755,7 +865,7 @@ def phase_overlap(dev, paths, tau_tgt, tgt_tx, fused_by_pair):
         "overlapped", res, tau_tgt, tgt_tx, fused_by_pair)}
     out["overlapped"].update(wall_s=wall, batch_wall_s=wall_batch,
                              launches=launches, diag=diag,
-                             k1_shapes={str(k): v for k, v in shapes.items()})
+                             k1_shapes=shapes, k2_shapes=shapes2)
     if launches["corr_accum"] != n_chunks or diag["n_chunks"] != n_chunks:
         raise RuntimeError(f"overlapped: {launches['corr_accum']} launches of "
                            f"kernel 1 for a plan of {n_chunks} chunks")
@@ -816,12 +926,9 @@ def phase_overlap(dev, paths, tau_tgt, tgt_tx, fused_by_pair):
         return r, sess, before, time.perf_counter() - t0
 
     tail_run()  # warm-up at the 3-row shapes
-    for c in counters.values():
-        c.launches = 0
-    counters["corr_accum"].launch_shapes.clear()
+    _reset_counts(counters)
     res_t, sess, before, after_s = tail_run()
-    launches_t = {k: c.launches for k, c in counters.items()}
-    shapes_t = dict(counters["corr_accum"].launch_shapes)
+    launches_t, shapes_t, shapes2_t = _read_counts(counters)
     print(f"-- tail session: {before}/{sess.total_chunks} chunks dispatched "
           f"before the last tenth of the files; last byte → fix "
           f"{after_s:.3f} s; launches {launches_t}, kernel 1 by shape "
@@ -841,7 +948,7 @@ def phase_overlap(dev, paths, tau_tgt, tgt_tx, fused_by_pair):
     out["tail"] = _check_overlap_result("tail", res_t, tau_tgt, tgt_tx,
                                         fused_by_pair)
     out["tail"].update(wall_s=after_s, launches=launches_t,
-                       k1_shapes={str(k): v for k, v in shapes_t.items()},
+                       k1_shapes=shapes_t, k2_shapes=shapes2_t,
                        chunks_before_close=before,
                        total_chunks=sess.total_chunks)
     print(json.dumps({"overlap": {
@@ -853,6 +960,362 @@ def phase_overlap(dev, paths, tau_tgt, tgt_tx, fused_by_pair):
     return out
 
 
+class _StageTimer:
+    """A ``TDOAProcessor.timer``: wall seconds of each stage of
+    ``process_captures``, the card synchronised at the stage's end."""
+
+    def __init__(self):
+        self.seconds = {}
+
+    @contextlib.contextmanager
+    def stage(self, name):
+        import torch
+
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            torch.cuda.synchronize()
+            self.seconds[name] = (self.seconds.get(name, 0.0)
+                                  + time.perf_counter() - t0)
+
+
+def _fix_err_m(fix, lla) -> float:
+    import numpy as np
+
+    from tdoa_tpu_torch.geo import lla_to_enu
+
+    return float(np.linalg.norm(lla_to_enu(
+        np.array([fix.lat, fix.lon, lla[2]]), lla)[:2]))
+
+
+def _truth_velocity_enu(truth, origin_lla):
+    """The mover's velocity in the ENU frame of the fix's origin."""
+    from tdoa_tpu_torch.geo import ecef_to_enu, lla_to_ecef
+
+    return ecef_to_enu(lla_to_ecef(origin_lla) + truth["v_ecef"], origin_lla)
+
+
+def _planted_fdoa_hz(res, truth):
+    """Per-pair Doppler of the mover's motion alone (Hz, station j
+    up-shifted positive): what LO compensation leaves in the TGT block."""
+    import numpy as np
+
+    r = [truth["rate"][n] for n in res.station_names]
+    return np.array([-TGT_FREQ * (r[j] - r[i]) for i, j in res.pair_idx])
+
+
+def _report(name, res, truth):
+    """Print a phase-6 result: TDOAs against the midpoint geometry, the
+    fix, velocity and FDOA against the planted ones, emitters, warnings.
+    Returns the numbers the checks read."""
+    import numpy as np
+
+    names = res.station_names
+    tau = truth["tau_tgt"]
+    want = np.array([tau[names[j]] - tau[names[i]] for i, j in res.pair_idx])
+    err = res.corrected_tdoa_samples - want
+    out = {"tdoa_err_samples": err.tolist(),
+           "fix_err_m": _fix_err_m(res.fix, truth["tgt_lla"])}
+    print(f"  {name}: TDOA err {np.round(err, 4).tolist()} samples, 1σ "
+          f"{np.round(res.tdoa_std_s * FS, 4).tolist()}; fix "
+          f"{out['fix_err_m']:.1f} m from the mover's midpoint position")
+    if res.velocity_enu is not None:
+        v_true = _truth_velocity_enu(truth, res.fix.origin_lla)
+        fdoa_err = res.fdoa_hz - _planted_fdoa_hz(res, truth)
+        out.update(vel_err_mps=(res.velocity_enu - v_true).tolist(),
+                   vel_sigma_mps=res.velocity_sigma_enu.tolist(),
+                   fdoa_err_hz=fdoa_err.tolist())
+        print(f"    velocity {np.round(res.velocity_enu, 2).tolist()} m/s "
+              f"(planted {np.round(v_true, 2).tolist()}, 1σ "
+              f"{np.round(res.velocity_sigma_enu, 2).tolist()}); FDOA "
+              f"{np.round(res.fdoa_hz, 3).tolist()} Hz, err "
+              f"{np.round(fdoa_err, 3).tolist()}")
+    for k, e in enumerate(res.emitters or []):
+        # Against the transmitter whose TDOAs the set is nearer to.
+        errs = {"mover": e.tdoa_samples - want}
+        if truth["tau_int"] is not None:
+            ti = truth["tau_int"]
+            errs["interferer"] = e.tdoa_samples - np.array(
+                [ti[names[j]] - ti[names[i]] for i, j in res.pair_idx])
+        tx = min(errs, key=lambda t: np.abs(errs[t]).max())
+        d_fix = _fix_err_m(e.fix, truth["tgt_lla" if tx == "mover"
+                                         else "int_lla"])
+        vel = (None if e.velocity_enu is None
+               else np.round(e.velocity_enu, 2).tolist())
+        sig = (None if e.velocity_sigma_enu is None
+               else np.round(e.velocity_sigma_enu, 2).tolist())
+        print(f"    emitter {k + 1} (the {tx}): fix {d_fix:.1f} m off, TDOA "
+              f"err {np.round(errs[tx], 3).tolist()} samples, velocity "
+              f"{vel} m/s (1σ {sig})")
+    for w in res.warnings:
+        print(f"    warning: {w}")
+    return out
+
+
+def _check_lo_velocity(res, truth, launches):
+    """(a): LO compensation and the velocity solve on a mover."""
+    import numpy as np
+
+    fails = []
+    names = res.station_names
+    tau = truth["tau_tgt"]
+    err = res.corrected_tdoa_samples - np.array(
+        [tau[names[j]] - tau[names[i]] for i, j in res.pair_idx])
+    if not np.all(np.abs(err) < 0.5):
+        fails.append(f"corrected TDOAs off the truth by {err}")
+    if not _fix_err_m(res.fix, truth["tgt_lla"]) < 200.0:
+        fails.append("fix more than 200 m from the mover")
+    if not any("LO offsets" in w for w in res.warnings):
+        fails.append("no LO offsets compensated")
+    if not any("deramp-and-correlate" in w for w in res.warnings):
+        fails.append("the deramp re-solve was not taken")
+    if res.velocity_enu is None:
+        fails.append("no velocity")
+    else:
+        v_err = res.velocity_enu - _truth_velocity_enu(truth,
+                                                       res.fix.origin_lla)
+        if not np.linalg.norm(v_err) < 5.0:
+            fails.append(f"velocity off by {v_err} m/s")
+        if not np.all(np.abs(v_err[:2])
+                      < 5.0 * res.velocity_sigma_enu[:2] + 1.0):
+            fails.append(f"velocity error {v_err} outside 5σ + 1 m/s "
+                         f"(σ {res.velocity_sigma_enu})")
+        f_err = res.fdoa_hz - _planted_fdoa_hz(res, truth)
+        if not np.all(np.abs(f_err) < 1.0):
+            fails.append(f"FDOA off the planted Doppler by {f_err} Hz")
+    if launches["corr_accum"] < 1 or launches["zoom_probe"] < 1:
+        fails.append(f"kernels 1 and 2 not both launched: {launches}")
+    return fails
+
+
+def _check_joint(res, truth, launches):
+    """(b): a mover and a static interferer separated jointly in lag and
+    Doppler, each with its own velocity."""
+    import numpy as np
+
+    em = res.emitters or []
+    if len(em) != 2:
+        return [f"{len(em)} emitters, want 2"]
+    fails = []
+    mover = min(em, key=lambda e: _fix_err_m(e.fix, truth["tgt_lla"]))
+    static = min(em, key=lambda e: _fix_err_m(e.fix, truth["int_lla"]))
+    if mover is static:
+        fails.append("one emitter is nearest to both transmitters")
+    if not _fix_err_m(mover.fix, truth["tgt_lla"]) < 1000.0:
+        fails.append("the mover's fix is more than 1000 m off")
+    if not _fix_err_m(static.fix, truth["int_lla"]) < 1000.0:
+        fails.append("the static emitter's fix is more than 1000 m off")
+    if mover.velocity_enu is None or static.velocity_enu is None:
+        return fails + ["an emitter has no velocity"]
+    v_err = mover.velocity_enu - _truth_velocity_enu(truth,
+                                                     mover.fix.origin_lla)
+    if not np.linalg.norm(v_err) < 10.0:
+        fails.append(f"the mover's velocity is off by {v_err} m/s")
+    sig = np.maximum(static.velocity_sigma_enu, 1.0)
+    if not np.all(np.abs(static.velocity_enu[:2]) < 3.0 * sig[:2] + 2.0):
+        fails.append(f"the static emitter moves at {static.velocity_enu} "
+                     f"m/s (1σ {static.velocity_sigma_enu})")
+    if launches["corr_accum"] < 1 or launches["zoom_probe"] < 1:
+        fails.append(f"kernels 1 and 2 not both launched: {launches}")
+    return fails
+
+
+def _device_busy_ms(fn, iters: int) -> float:
+    """Device time per call of everything ``fn`` runs on the card
+    (kernels and copies), from a ``torch.profiler`` trace of ``iters``
+    calls after a warm-up: the device-side rows only (the host op that
+    launched a kernel carries the same time as its own)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / iters / 1e3
+
+
+def _time_motion_ops(dev):
+    """The new stages' device work at the processor's shapes, on a
+    10 s bf16 block of 3 stations: ``caf_pairs`` over the default 2^21
+    samples and over 2^18 (seg 6144 in FFTs of 8192, 64 Doppler bins),
+    ``_derotate`` of the whole block, ``_deramp_correlate`` over 2^21
+    samples at max_lag 20000 (kernel 2 at F = 65536) and over 2^18 at
+    512 (F = 32768). Event-loop time of a loop of calls (``ms``) beside
+    the profiler's device time per call (``device_ms``)."""
+    import numpy as np
+    import torch
+
+    from tdoa_tpu_torch.ops.caf import caf_pairs
+    from tdoa_tpu_torch.pipeline.processor import (
+        _deramp_correlate,
+        _derotate,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(2, 3, BLOCK, device=dev, generator=g)
+    x[:, 1] += 0.5 * torch.roll(x[:, 0], 37, dims=-1)
+    x[:, 2] += 0.5 * torch.roll(x[:, 0], -12, dims=-1)
+    x = x.to(torch.bfloat16)
+    pairs = np.array([[0, 1], [0, 2], [1, 2]])
+    shifts = np.array([12.5, -30.0, 4.0])
+    calls = {
+        "caf_pairs 2^21": lambda: caf_pairs(
+            x[:, :, :1 << 21].to(torch.float32), pairs, FS, max_lag=2048,
+            seg_len=1 << 13, n_doppler=64),
+        "caf_pairs 2^18": lambda: caf_pairs(
+            x[:, :, :1 << 18].to(torch.float32), pairs, FS, max_lag=512,
+            seg_len=1 << 13, n_doppler=64),
+        "_derotate 10 s block": lambda: _derotate(x, shifts, FS),
+        "_deramp_correlate 2^21, max_lag 20000": lambda: _deramp_correlate(
+            x, shifts, pairs, 1 << 21, 20000, 1 << 16, "ht", FS),
+        "_deramp_correlate 2^18, max_lag 512": lambda: _deramp_correlate(
+            x, shifts, pairs, 1 << 18, 512, 1 << 16, "ht", FS),
+    }
+    out = {}
+    for name, fn in calls.items():
+        ms = _time_ms(fn, 5)
+        dev_ms = _device_busy_ms(fn, 5)
+        out[name] = {"ms": ms, "device_ms": dev_ms}
+        print(f"time {name}: {ms:.3f} ms a call (device time {dev_ms:.3f} "
+              f"ms)")
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+# Phase 6: (scene, its channel, the settings run on it: name, processor
+# settings, the check or None for a run that is only printed). The
+# checked runs take the settings of the JAX package's own tests of these
+# paths (tests/test_fdoa.py): max_lag 512, and a CAF over 2^18 samples.
+# At the defaults (max_lag 20000, caf_max_samples 2^21) two estimators
+# of the reference are out of their range at full width, and those runs
+# are printed beside: the LO probe's coarse pre-alignment correlates
+# 2^20 REF samples, across which a pairwise LO offset of a few Hz turns
+# the cross-spectrum phase by whole cycles, so its lags are noise and
+# the probe is skipped; and the CAF's Doppler grid (64 bins over
+# ±1/(2·T_seg), 5.2 Hz) samples the Doppler main lobe (≈ 1/T, 1 Hz over
+# 2^21 samples) too coarsely for its parabolic peak.
+CHECKED = {"max_lag": 512, "caf_max_samples": 1 << 18}
+LO_VEL = {"lo_compensation": "auto", "solve_velocity": True}
+VEL_ME = {"solve_velocity": True, "multi_emitter": 2}
+MOTION = (
+    ("a: LO offsets + mover", dict(lo_ppm=LO_PPM, mover_enu=MOVER_ENU), (
+        ("LO + velocity", {**LO_VEL, **CHECKED}, _check_lo_velocity),
+        ("velocity, LO off", {"solve_velocity": True, **CHECKED}, None),
+        ("LO compensation alone", {"lo_compensation": "auto", **CHECKED},
+         None),
+        ("LO + velocity at the defaults", LO_VEL, None),
+    )),
+    ("b: mover + static interferer",
+     dict(mover_enu=MOVER_ENU, interferer_lla=INTERFERER_LLA), (
+         ("velocity + multi-emitter 2", {**VEL_ME, **CHECKED}, _check_joint),
+         ("multi-emitter 2 alone (lag-only)", {"multi_emitter": 2, **CHECKED},
+          None),
+         ("velocity + multi-emitter 2 at the defaults", VEL_ME, None),
+     )),
+)
+MOTION_ROUNDS = 3
+
+
+def phase_motion(dev):
+    """Phase 6: each scene's settings and the plain fused path on the
+    same files, a warm-up each, then ``MOTION_ROUNDS`` rounds in turns
+    with every launch count set to 0 before each run and read after it;
+    checks on the first round's results, median times over the rounds."""
+    import numpy as np
+    import torch
+
+    from tdoa_tpu_torch.pipeline import TDOAProcessor
+
+    print("== phase 6: LO compensation, CAF/velocity, multi-emitter")
+    (ROOT / "build").mkdir(exist_ok=True)
+    counters = _counters()
+    paths_out, timing, fails = {}, {}, []
+    for scene, channel, settings in MOTION:
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "build"))
+        try:
+            t0 = time.perf_counter()
+            files, truth = _synthesize(dev, tmp, prefix="motion", **channel)
+            torch.cuda.synchronize()
+            print(f"-- scene {scene}: synthesized in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            runs = (("fused IQ, no option", {"max_lag": 512}, None),
+                    *settings)
+            procs = []
+            for name, cfg, _ in runs:
+                proc = TDOAProcessor.from_csv(
+                    REF_FREQ, TGT_FREQ, str(ROOT / "lat-lon-table.csv"),
+                    device=dev, **cfg)
+                t0 = time.perf_counter()
+                proc.process_files(files)  # warm-up: plans, allocator
+                print(f"   {name}: first run {time.perf_counter() - t0:.3f} s")
+                proc.timer = _StageTimer()
+                procs.append(proc)
+            walls = {name: [] for name, _, _ in runs}
+            stages = {name: [] for name, _, _ in runs}
+            first = {}
+            for _ in range(MOTION_ROUNDS):
+                for (name, cfg, check), proc in zip(runs, procs):
+                    proc.timer.seconds = {}
+                    _reset_counts(counters)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = proc.process_files(files)
+                    walls[name].append(time.perf_counter() - t0)
+                    stages[name].append(dict(proc.timer.seconds))
+                    if name not in first:
+                        first[name] = (res, _read_counts(counters))
+            print(f"   timed in turns, {MOTION_ROUNDS} rounds  [{_smi()}]")
+            base = float(np.median(walls[runs[0][0]]))
+            timing[scene] = {}
+            for name, cfg, check in runs:
+                res, (launches, shapes, shapes2) = first[name]
+                med = float(np.median(walls[name]))
+                st_med = {k: float(np.median([s.get(k, 0.0)
+                                              for s in stages[name]]))
+                          for k in stages[name][0]}
+                print(f"-- {scene} | {name}: process_files median {med:.3f} s "
+                      f"(runs {[round(w, 3) for w in walls[name]]}; "
+                      f"{med - base:+.3f} s against the plain fused path); "
+                      f"stages {({k: round(v, 4) for k, v in st_med.items()})}; "
+                      f"launches {launches}, kernel 1 {shapes}, kernel 2 "
+                      f"{shapes2}")
+                nums = _report(name, res, truth)
+                timing[scene][name] = {"wall_s": walls[name],
+                                       "median_s": med, "stages_s": st_med}
+                if launches["fm_demod"]:
+                    fails.append(f"{scene} | {name}: kernel 3 launched")
+                # Every run of a scene with a check is held to it; only
+                # the checked run's failures fail the phase.
+                judge = check or next((c for _, _, c in settings if c), None)
+                if judge is not None and cfg.get("solve_velocity"):
+                    bad = judge(res, truth, launches)
+                    print(f"   checks{'' if check else ' (printed only)'}: "
+                          f"{'pass' if not bad else bad}")
+                    if check is not None:
+                        fails += [f"{scene} | {name}: {b}" for b in bad]
+                if len(cfg) > 1:
+                    paths_out[f"{scene} | {name}"] = {
+                        "wall_s": med, "launches": launches,
+                        "k1_shapes": shapes, "k2_shapes": shapes2, **nums}
+            del procs
+            torch.cuda.empty_cache()
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    ops = _time_motion_ops(dev)
+    print(json.dumps({"motion": timing, "motion_ops": ops}))
+    if fails:
+        raise RuntimeError("phase 6: " + "; ".join(fails))
+    return paths_out
+
+
 def phase_slice(dev):
     import torch
 
@@ -861,7 +1324,8 @@ def phase_slice(dev):
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "build"))
     try:
         t0 = time.perf_counter()
-        paths, tau_tgt, tgt_tx = _synthesize(dev, tmp)
+        paths, truth = _synthesize(dev, tmp)
+        tau_tgt, tgt_tx = truth["tau_tgt"], truth["tgt_lla"]
         torch.cuda.synchronize()
         print(f"synthesized {len(paths)} x {3 * BLOCK} samples in "
               f"{time.perf_counter() - t0:.1f} s")
@@ -902,14 +1366,20 @@ def main() -> int:
         return 0
     kernels = phase_kernels(dev)
     paths = phase_slice(dev)
-    # Kernel 1 is held against its plain version shape by shape: a path
-    # may launch it at no shape that phase 3 did not check, and each of
-    # its entries counts the launches at its own shape.
+    paths.update(phase_motion(dev))
+    # Kernels 1 and 2 are held against their plain versions shape by
+    # shape: a path may launch them at no shape that phase 3 did not
+    # check, and each of kernel 1's entries counts the launches at its
+    # own shape.
     checked = {str(BATCH_SHAPE), *map(str, STREAM_SHAPES)}
+    checked2 = set(map(str, K2_SHAPES))
     for p, r in paths.items():
         if set(r["k1_shapes"]) - checked:
             raise RuntimeError(f"{p}: kernel 1 launched at {r['k1_shapes']}, "
                                f"phase 3 checked {sorted(checked)}")
+        if set(r["k2_shapes"]) - checked2:
+            raise RuntimeError(f"{p}: kernel 2 launched at {r['k2_shapes']}, "
+                               f"phase 3 checked {sorted(checked2)}")
     for k in kernels:
         if "shape" in k:  # kernel 1 at one shape
             by_path = {p: r["k1_shapes"].get(str(tuple(k["shape"])), 0)

@@ -8,6 +8,9 @@ plain versions on the CPU instead), correlates raw IQ (the fused
 kernels, or the segmented correlator for short blocks, lags beyond
 20480 or ``--seg-len``) or FM-demodulated audio (``--mode fm``) with
 dual-REF clock correction, prints per-pair TDOAs and the position fix.
+``--lo-compensation`` derotates receiver LO offsets measured on the REF
+block, ``--solve-velocity`` adds the CAF/FDOA emitter velocity and
+``--multi-emitter N`` separates co-channel emitters.
 ``--overlap-ingest`` keeps the files on the host and streams them to the
 device chunk by chunk (``TDOAProcessor.process_files_overlapped``).
 Flags of ``tdoa_tpu.cli.processor`` whose paths are not ported yet are
@@ -18,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import sys
 
 import numpy as np
@@ -27,9 +31,6 @@ from tdoa_tpu_torch.cli import parse_prior, rewrite_prior_argv
 # Flags of the reference CLI this port does not run yet: their default
 # (accepted) and the ROADMAP item that ports them.
 _UNPORTED = {
-    "lo_compensation": (False, "LO compensation, CAF/velocity, multi-emitter"),
-    "solve_velocity": (False, "LO compensation, CAF/velocity, multi-emitter"),
-    "multi_emitter": (1, "LO compensation, CAF/velocity, multi-emitter"),
     "geojson": (None, "host tools"),
     "profile": (False, "port benchmark"),
     "trace": (None, "port benchmark"),
@@ -61,6 +62,15 @@ def main(argv=None) -> int:
                    help="correlate raw IQ or FM-demodulated audio")
     p.add_argument("--fm-decim", type=int, default=8,
                    help="audio decimation factor for --mode fm (divides 128)")
+    p.add_argument("--lo-compensation", action="store_true",
+                   help="probe the REF block for receiver LO offsets "
+                        "(real TCXOs: ~16 Hz per 0.1 ppm at VHF smear "
+                        "every correlation) and derotate all blocks "
+                        "before processing")
+    p.add_argument("--solve-velocity", action="store_true",
+                   help="CAF over the TGT block + FDOA least squares: "
+                        "emitter velocity at the fix (clock-drift "
+                        "Doppler removed via the dual REF blocks)")
     p.add_argument("--prior", metavar="LAT,LON,RADIUS_KM", default=None,
                    help="coverage prior: center lat,lon (deg) and radius "
                         "(km); a unique in-prior candidate resolves a "
@@ -68,8 +78,22 @@ def main(argv=None) -> int:
     p.add_argument("--power-disambiguation", action="store_true",
                    help="let a decisive 1/r received-power ranking move a "
                         "ghost-ambiguous fix")
+    p.add_argument("--no-fdoa-disambiguation", action="store_true",
+                   help="disable the FDOA ghost disambiguator "
+                        "(--solve-velocity runs: the emitter velocity "
+                        "is solved at every ghost candidate; decisive "
+                        "fit-residual margin or speed plausibility "
+                        "moves the fix to the physical candidate)")
+    p.add_argument("--max-emitter-speed", type=float, default=700.0,
+                   metavar="MPS",
+                   help="speed plausibility ceiling (m/s) for the FDOA "
+                        "ghost ranking only — never gates the velocity "
+                        "solve itself (default 700)")
     p.add_argument("--no-outlier-rejection", action="store_true",
                    help="disable leave-one-station-out outlier rejection")
+    p.add_argument("--multi-emitter", type=int, default=1, metavar="N",
+                   help="separate up to N co-channel emitters by "
+                        "correlation-peak cycle-consistency (default 1: off)")
     p.add_argument("--truncate-s", type=float, default=None,
                    help="use only the first N seconds of each block")
     p.add_argument("--device", default=None,
@@ -82,9 +106,6 @@ def main(argv=None) -> int:
                         "with the file read, the copy and the correlation "
                         "overlapped; standard IQ pipeline only")
     # Reference flags whose paths are not ported yet.
-    p.add_argument("--lo-compensation", action="store_true")
-    p.add_argument("--solve-velocity", action="store_true")
-    p.add_argument("--multi-emitter", type=int, default=1)
     p.add_argument("--geojson", default=None)
     p.add_argument("--profile", action="store_true")
     p.add_argument("--trace", default=None)
@@ -112,7 +133,12 @@ def main(argv=None) -> int:
             mode=args.mode,
             fm_decim=args.fm_decim,
             truncate_samples=trunc,
+            multi_emitter=args.multi_emitter,
+            solve_velocity=args.solve_velocity,
+            lo_compensation="auto" if args.lo_compensation else "off",
             power_disambiguation=args.power_disambiguation,
+            fdoa_disambiguation=not args.no_fdoa_disambiguation,
+            max_emitter_speed_mps=args.max_emitter_speed,
             prior=prior,
             outlier_rejection=not args.no_outlier_rejection,
         )
@@ -127,7 +153,7 @@ def main(argv=None) -> int:
         run = (proc.process_files_overlapped if args.overlap_ingest
                else proc.process_files)
         res = run(args.dat_files)
-    except (FileNotFoundError, ValueError, NotImplementedError) as e:
+    except (FileNotFoundError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
     names = res.station_names
@@ -163,6 +189,25 @@ def main(argv=None) -> int:
                     zip(fix.candidates_lla, fix.candidates_rms))
             ],
             "ghost": None if res.ghost is None else res.ghost.to_json(),
+            "velocity_enu_mps": None if res.velocity_enu is None else
+            list(res.velocity_enu),
+            "velocity_sigma_mps": None if res.velocity_sigma_enu is None
+            else list(res.velocity_sigma_enu),
+            "velocity_residual_hz": res.velocity_residual_hz,
+            "fdoa_hz": None if res.fdoa_hz is None else list(res.fdoa_hz),
+            "emitters": None if res.emitters is None else [
+                {"lat": e.fix.lat, "lon": e.fix.lon,
+                 "rms_residual_m": e.fix.rms_residual_m,
+                 "tdoa_samples": list(e.tdoa_samples),
+                 "peak_value": list(e.peak_value),
+                 "max_inconsistency_samples": e.max_inconsistency_samples,
+                 "fdoa_hz": None if e.fdoa_hz is None else list(e.fdoa_hz),
+                 "velocity_enu_mps": None if e.velocity_enu is None
+                 else list(e.velocity_enu),
+                 "velocity_sigma_mps": None if e.velocity_sigma_enu is None
+                 else list(e.velocity_sigma_enu)}
+                for e in res.emitters
+            ],
         }))
         return 0
     print("\nPer-pair measurements:")
@@ -193,6 +238,29 @@ def main(argv=None) -> int:
         print("Other candidate solutions (TDOA ghosts):")
         for lla, rms in zip(fix.candidates_lla[1:], fix.candidates_rms[1:]):
             print(f"  {lla[0]:.6f}, {lla[1]:.6f}  (residual {rms:.1f} m)")
+    if res.velocity_enu is not None:
+        ve, vn, _ = res.velocity_enu
+        speed = math.hypot(ve, vn)
+        heading = math.degrees(math.atan2(ve, vn)) % 360.0
+        sig = ""
+        if res.velocity_sigma_enu is not None:
+            se, sn, _ = res.velocity_sigma_enu
+            sig = f" ± ({se:.0f} E, {sn:.0f} N) m/s 1σ"
+        print(f"Emitter velocity (FDOA): {speed:.1f} m/s "
+              f"heading {heading:.0f} deg "
+              f"(E {ve:+.1f}, N {vn:+.1f} m/s{sig}; "
+              f"Doppler residual {res.velocity_residual_hz:.2f} Hz)")
+    if res.emitters is not None and len(res.emitters) > 1:
+        print(f"\nSeparated co-channel emitters ({len(res.emitters)}):")
+        for n_e, e in enumerate(res.emitters):
+            vtxt = ""
+            if e.velocity_enu is not None:
+                vtxt = (f", {math.hypot(e.velocity_enu[0], e.velocity_enu[1]):.0f}"
+                        f" m/s")
+            print(f"  emitter {n_e + 1}: {e.fix.lat:.6f}, {e.fix.lon:.6f}  "
+                  f"(residual {e.fix.rms_residual_m:.1f} m, "
+                  f"consistency {e.max_inconsistency_samples:.2f} samples"
+                  f"{vtxt})")
     return 0
 
 

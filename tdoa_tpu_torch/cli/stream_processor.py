@@ -23,9 +23,10 @@ chunk by chunk each poll, so at window close only the final chunks and
 the finalize remain between the last byte and the fix — instead of the
 whole read+copy+compute the batch path pays.
 
-``--multi-emitter N>1``, ``--solve-velocity`` and ``--geojson`` need
-modules the port does not have yet and exit at start-up with the
-``ROADMAP.md`` item that ports them.
+``--multi-emitter N>1`` tracks each separated co-channel emitter as its
+own target; ``--solve-velocity`` feeds each window's CAF/FDOA velocity to
+the tracker. ``--geojson`` needs a module the port does not have yet and
+exits at start-up with the ``ROADMAP.md`` item that ports it.
 """
 
 from __future__ import annotations
@@ -43,8 +44,6 @@ from tdoa_tpu_torch.cli import parse_prior, rewrite_prior_argv
 # Options of the reference CLI whose machinery is not ported yet: their
 # default (accepted) and the ROADMAP item that ports it.
 _UNPORTED = {
-    "multi_emitter": (1, "LO compensation, CAF/velocity, multi-emitter"),
-    "solve_velocity": (False, "LO compensation, CAF/velocity, multi-emitter"),
     "geojson": (None, "host tools"),
 }
 
@@ -149,8 +148,18 @@ def main(argv=None) -> int:
                     f"tdoa_tpu_torch yet (ROADMAP.md: \"{item}\"); "
                     f"use python -m tdoa_tpu.cli.stream_processor")
     prior = None if args.prior is None else parse_prior(args.prior, p.error)
-    if args.overlap_ingest is not None and args.overlap_ingest <= 0:
-        p.error("--overlap-ingest needs a positive capture duration")
+    if args.overlap_ingest is not None:
+        if args.overlap_ingest <= 0:
+            p.error("--overlap-ingest needs a positive capture duration")
+        # Same restrictions as the processor's host-resident mode
+        # (process_captures raises too, but fail at startup, not on the
+        # first window).
+        if args.solve_velocity:
+            p.error("--overlap-ingest is incompatible with "
+                    "--solve-velocity (needs whole blocks on device)")
+        if args.multi_emitter > 1:
+            p.error("--overlap-ingest is incompatible with "
+                    "--multi-emitter > 1 (needs whole blocks on device)")
 
     from tdoa_tpu_torch.io.stations import (
         load_station_table,
@@ -191,6 +200,8 @@ def main(argv=None) -> int:
         proc = TDOAProcessor.from_csv(
             args.ref_freq, args.target_freq, args.csv, device=args.device,
             max_lag=args.max_lag, seg_len=args.seg_len,
+            solve_velocity=args.solve_velocity,
+            multi_emitter=args.multi_emitter,
             power_disambiguation=args.power_disambiguation,
             prior=prior,
             outlier_rejection=not args.no_outlier_rejection,
@@ -528,7 +539,10 @@ def main(argv=None) -> int:
             # against them after a geometry change would be meaningless.
             emitter_refs.clear()
             track_history.clear()
+        fdoa = None
+        vel_meas = {}
         fix0 = prefer_track_candidate(res, float(ep))
+        swapped = fix0 is not res.fix
         fixes = {args.target_id: fix0}
         updates = {args.target_id: res.tdoa_seconds}
         # The processor's final solve weights (gates + outlier
@@ -538,21 +552,42 @@ def main(argv=None) -> int:
         # in plain mode it is the peak-to-sidelobe ratio — consistent
         # within a run, different scales between modes.
         qualities = {args.target_id: float(res.quality.mean())}
-        # Co-channel separation belongs to the multi-emitter item of
-        # the ROADMAP: until the processor fills ``emitters``, every
-        # window takes the single-target route above.
-        emitters = getattr(res, "emitters", None)
-        if emitters:
-            ids = assign_emitter_ids(emitters, float(ep))
+        # Empty association (res.emitters == []) falls through to the
+        # single-target path above: the window's primary fix is still
+        # valid and must reach the tracker, not be dropped.
+        if res.emitters:
+            ids = assign_emitter_ids(res.emitters, float(ep))
             updates = {}
             qualities = {}
             fixes = {}
             upd_weights = {}
-            for k, es in enumerate(emitters):
+            for k, es in enumerate(res.emitters):
                 updates[ids[k]] = es.tdoa_samples / proc.config.sample_rate
                 qualities[ids[k]] = float(es.peak_value.mean())
                 fixes[ids[k]] = es.fix
                 upd_weights[ids[k]] = es.solve_weights
+            # Joint (lag, Doppler) separation attributes each emitter
+            # its own velocity; pass the processor's WEIGHTED solve
+            # straight to the tracker (re-solving from raw FDOA here
+            # would drop the peak-ratio weights and sigma floor).
+            vel_meas = {
+                ids[k]: e.velocity_enu
+                for k, e in enumerate(res.emitters)
+                if e.velocity_enu is not None
+            }
+            if not vel_meas and res.fdoa_hz is not None \
+                    and len(res.emitters) == 1:
+                fdoa = {ids[0]: res.fdoa_hz}
+        elif res.fdoa_hz is not None:
+            if swapped:
+                # The processor solved its velocity at the OLD primary
+                # (the ghost): re-solve from the measured Dopplers at
+                # the track-consistent position instead.
+                fdoa = {args.target_id: res.fdoa_hz}
+            elif res.velocity_enu is not None:
+                vel_meas = {args.target_id: res.velocity_enu}
+            else:
+                fdoa = {args.target_id: res.fdoa_hz}
         for wmsg in res.warnings:
             if wmsg not in seen_warnings:
                 seen_warnings.add(wmsg)
@@ -581,6 +616,9 @@ def main(argv=None) -> int:
             float(ep),
             updates,
             qualities=qualities,
+            fdoa_hz=fdoa,
+            carrier_hz=args.target_freq,
+            velocity_enu=vel_meas or None,
             weights=upd_weights or None,
             positions_enu=positions,
             covs_en=covs or None,

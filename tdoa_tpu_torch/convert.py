@@ -39,25 +39,15 @@ def banks_from_planar(cross_re, cross_im, psd, energy,
     return cross, psd_t, energy_t
 
 
-# Reference config fields that only tune paths the port does not run
-# (CAF/velocity, emitter association).
-REFERENCE_ONLY_FIELDS = frozenset({
-    "emitter_tol_samples", "caf_seg_len", "caf_n_doppler",
-    "caf_max_samples", "fdoa_disambiguation", "max_emitter_speed_mps",
-})
-
-
 def config_from_fields(fields: Dict[str, Any]) -> ProcessorConfig:
     """A ``tdoa_tpu`` ``ProcessorConfig`` field dict
-    (``dataclasses.asdict``) → the port's config. The settings of
-    unported paths (``REFERENCE_ONLY_FIELDS``) are dropped — their path
-    selectors (``mode``, ``solve_velocity``, ...) carry over and raise
-    in the port; any other unknown field raises here."""
+    (``dataclasses.asdict``) → the port's config. Every field carries
+    over; an unknown field raises."""
     known = {f.name for f in dataclasses.fields(ProcessorConfig)}
-    extra = set(fields) - known - REFERENCE_ONLY_FIELDS
+    extra = set(fields) - known
     if extra:
         raise ValueError(f"unknown ProcessorConfig fields: {sorted(extra)}")
-    f = {k: v for k, v in fields.items() if k in known}
+    f = dict(fields)
     if f.get("prior") is not None:
         f["prior"] = tuple(float(v) for v in f["prior"])
     return ProcessorConfig(**f)

@@ -130,13 +130,14 @@ def _int_deramp(coarse: torch.Tensor, fft_len: int) -> torch.Tensor:
 
 def _phase_slope_refine(cross: torch.Tensor, coarse_delay: torch.Tensor,
                         fft_len: int, max_lag: int,
-                        peak_phase: torch.Tensor,
+                        peak_phase: Optional[torch.Tensor] = None,
                         clip_samples: float = 1.0):
     """Refine a coarse delay by weighted LS on the cross-spectrum phase:
     deramp by the coarse estimate, re-center by the carrier-phase
     intercept ``peak_phase`` (the complex window's phase at the peak
-    lag), fit φ ≈ θ − 2πfδ with |C|² weights. Returns (delay,
-    delay_std, peak_width)."""
+    lag; without it, the |C|²-weighted mean phasor of the derampled
+    spectrum, wrap-free by construction), fit φ ≈ θ − 2πfδ with |C|²
+    weights. Returns (delay, delay_std, peak_width)."""
     f = _fftfreq(fft_len, cross.device)[None, :]
     w = cross.real.square() + cross.imag.square()
     two_pi = TWO_PI
@@ -144,6 +145,9 @@ def _phase_slope_refine(cross: torch.Tensor, coarse_delay: torch.Tensor,
         ramp = _int_deramp(coarse_delay, fft_len)
     else:
         ramp = two_pi * f * coarse_delay[:, None]
+    if peak_phase is None:
+        c = cross * torch.polar(torch.ones_like(ramp), ramp)
+        peak_phase = torch.atan2((w * c.imag).sum(-1), (w * c.real).sum(-1))
     raw = torch.angle(cross) + ramp - peak_phase[:, None]
     phi = raw - two_pi * torch.round(raw / two_pi)
     sw = w.sum(-1)
@@ -369,10 +373,13 @@ def _accumulate_cross_spectra(x: torch.Tensor, pair_idx, seg_len: int,
     transformed in chunks of at most ``SEG_CHUNK_BYTES``."""
     n_st, n = int(x.shape[1]), int(x.shape[2])
     n_seg = n // seg_len
-    p = np.asarray(pair_idx, np.int64).reshape(-1, 2)
+    from tdoa_tpu_torch.ops.kernels.corr_accum import device_pairs
+
     dev = x.device
-    ii = torch.from_numpy(p[:, 0]).to(dev)
-    jj = torch.from_numpy(p[:, 1]).to(dev)
+    # The pair list lives on the device once per process: a host→card
+    # copy per call would make the host wait for the card every chunk.
+    p = device_pairs(pair_idx, dev).long()
+    ii, jj = p[:, 0], p[:, 1]
     cross = torch.zeros(len(p), fft_len, dtype=torch.complex64, device=dev)
     psd = torch.zeros(n_st, fft_len, dtype=torch.float32, device=dev)
     energy = torch.zeros(n_st, dtype=torch.float32, device=dev)

@@ -20,6 +20,7 @@ tensor launches it (or raises), a CPU tensor takes
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
@@ -132,7 +133,8 @@ def loo_zoom_windows(cross_g: torch.Tensor, psd_g: torch.Tensor, pairs,
 
     CPU tensors take the plain torch version; CUDA tensors launch
     ``csrc/zoom_probe.cu`` and count the launch in
-    ``loo_zoom_windows.launches``."""
+    ``loo_zoom_windows.launches`` (and, by ``(K, m, F)``, in
+    ``loo_zoom_windows.launch_shapes``)."""
     if cross_g.device.type == "cpu":
         return loo_zoom_windows_plain(cross_g, psd_g, pairs, coarse,
                                       n_seg_loo, eps)
@@ -171,10 +173,12 @@ def loo_zoom_windows(cross_g: torch.Tensor, psd_g: torch.Tensor, pairs,
     if err != 0:
         raise RuntimeError(f"zoom_probe kernel launch failed: CUDA error {err}")
     loo_zoom_windows.launches += 1
+    loo_zoom_windows.launch_shapes[(K, m, F)] += 1
     return out
 
 
 loo_zoom_windows.launches = 0
+loo_zoom_windows.launch_shapes = collections.Counter()
 
 
 def loo_zoom_delays(cross_g, psd_g, pairs, coarse, n_seg_loo,

@@ -15,17 +15,24 @@ Torch port of ``tdoa_tpu.pipeline.processor`` for the IQ and FM modes:
 - ``process_files_overlapped`` and ``tail_session`` keep the captures
   on the host (``HostCapture``) and stream them to the device chunk by
   chunk (``pipeline/ingest.py``) instead of staging whole blocks;
+- ``lo_compensation="auto"`` probes the REF₁ block with the CAF
+  (``ops/caf.py``), solves per-station LO offsets and derotates all
+  three blocks before they correlate; ``solve_velocity`` runs the CAF
+  over the TGT block, re-measures the TDOAs by deramp-and-correlate
+  when the Doppler is significant, and solves the emitter velocity;
+  ``multi_emitter > 1`` separates co-channel emitters, jointly in (lag,
+  Doppler) on the CAF surface or by lag alone on the plain window;
 - the host gates, the float32 multistart LM solve, the multipath σ
-  accounting and the ghost/outlier analysis follow the reference line
-  for line (numpy / CPU tensors).
-
-Options the port does not run yet raise ``NotImplementedError`` naming
-the ``ROADMAP.md`` item that ports them.
+  accounting and the ghost/outlier analysis (with the FDOA evidence of
+  a velocity run) follow the reference line for line (numpy / CPU
+  tensors).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -47,8 +54,10 @@ from tdoa_tpu_torch.io.stations import (
 from tdoa_tpu_torch.ops.corr import (
     auto_seg_len,
     clock_correct_blocks,
+    correlate_pairs,
     correlate_pairs_fused,
     correlate_pairs_planar,
+    resolve_seg,
 )
 from tdoa_tpu_torch.ops.kernels.fm_demod import fm_demod_decimate
 from tdoa_tpu_torch.solve.ghost import DECISION_THRESHOLD_NATS, GhostVerdict
@@ -67,19 +76,9 @@ from tdoa_tpu_torch.utils.constants import (
 from tdoa_tpu_torch.utils.platform import default_device
 
 
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to tdoa_tpu_torch yet "
-        f"(ROADMAP.md: \"{item}\"); use tdoa_tpu")
-
-
 @dataclasses.dataclass(frozen=True)
 class ProcessorConfig:
-    """The reference's configuration minus the settings of paths the
-    port does not run (CAF, FDOA ranking, emitter association). The
-    path selectors stay so that ``lo_compensation="auto"``,
-    ``solve_velocity`` and ``multi_emitter > 1`` raise
-    ``NotImplementedError`` instead of silently running another path."""
+    """The reference's configuration, field for field."""
 
     ref_freq: float
     tgt_freq: float
@@ -98,10 +97,35 @@ class ProcessorConfig:
     # (_fused_eligible), else the segmented correlator; "pallas"/"xla"
     # force one.
     accumulator: str = "auto"
+    # Multi-emitter resolution: >1 separates up to this many co-channel
+    # emitters from the per-pair top-K correlation peaks by TDOA
+    # cycle-consistency (solve/association.py) and solves each set.
     multi_emitter: int = 1
+    emitter_tol_samples: float = 3.0
+    # Joint velocity estimation: run the CAF over the TGT block, remove
+    # the clock-drift-induced Doppler measured from the dual REF blocks,
+    # and least-squares the emitter velocity at the fix (solve/fdoa.py).
     solve_velocity: bool = False
+    caf_seg_len: int = 1 << 13  # Doppler span ±1/(2·T_seg) ≈ ±163 Hz
+    caf_n_doppler: int = 64
+    caf_max_samples: int = 1 << 21  # cap CAF input (memory/time)
+    # Receiver LO-offset compensation ("auto" | "off"). A real TCXO off
+    # by d ppm shifts its LO by d·1e-6·f_c (~16 Hz at VHF per 0.1 ppm),
+    # smearing EVERY block's full-capture correlation — including the
+    # REF blocks the clock correction depends on. "auto" probes the
+    # REF1 block with the CAF, solves per-station LO offsets, and
+    # derotates all three blocks (scaled by each block's carrier)
+    # before the main correlation.
     lo_compensation: str = "off"
     power_disambiguation: bool = False
+    # FDOA ghost disambiguation (solve_velocity runs only): only near
+    # the TRUE intersection do the measured pairwise Dopplers fit one
+    # emitter velocity; a candidate whose fitted speed exceeds
+    # max_emitter_speed_mps loses to one within it.
+    fdoa_disambiguation: bool = True
+    # Speed plausibility ceiling for the FDOA ghost ranking ONLY (never
+    # gates the velocity solve itself).
+    max_emitter_speed_mps: float = 700.0
     ghost_threshold_nats: float = DECISION_THRESHOLD_NATS
     prior: Optional[Tuple[float, float, float]] = None
     multipath_mitigation: bool = True
@@ -123,6 +147,16 @@ class TDOAResult:
     tdoa_std_s: Optional[np.ndarray] = None  # [m] 1σ TDOA errors, seconds
     clock_drift_ppm: Optional[np.ndarray] = None  # [m] from the two REF blocks
     warnings: List[str] = dataclasses.field(default_factory=list)
+    # Per-emitter fixes from multi-emitter association (config
+    # multi_emitter > 1); strongest emitter first. None when disabled.
+    emitters: Optional[List["EmitterFix"]] = None
+    # Emitter velocity from the CAF + FDOA solve (config solve_velocity):
+    # ENU m/s at the fix, rms Doppler residual, per-pair FDOA (Hz,
+    # clock-drift-corrected). None when disabled.
+    velocity_enu: Optional[np.ndarray] = None
+    velocity_residual_hz: Optional[float] = None
+    velocity_sigma_enu: Optional[np.ndarray] = None  # 1σ per axis, m/s
+    fdoa_hz: Optional[np.ndarray] = None
     excluded_stations: Optional[List[str]] = None
     solve_weights: Optional[np.ndarray] = None  # [m] weights of the final solve
     multipath_flagged: Optional[np.ndarray] = None  # [m] bool
@@ -189,6 +223,26 @@ def _stack_station_subsamples(subs: List[torch.Tensor]) -> torch.Tensor:
     segment itself)."""
     n = min(int(s.shape[-1]) for s in subs)
     return torch.stack([s[:, :n] for s in subs], dim=1)
+
+
+@dataclasses.dataclass
+class EmitterFix:
+    """One resolved co-channel emitter: its associated TDOA set + fix."""
+
+    fix: FixResult
+    tdoa_samples: np.ndarray  # [m] clock-corrected, associated per pair
+    peak_value: np.ndarray  # [m] correlation peak heights of the set
+    max_inconsistency_samples: float  # worst cycle-consistency residual
+    # Per-emitter Doppler/velocity (solve_velocity + multi_emitter):
+    # the CAF surface is read at THIS emitter's lag per pair, so mixed
+    # windows get attributable FDOA. None when unavailable.
+    fdoa_hz: Optional[np.ndarray] = None  # [m] drift-corrected
+    velocity_enu: Optional[np.ndarray] = None  # [3] m/s
+    velocity_sigma_enu: Optional[np.ndarray] = None  # [3] 1σ m/s
+    # [m] the per-pair weights this emitter's solve used (quadratic
+    # associated-peak weighting) — downstream re-solves (the stream
+    # tracker) must use them, mirroring TDOAResult.solve_weights.
+    solve_weights: Optional[np.ndarray] = None
 
 
 def process_blocks(
@@ -332,6 +386,72 @@ def _station_signal_power(x: torch.Tensor, chunk: int = 1 << 18) -> np.ndarray:
     return np.maximum(sig, lim)
 
 
+def _derotate(block: torch.Tensor, shifts_hz: np.ndarray,
+              sample_rate: float, lim: Optional[int] = None) -> torch.Tensor:
+    """Counter-rotate each station's planar block [2, n_st, L] by its
+    frequency shift [n_st] (Hz): f32 [2, n_st, lim].
+
+    DC is removed BEFORE the rotation: rotated DC becomes a coherent
+    in-band tone that later mean-subtraction cannot remove, and PHAT
+    whitening then elevates it into a delay-peak bias. The angle is
+    float32, as the reference computes it."""
+    n = int(block.shape[-1]) if lim is None else lim
+    dev = block.device
+    t = torch.arange(n, dtype=torch.float32, device=dev) / sample_rate
+    s = torch.as_tensor(np.asarray(shifts_hz, np.float32), device=dev)
+    ang = (-2.0 * np.pi) * s[:, None] * t[None, :]  # [n_st, n]
+    del t
+    cr_, sr_ = torch.cos(ang), torch.sin(ang)
+    del ang
+    br = block[0, :, :n].to(torch.float32)
+    bi = block[1, :, :n].to(torch.float32)
+    br = br - br.mean(-1, keepdim=True)
+    bi = bi - bi.mean(-1, keepdim=True)
+    return torch.stack([br * cr_ - bi * sr_, br * sr_ + bi * cr_])
+
+
+def _deramp_correlate(
+    tgt: torch.Tensor,  # planar [2, n_st, L]
+    s_dop: np.ndarray,  # [n_st] per-station frequency shifts, Hz
+    pairs: np.ndarray,
+    lim: int,
+    max_lag: int,
+    seg_len,
+    weighting: str,
+    sample_rate: float,
+):
+    """Counter-rotate the TGT block (see _derotate) and re-run the
+    plain correlator over the first ``lim`` samples — truncated because
+    a mover's envelope delay drifts: over a long capture the full-block
+    peak smears/walks while a ~1 s window keeps the drift below half a
+    sample at aircraft speeds."""
+    yd = _derotate(tgt, s_dop, sample_rate, lim=lim)
+    # Same segment auto-shrink as the primary path (process_blocks
+    # mode="iq"): its σ feeds the adoption gate against the primary's
+    # K=4 split σ, and a short window without the shrink would land on
+    # S≤2 segments, an estimator the gate cannot compare.
+    return correlate_pairs_planar(
+        yd, pairs, max_lag=max_lag,
+        seg_len=auto_seg_len(lim, max_lag, seg_len),
+        weighting=weighting,
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_fits(n_stations: int, index: int) -> bool:
+    """``fits_device``'s verdict on the fused batch shape (K = 4 banks,
+    DC sums) for ``n_stations`` on card ``index``, taken once and kept:
+    ``load_files`` (bf16 or f32 decode) and ``process_captures`` (which
+    accumulator) ask it at different free memory — the captures, and
+    with LO compensation the derotated blocks, lie between the two — and
+    must never disagree."""
+    from tdoa_tpu_torch.ops.kernels.corr_accum import fits_device
+
+    n_pairs = n_stations * (n_stations - 1) // 2
+    return fits_device(n_stations, n_pairs, True, 4,
+                       torch.device("cuda", index))
+
+
 def _planar(b, device) -> torch.Tensor:
     """A capture block as a planar [2, L] tensor on ``device``: complex
     numpy/torch blocks convert to float32, planar tensors pass through."""
@@ -359,6 +479,11 @@ class TDOAProcessor:
         # What the last overlapped ingest did (``ingest_overlapped``'s
         # ``diag``): chunk size and count, gather and copy-stream times.
         self.ingest_diag: dict = {}
+        # Optional per-stage wall-clock accounting: any object whose
+        # ``stage(name)`` is a context manager around one stage of
+        # process_captures ("lo-compensate", "correlate+clock", "solve",
+        # "caf+deramp", "velocity", "associate+solve-emitters").
+        self.timer = None
 
     @classmethod
     def from_csv(
@@ -392,27 +517,15 @@ class TDOAProcessor:
             raise ValueError(
                 f"accumulator must be 'auto', 'pallas' or 'xla', got "
                 f"{cfg.accumulator!r}")
-        if cfg.lo_compensation == "auto":
-            raise _unported("lo_compensation='auto'",
-                            "LO compensation, CAF/velocity, multi-emitter")
-        if cfg.solve_velocity:
-            raise _unported("solve_velocity",
-                            "LO compensation, CAF/velocity, multi-emitter")
-        if cfg.multi_emitter > 1:
-            raise _unported("multi_emitter > 1",
-                            "LO compensation, CAF/velocity, multi-emitter")
 
     def _fused_eligible(self, n_stations: int, min_block_samples: int) -> bool:
         """Whether the fused kernels can run: the IQ mode, the kernel's
         alias-free lag window and at least one segment per block on any
         device; on CUDA also the kernel's own shared-memory and
-        device-buffer footprint. The one predicate behind both the
+        device-buffer footprint, decided once per (stations, card)
+        (``_fused_fits``). The one predicate behind both the
         accumulator="auto" decision and the bf16-decode decision."""
-        from tdoa_tpu_torch.ops.kernels.corr_accum import (
-            FFT_LEN,
-            SEG_LEN,
-            fits_device,
-        )
+        from tdoa_tpu_torch.ops.kernels.corr_accum import FFT_LEN, SEG_LEN
 
         cfg = self.config
         ok = (
@@ -421,8 +534,9 @@ class TDOAProcessor:
             and min_block_samples >= SEG_LEN
         )
         if ok and self.device.type == "cuda":
-            n_pairs = n_stations * (n_stations - 1) // 2
-            ok = fits_device(n_stations, n_pairs, True, 4, self.device)
+            index = (torch.cuda.current_device() if self.device.index is None
+                     else self.device.index)
+            ok = _fused_fits(n_stations, index)
         return ok
 
     def _reject_outliers(
@@ -526,13 +640,17 @@ class TDOAProcessor:
         tgt: torch.Tensor,
         ref1: torch.Tensor,
         warnings: List[str],
+        deramp_note: str = "",
+        fdoa_hz: Optional[np.ndarray] = None,
     ) -> Tuple[FixResult, np.ndarray, List[str], Optional[GhostVerdict]]:
         """Post-solve analysis of the FINAL TDOA set: consistency gate,
         outlier rejection, ghost-ambiguity detection (the unified
         prior + FDOA + power posterior, solve/ghost.py), and the
-        out-of-prior warning, on the final TDOA set. Differential-Doppler
-        evidence needs solve_velocity, which is not ported, so the
-        posterior sees prior, timing and power. Returns the possibly-updated
+        out-of-prior warning. Must run after any step that can replace
+        the fix/weights wholesale (the Doppler deramp re-solve).
+        ``fdoa_hz``: the CAF's per-pair differential Dopplers (emitter
+        motion only, drift-corrected), when solve_velocity measured
+        them. Returns the possibly-updated
         (fix, weights, excluded_station_names, ghost_verdict)."""
         cfg = self.config
         # Mutually inconsistent TDOAs leave residuals the per-pair
@@ -574,7 +692,7 @@ class TDOAProcessor:
                 f"{names[i]}-{names[j]} residual {score * gate_m[k_bad]:.0f} "
                 f"m vs its {gate_m[k_bad]:.0f} m error-bar gate): suspect "
                 f"co-channel interference, multipath, or a wrong station "
-                f"assignment"
+                f"assignment{deramp_note}"
             )
         sigma_m = float(np.median(np.asarray(tdoa_std_s))) * SPEED_OF_LIGHT
 
@@ -651,6 +769,38 @@ class TDOAProcessor:
                     n_inside = int(
                         np.count_nonzero(prior_dist <= prior_radius)
                     )
+                # FDOA: both intersections satisfy the TDOAs, but the
+                # measured pairwise Dopplers fit a single emitter
+                # velocity only where the emitter→station geometry is
+                # the true one — and a ghost often "fits" only via an
+                # unphysical speed (the distant intersection's
+                # unit-vector differences shrink, inflating |v|). Runs
+                # only on CAF-significant Doppler (the caller's gate);
+                # the speed barrier works even on an exactly-determined
+                # fit, so only >= n_dim_v active pairs are required.
+                fdoa_res = speeds = None
+                fdoa_dof = 0
+                n_dim_v = 3 if cfg.solve_z else 2
+                if (fdoa_hz is not None and cfg.fdoa_disambiguation
+                        and n_active >= n_dim_v):
+                    from tdoa_tpu_torch.solve.fdoa import solve_velocity_enu
+
+                    nu_g = np.asarray(fdoa_hz, np.float64)
+                    st_g = lla_to_enu(lla, fix.origin_lla)
+                    sols = [
+                        solve_velocity_enu(
+                            st_g, pairs,
+                            lla_to_enu(np.asarray(c, np.float64),
+                                       fix.origin_lla),
+                            nu_g, cfg.tgt_freq, weights=w,
+                            solve_z=cfg.solve_z,
+                        )
+                        for c in fix.candidates_lla
+                    ]
+                    fdoa_res = np.array([s.residual_hz for s in sols])
+                    speeds = np.array([s.speed for s in sols])
+                    fdoa_dof = max(0, n_active - n_dim_v)
+
                 # ---- one posterior from everything ----
                 def posterior(with_power: bool):
                     return ghost_posterior(
@@ -663,6 +813,10 @@ class TDOAProcessor:
                             else None
                         ),
                         n_stations=len(names),
+                        fdoa_resid_hz=fdoa_res,
+                        fdoa_dof=fdoa_dof,
+                        speeds_mps=speeds,
+                        max_speed_mps=cfg.max_emitter_speed_mps,
                         prior_dist_m=(
                             prior_dist if n_inside else None
                         ),
@@ -721,6 +875,9 @@ class TDOAProcessor:
                     )
                     if prior_dist is not None:
                         prior_dist = prior_dist[perm]
+                    if fdoa_res is not None:
+                        fdoa_res = fdoa_res[perm]
+                        speeds = speeds[perm]
                     second, rms2, sep = runnerup(fix)
                 ghost_verdict = verdict
 
@@ -744,6 +901,31 @@ class TDOAProcessor:
                         prior_txt = (
                             f"; coverage prior keeps {n_inside} "
                             f"candidates — inconclusive"
+                        )
+                fdoa_txt = ""
+                if fdoa_res is not None:
+                    ll_f = verdict.components.get("fdoa")
+                    k_f = int(np.argmax(ll_f))
+                    m_f = float(ll_f[k_f] - np.delete(ll_f, k_f).max())
+                    pref_f = ("the primary" if k_f == 0
+                              else f"candidate #{k_f + 1}")
+                    if m_f >= cfg.ghost_threshold_nats:
+                        fdoa_txt = (
+                            f"; differential-Doppler consistency "
+                            f"selects {pref_f} solution (fit residuals "
+                            f"{'/'.join(f'{r:.2f}' for r in fdoa_res)}"
+                            f" Hz, fitted speeds "
+                            f"{'/'.join(f'{s:.0f}' for s in speeds)}"
+                            f" m/s)"
+                        )
+                    else:
+                        fdoa_txt = (
+                            f"; differential-Doppler consistency is "
+                            f"inconclusive (residuals "
+                            f"{'/'.join(f'{r:.2f}' for r in fdoa_res)}"
+                            f" Hz, speeds "
+                            f"{'/'.join(f'{s:.0f}' for s in speeds)}"
+                            f" m/s)"
                         )
                 scores = np.asarray(
                     fix.candidates_power_score, np.float64
@@ -808,7 +990,7 @@ class TDOAProcessor:
                     f"fits equally well (rms {rms2:.1f} m vs "
                     f"{fix.rms_residual_m:.1f} m) — a fourth station or "
                     f"a coverage prior disambiguates"
-                    f"{prior_txt}{power_txt}{post_txt}"
+                    f"{prior_txt}{fdoa_txt}{power_txt}{post_txt}"
                 )
 
         if cfg.prior is not None:
@@ -821,6 +1003,230 @@ class TDOAProcessor:
                     f"{p_lat:.4f},{p_lon:.4f})"
                 )
         return fix, w, excluded, ghost_verdict
+
+    def _separate_emitters(
+        self,
+        caf_info: Optional[dict],
+        clock,
+        lla: np.ndarray,
+        pairs: np.ndarray,
+        names: Sequence[str],
+        drift_ppm: np.ndarray,
+        lo_ppm: Optional[np.ndarray],
+        win64: np.ndarray,
+        tdoa_std_s: np.ndarray,
+        tgt: torch.Tensor,
+        warnings: List[str],
+    ) -> List[EmitterFix]:
+        """The multi-emitter branch of ``process_captures``: associate
+        the per-pair candidate peaks into cycle-consistent TDOA sets —
+        jointly in (lag, Doppler) on the CAF surface when a velocity run
+        left one (``caf_info``) whose window holds every raw lag, else
+        by lag alone on the plain TGT window — and solve each set."""
+        from tdoa_tpu_torch.solve.association import (
+            associate_emitters,
+            associate_emitters_joint,
+            top_k_peaks,
+            top_k_peaks_2d,
+        )
+        from tdoa_tpu_torch.solve.fdoa import solve_velocity_enu
+
+        cfg = self.config
+        k = cfg.multi_emitter + 2  # slack for sidelobes/noise peaks
+        clock_np = np.asarray(clock, np.float64)
+        per_fdoa: List[Optional[np.ndarray]] = []
+        # The CAF surface spans only ±min(max_lag, 2048) lags. Raw TGT
+        # lags = geometry (≤ baseline/c) + clock offsets, which can
+        # reach thousands of samples on unsynchronized clocks — the
+        # reason max_lag defaults to 20000. Joint association is only
+        # valid when the window provably contains them.
+        joint_ok = False
+        if caf_info is not None:
+            ecef_st = lla_to_ecef(lla)
+            bl_max = max(
+                np.linalg.norm(ecef_st[i] - ecef_st[j]) for i, j in pairs
+            )
+            bound = (
+                bl_max / SPEED_OF_LIGHT * cfg.sample_rate
+                + np.abs(clock_np).max()
+                + 64.0
+            )
+            joint_ok = bound < caf_info["max_lag"]
+            if not joint_ok:
+                warnings.append(
+                    "raw TGT lags may exceed the CAF window "
+                    f"(bound {bound:.0f} vs ±{caf_info['max_lag']}"
+                    " samples): multi-emitter association fell "
+                    "back to the lag-only path (no per-emitter "
+                    "Doppler)"
+                )
+        drift_nu_me = (
+            np.zeros_like(drift_ppm) if lo_ppm is not None
+            else cfg.tgt_freq * 1e-6 * drift_ppm
+        )
+        if joint_ok:
+            # Joint (lag, Doppler) association on the CAF surface: a
+            # mover whose Doppler decorrelates the plain full-block sum
+            # (anything beyond ~1/T_block) is invisible in the plain
+            # window but is a clean peak here, and every emitter gets
+            # its OWN FDOA set. Lags are parabolic-only (~0.1 sample)
+            # and windowed to the CAF's ±max_lag.
+            from tdoa_tpu_torch.solve.association import caf_lag_resolution
+            from tdoa_tpu_torch.solve.fdoa import station_doppler_from_pairs
+
+            surf = caf_info["surface"]
+            lag_res = caf_lag_resolution(surf)
+            # Wider slate than the lag-only path (+4, not +2): a
+            # smeared mover colliding in LAG with a static emitter
+            # leaves a ridge whose Doppler sidelobes occupy several 2D
+            # top-k slots at one lag; with only +2 the mover's own
+            # (weaker) candidate can fall off the list. The joint
+            # gate's second (Doppler) axis keeps the extra noise
+            # candidates from assembling spurious sets.
+            lags, dops, vals = top_k_peaks_2d(surf, k + 2, guard_lag=lag_res)
+            cand_tdoa = (lags - caf_info["max_lag"]) - clock_np[:, None]
+            ndop = surf.shape[1]
+            dop_step = 2.0 * caf_info["span_hz"] / (ndop - 1)
+            cand_nu_raw = -caf_info["span_hz"] + dops * dop_step
+            cand_fdoa = cand_nu_raw + drift_nu_me[:, None]
+            # Lag tolerance at the CAF's own resolution: its envelope
+            # peak localizes only to a fraction of the main-lobe width;
+            # Doppler consistency carries the fine discrimination
+            # between hypotheses.
+            joint = associate_emitters_joint(
+                cand_tdoa,
+                cand_fdoa,
+                vals,
+                pairs,
+                len(names),
+                tol_samples=max(cfg.emitter_tol_samples, 0.5 * lag_res),
+                tol_hz=max(4.0, 2.0 * caf_info["bin_hz"]),
+                max_emitters=cfg.multi_emitter,
+            )
+            sets = [es for es, _ in joint]
+            per_fdoa = [f for _, f in joint]
+            # Each pair's true dominant peak (σ scaling below).
+            dominant = vals[:, 0]
+            # Per-emitter deramp refinement: counter-rotate the
+            # stations by THIS emitter's Doppler solution and
+            # re-correlate — its peak sharpens to full sub-sample
+            # precision; take the peak nearest the coarse lag (the
+            # other emitters' peaks, now smeared, sit elsewhere).
+            refined_sets = []
+            for es, e_f in zip(sets, per_fdoa):
+                nu_raw_e = e_f - drift_nu_me
+                s_e = station_doppler_from_pairs(pairs, nu_raw_e, len(names))
+                re_ = _deramp_correlate(
+                    tgt, s_e, pairs, caf_info["lim"],
+                    caf_info["max_lag"], cfg.seg_len,
+                    cfg.weighting, cfg.sample_rate,
+                )
+                win_e = re_.corr.cpu().numpy().astype(np.float64)
+                raw_coarse = es.tdoa + clock_np
+                refined = np.array(es.tdoa, copy=True)
+                for pk in range(len(pairs)):
+                    c0 = int(round(raw_coarse[pk])) + caf_info["max_lag"]
+                    lo = max(1, c0 - lag_res)
+                    hi = min(win_e.shape[1] - 1, c0 + lag_res + 1)
+                    if hi <= lo:
+                        continue
+                    seg = win_e[pk, lo:hi]
+                    i0 = int(np.argmax(seg)) + lo
+                    ym1, y0, yp1 = win_e[pk, i0 - 1:i0 + 2]
+                    den = ym1 - 2 * y0 + yp1
+                    off = (0.5 * (ym1 - yp1) / den
+                           if abs(den) > 1e-12 else 0.0)
+                    off = float(np.clip(off, -0.5, 0.5))
+                    refined[pk] = (
+                        i0 + off - caf_info["max_lag"] - clock_np[pk]
+                    )
+                refined_sets.append(es._replace(tdoa=refined))
+            sets = refined_sets
+        else:
+            # Lag-only association on the plain correlation window. The
+            # window's lag axis is in correlation units: decimated
+            # audio samples for mode="fm" (rescale), IQ samples
+            # otherwise — mirrors process_blocks' max_lag_c.
+            if cfg.mode == "fm":
+                scale = float(cfg.fm_decim)
+                max_lag_c = max(cfg.max_lag // cfg.fm_decim + 2, 16)
+            else:
+                scale = 1.0
+                max_lag_c = cfg.max_lag
+            cand = top_k_peaks(win64, k=k)
+            cand_tdoa = (cand.lag - max_lag_c) * scale - clock_np[:, None]
+            sets = associate_emitters(
+                cand_tdoa,
+                cand.value,
+                pairs,
+                len(names),
+                tol_samples=cfg.emitter_tol_samples,
+                max_emitters=cfg.multi_emitter,
+            )
+            per_fdoa = [None] * len(sets)
+            dominant = cand.value[:, 0]
+        emitters = []
+        for es, e_fdoa in zip(sets, per_fdoa):
+            ew = (es.value / max(es.value.max(), 1e-9)) ** 2
+            # tdoa_std_s was measured on each pair's DOMINANT peak
+            # (phase-slope refinement); an associated candidate that is
+            # a weaker peak has proportionally lower correlation SNR,
+            # and its lag comes from the coarser parabolic fit. Scale
+            # sigma by the peak ratio so a secondary emitter's ellipse
+            # is not copied from the primary's confidence.
+            ratio = dominant / np.maximum(es.value, 1e-12)
+            e_sigma = tdoa_std_s * np.maximum(ratio, 1.0)
+            efix = solve_fix(
+                lla,
+                es.tdoa / cfg.sample_rate,
+                weights=ew,
+                pair_idx=pairs,
+                solve_z=cfg.solve_z,
+                tdoa_sigma_s=e_sigma,
+            )
+            e_vel = e_vsig = None
+            if e_fdoa is not None:
+                ev = solve_velocity_enu(
+                    lla_to_enu(lla, efix.origin_lla),
+                    pairs, efix.enu, e_fdoa, cfg.tgt_freq,
+                    weights=ew, solve_z=cfg.solve_z,
+                    fdoa_sigma_floor_hz=caf_info["bin_hz"] / 8.0,
+                )
+                e_vel = ev.vel_enu
+                e_vsig = ev.sigma_enu
+            emitters.append(
+                EmitterFix(
+                    fix=efix,
+                    tdoa_samples=es.tdoa,
+                    peak_value=es.value,
+                    max_inconsistency_samples=es.max_inconsistency,
+                    fdoa_hz=e_fdoa,
+                    velocity_enu=e_vel,
+                    velocity_sigma_enu=e_vsig,
+                    solve_weights=np.asarray(ew, np.float64),
+                )
+            )
+        if len(emitters) > 1:
+            warnings.append(
+                f"{len(emitters)} co-channel emitters resolved; the "
+                f"primary fix reflects the per-pair dominant peaks "
+                f"(see emitters[] for the separated fixes)"
+            )
+        elif not emitters:
+            # Association was requested and found NOTHING cycle-
+            # consistent: the per-pair candidate peaks disagree in lag
+            # (or Doppler, on the joint path). That is itself a
+            # diagnosis and must never pass silently, because the
+            # primary fix may then be a lock on one emitter of several,
+            # or a mixture.
+            warnings.append(
+                "multi-emitter association found no cycle-"
+                "consistent candidate sets (per-pair peaks "
+                "disagree in lag/Doppler): the primary fix may "
+                "mix co-channel emitters or lock onto just one "
+                "of them"
+            )
+        return emitters
 
     def process_captures(
         self, captures: Dict[str, Tuple], *,
@@ -916,30 +1322,141 @@ class TDOAProcessor:
             orig_block_len = min(int(captures[n][0].shape[-1])
                                  for n in names)
             ref1, tgt, ref2 = stack(0), stack(1), stack(2)
+        stage = (self.timer.stage if self.timer is not None
+                 else lambda name: contextlib.nullcontext())
         warnings: List[str] = []
+        lo_ppm = None
+        if cfg.lo_compensation == "auto":
+            from tdoa_tpu_torch.ops.caf import caf_pairs
+            from tdoa_tpu_torch.solve.fdoa import station_doppler_from_pairs
+
+            with stage("lo-compensate"):
+                lim0 = min(int(ref1.shape[-1]), cfg.caf_max_samples)
+                probe_lag = min(cfg.max_lag, 2048)
+                # The CAF probe's window is only ±probe_lag, but raw REF
+                # lags = geometry + clock offsets — thousands of samples
+                # on unsynchronized clocks (the reason max_lag defaults
+                # to 20000). When the configured lag budget exceeds the
+                # probe window, pre-align: a coarse plain correlation
+                # over the FULL ±max_lag measures the raw lags, a
+                # min-norm per-station solve turns them into integer
+                # shifts, and each station's probe slice starts at its
+                # own shift — residual probe lags are then sub-sample.
+                probe_sig = ref1[:, :, :lim0].to(torch.float32)
+                probe_ok = True
+                if cfg.max_lag > probe_lag:
+                    lim_c = min(lim0, 1 << 20)
+                    coarse = correlate_pairs(
+                        ref1[:, :, :lim_c].to(torch.float32),
+                        pairs,
+                        max_lag=cfg.max_lag,
+                        seg_len=cfg.seg_len,
+                        weighting=cfg.weighting,
+                    )
+                    raw_lag = coarse.delay.cpu().numpy().astype(np.float64)
+                    q_coarse = coarse.quality.cpu().numpy().astype(np.float64)
+                    if np.abs(raw_lag).max() + 64.0 > probe_lag:
+                        if q_coarse.min() < 5.0:
+                            probe_ok = False
+                            warnings.append(
+                                "lo-compensation skipped: raw REF lags "
+                                f"(max {np.abs(raw_lag).max():.0f} "
+                                f"samples) exceed the probe window "
+                                f"±{probe_lag} and the coarse "
+                                "clock pre-alignment found no reliable "
+                                "REF peaks (min peak-to-sidelobe "
+                                f"{q_coarse.min():.1f})"
+                            )
+                        else:
+                            off = station_doppler_from_pairs(
+                                pairs, raw_lag, len(names)
+                            )
+                            off = np.round(off - off.min()).astype(int)
+                            aligned_len = lim0 - int(off.max())
+                            if aligned_len < 4 * cfg.caf_seg_len:
+                                probe_ok = False
+                                warnings.append(
+                                    "lo-compensation skipped: clock "
+                                    f"offsets (max {off.max()} samples) "
+                                    "leave too little aligned REF1 "
+                                    f"overlap ({aligned_len} samples) "
+                                    "for the CAF probe"
+                                )
+                            else:
+                                probe_sig = torch.stack([
+                                    ref1[:, k, int(off[k]):int(off[k])
+                                         + aligned_len]
+                                    for k in range(len(names))
+                                ], dim=1).to(torch.float32)
+                if probe_ok:
+                    lim_p = int(probe_sig.shape[-1])
+                    probe = caf_pairs(
+                        probe_sig,
+                        pairs,
+                        sample_rate=cfg.sample_rate,
+                        max_lag=probe_lag,
+                        seg_len=cfg.caf_seg_len,
+                        n_doppler=cfg.caf_n_doppler,
+                    )
+                    nu_ref = probe.doppler_hz.cpu().numpy().astype(np.float64)
+                    seg_r0, _ = resolve_seg(
+                        lim_p, probe_lag, cfg.caf_seg_len, None
+                    )
+                    bin0 = (
+                        cfg.sample_rate / seg_r0
+                    ) / (cfg.caf_n_doppler - 1)
+                    # Peak-to-floor gate: a station with no usable REF
+                    # reception gives an arbitrary (lag, Doppler)
+                    # argmax; applying it would smear EVERY station's
+                    # blocks.
+                    p_surf = probe.surface.cpu().numpy().astype(np.float64)
+                    psr = probe.peak_value.cpu().numpy().astype(np.float64) / (
+                        p_surf.mean(axis=(1, 2)) + 1e-30
+                    )
+                else:
+                    psr = np.zeros(len(pairs))
+                    nu_ref = np.zeros(len(pairs))
+                    bin0 = np.inf
+                del probe_sig
+                if psr.min() >= 5.0 and np.abs(nu_ref).max() > 2.0 * bin0:
+                    s_ref = station_doppler_from_pairs(
+                        pairs, nu_ref, len(names)
+                    )
+                    # LO offset scales with the tuned carrier: the REF
+                    # block measures drift·f_ref; each block derotates
+                    # by drift·f_block. One block at a time, so only one
+                    # block's rotation tables are ever alive.
+                    lo_ppm = s_ref / cfg.ref_freq * 1e6
+                    ref1 = _derotate(ref1, s_ref, cfg.sample_rate)
+                    ref2 = _derotate(ref2, s_ref, cfg.sample_rate)
+                    tgt = _derotate(tgt, lo_ppm * 1e-6 * cfg.tgt_freq,
+                                    cfg.sample_rate)
+
         ref_geo = self._ref_geo_tdoa_samples(names, pairs)
         if host_mode and tail is not None:
-            out = tail.finalize([captures[n].u16 for n in names])
+            with stage("tail-finalize+clock"):
+                out = tail.finalize([captures[n].u16 for n in names])
         elif host_mode:
             from tdoa_tpu_torch.pipeline.ingest import ingest_overlapped
 
             bl = orig_block_len
             if cfg.truncate_samples is not None:
                 bl = min(bl, cfg.truncate_samples)
-            out = ingest_overlapped(
-                [captures[n].u16 for n in names],
-                pairs,
-                ref_geo,
-                block_len=bl,
-                block_lens=[captures[n].block_len for n in names],
-                max_lag=cfg.max_lag,
-                seg_len=cfg.seg_len,
-                weighting=cfg.weighting,
-                clock_correction=cfg.clock_correction,
-                diag=self.ingest_diag,
-                accumulator=cfg.accumulator,
-                device=self.device,
-            )
+            with stage("ingest+correlate+clock"):
+                out = ingest_overlapped(
+                    [captures[n].u16 for n in names],
+                    pairs,
+                    ref_geo,
+                    block_len=bl,
+                    block_lens=[captures[n].block_len for n in names],
+                    max_lag=cfg.max_lag,
+                    seg_len=cfg.seg_len,
+                    weighting=cfg.weighting,
+                    clock_correction=cfg.clock_correction,
+                    diag=self.ingest_diag,
+                    accumulator=cfg.accumulator,
+                    device=self.device,
+                )
         else:
             accumulator = cfg.accumulator
             if accumulator == "auto":
@@ -948,27 +1465,44 @@ class TDOAProcessor:
                     if self._fused_eligible(len(names), int(ref1.shape[-1]))
                     else "xla"
                 )
-            out = process_blocks(
-                ref1, tgt, ref2, pairs,
-                torch.as_tensor(ref_geo, dtype=torch.float32),
-                max_lag=cfg.max_lag,
-                seg_len=cfg.seg_len,
-                weighting=cfg.weighting,
-                clock_correction=cfg.clock_correction,
-                mode=cfg.mode,
-                fm_decim=cfg.fm_decim,
-                sample_rate=cfg.sample_rate,
-                accumulator=accumulator,
-            )
+            with stage("correlate+clock"):
+                out = process_blocks(
+                    ref1, tgt, ref2, pairs,
+                    torch.as_tensor(ref_geo, dtype=torch.float32),
+                    max_lag=cfg.max_lag,
+                    seg_len=cfg.seg_len,
+                    weighting=cfg.weighting,
+                    clock_correction=cfg.clock_correction,
+                    mode=cfg.mode,
+                    fm_decim=cfg.fm_decim,
+                    sample_rate=cfg.sample_rate,
+                    accumulator=accumulator,
+                )
         (corrected, tgt_d, ref_d, clock, quality, peaks, corr_std,
          tgt_window, tgt_std, win_c_blocks) = (t.cpu() for t in out)
         win_c_np = win_c_blocks.numpy().astype(np.complex128)  # [3, m, W]
         corrected = np.asarray(corrected, np.float64)
         tdoa_s = corrected / cfg.sample_rate
         tdoa_std_s = np.asarray(corr_std, np.float64) / cfg.sample_rate
+        # REF clock-correction variance (s²): the composite σ minus the
+        # TGT block's own — re-attached to any re-measured TGT σ (the
+        # deramp path) so σs stay commensurate across candidate sets.
+        ref_var_s2 = np.maximum(
+            tdoa_std_s ** 2
+            - (np.asarray(tgt_std, np.float64) / cfg.sample_rate) ** 2,
+            0.0,
+        )
         ref_d = np.asarray(ref_d, np.float64)
         # REF-block midpoints sit 2 original block lengths apart.
         drift_ppm = (ref_d[:, 1] - ref_d[:, 0]) / (2 * orig_block_len) * 1e6
+        if lo_ppm is not None:
+            rel = ", ".join(
+                f"{n} {p_:+.3f}" for n, p_ in zip(names, lo_ppm)
+            )
+            warnings.append(
+                f"receiver LO offsets measured from the REF block and "
+                f"compensated (relative ppm: {rel})"
+            )
         if cfg.clock_correction and self.stations.reference_tx is None:
             warnings.append(
                 f"reference transmitter position unknown (no station row "
@@ -1015,7 +1549,7 @@ class TDOAProcessor:
         secondary_fired = bool(
             np.count_nonzero(strong) >= max(1, (len(pairs) + 1) // 2)
         )
-        if secondary_fired:
+        if secondary_fired and cfg.multi_emitter == 1:
             warnings.append(
                 f"strong secondary correlation peaks on "
                 f"{int(np.count_nonzero(strong))}/{len(pairs)} pairs "
@@ -1033,14 +1567,20 @@ class TDOAProcessor:
         # widens (|skew| change < 0.5 over L=20→60 on clean AND noisy
         # scenes), while a direct+echo composite drags the centroid
         # further with every widening (drift > 1.0 on 11/13 planted-
-        # echo scenes). It stands down when a resolvable second source
-        # already fired the stronger warning. (IQ mode only: FM-mode
-        # audio correlation is plain-weighted and oversampled — its lobes
-        # are legitimately wide and asymmetric.)
+        # echo scenes). Computed on the plain windows, so it stands
+        # down when motion smear explains the distortion (deramp) or a
+        # resolvable second source already fired the stronger warning.
+        # (IQ mode only: FM-mode audio correlation is plain-weighted and
+        # oversampled — its lobes are legitimately wide and asymmetric.)
         if cfg.mode == "iq":
             lobe_drift = _lobe_centroid_drift(win64)
         else:
             lobe_drift = np.zeros(len(pairs))
+        # Windows the echo-bias σ accounting reads: the REPORTED
+        # measurement's. A deramp adoption below swaps in the deramped
+        # windows (motion smear removed there — any residual centroid
+        # drag on them is echo, not motion).
+        echo_win = win64
 
         q = np.asarray(quality[1], np.float64)
         # Quadratic quality weighting with a hard gate: a pair whose
@@ -1052,17 +1592,148 @@ class TDOAProcessor:
         gated = w * (q >= 5.0)
         if np.count_nonzero(gated) >= min(3, len(pairs)):
             w = gated
-        fix = solve_fix(
-            lla,
-            tdoa_s,
-            weights=w,
-            pair_idx=pairs,
-            solve_z=cfg.solve_z,
-            tdoa_sigma_s=tdoa_std_s,
-        )
-        # Lobe-shape verdict: a resolvable second source already set
-        # secondary_fired — otherwise a drifting centroid is the only
-        # trace an in-peak echo leaves.
+        with stage("solve"):
+            fix = solve_fix(
+                lla,
+                tdoa_s,
+                weights=w,
+                pair_idx=pairs,
+                solve_z=cfg.solve_z,
+                tdoa_sigma_s=tdoa_std_s,
+            )
+        # Consistency / outlier / ghost / prior analysis runs AFTER
+        # the deramp re-solve below has settled the final TDOA set
+        # (solve_velocity can replace fix/weights wholesale) — see
+        # _analyze_fix.
+
+        velocity_enu = velocity_residual_hz = fdoa_out = None
+        velocity_sigma = None
+        caf_info = None
+        deramp_note = ""
+        nu_emitter = None
+        motion_detected = False  # significant Doppler seen by the CAF
+        if cfg.solve_velocity:
+            from tdoa_tpu_torch.ops.caf import caf_pairs
+            from tdoa_tpu_torch.solve.fdoa import (
+                solve_velocity_enu,
+                station_doppler_from_pairs,
+            )
+
+            with stage("caf+deramp"):
+                lim = min(int(tgt.shape[-1]), cfg.caf_max_samples)
+                caf_max_lag = min(cfg.max_lag, 2048)
+                caf = caf_pairs(
+                    tgt[:, :, :lim].to(torch.float32),
+                    pairs,
+                    sample_rate=cfg.sample_rate,
+                    max_lag=caf_max_lag,
+                    seg_len=cfg.caf_seg_len,
+                    n_doppler=cfg.caf_n_doppler,
+                )
+                nu = caf.doppler_hz.cpu().numpy().astype(np.float64)
+                # A pair's relative clock drift (measured from the dual
+                # REF blocks) is a delay rate alpha = drift_ppm·1e-6 and
+                # contributes Doppler -f_tgt·alpha that is NOT emitter
+                # motion — subtract it. UNLESS LO compensation already
+                # derotated the blocks: the drift Doppler is then gone
+                # from the signal and adding the (still-real) timing-
+                # drift term would double-correct.
+                drift_nu = (
+                    np.zeros_like(drift_ppm) if lo_ppm is not None
+                    else cfg.tgt_freq * 1e-6 * drift_ppm
+                )
+                nu_emitter = nu + drift_nu
+                # The CAF's Doppler grid spacing, from the segment
+                # length caf_pairs ACTUALLY used (resolve_seg shrinks
+                # seg_len by max_lag for the alias-free window).
+                seg_r, _ = resolve_seg(lim, caf_max_lag, cfg.caf_seg_len, None)
+                bin_hz = (cfg.sample_rate / seg_r) / (cfg.caf_n_doppler - 1)
+                # Doppler — emitter motion OR receiver LO offset (the
+                # raw nu carries both) — smears the PLAIN correlation:
+                # exactly what the CAF compensates. When significant,
+                # run deramp-and-correlate: solve per-station frequency
+                # shifts from the raw pairwise Doppler, counter-rotate
+                # each station's TGT block, and re-run the full-
+                # precision plain correlator. The CAF's own delay has
+                # coarse-peak ambiguity on broad narrowband peaks; the
+                # deramped plain path recovers sub-0.01-sample accuracy.
+                deramped = np.abs(nu).max() > 2.0 * bin_hz
+                motion_detected = bool(deramped)
+                if deramped:
+                    s_dop = station_doppler_from_pairs(pairs, nu, len(names))
+                    r2 = _deramp_correlate(
+                        tgt, s_dop, pairs, lim, cfg.max_lag,
+                        cfg.seg_len, cfg.weighting, cfg.sample_rate,
+                    )
+                    r2_delay = r2.delay.cpu().numpy().astype(np.float64)
+                    corrected2 = r2_delay - np.asarray(clock, np.float64)
+                    q2 = r2.quality.cpu().numpy().astype(np.float64)
+                    w2 = (q2 / np.maximum(q2.max(), 1e-9)) ** 2
+                    gated2 = w2 * (q2 >= 5.0)  # same gate as the
+                    # primary solve: a noise-floor pair must not vote
+                    if np.count_nonzero(gated2) >= min(3, len(pairs)):
+                        w2 = gated2
+                    # The deramp re-measures only the TGT block; its
+                    # corrected TDOAs still carry the SAME REF clock
+                    # correction, so the composite σ keeps the REF
+                    # variance term — comparing a TGT-only σ against
+                    # the primary's composite would bias adoption
+                    # toward the deramped set and under-report the
+                    # adopted ellipse.
+                    std2 = np.sqrt(
+                        (r2.delay_std.cpu().numpy().astype(np.float64)
+                         / cfg.sample_rate) ** 2
+                        + ref_var_s2
+                    )
+                    fix2 = solve_fix(
+                        lla,
+                        corrected2 / cfg.sample_rate,
+                        weights=w2,
+                        pair_idx=pairs,
+                        solve_z=cfg.solve_z,
+                        tdoa_sigma_s=std2,
+                    )
+                    # Adopt when the deramp demonstrably SHARPENED the
+                    # measurement (median per-pair σ). The residual test
+                    # alone is a coin flip at 3 stations — 3 TDOAs always
+                    # fit 2 unknowns with near-zero residual, smeared or
+                    # not. The σ test is the physical one: deramping
+                    # re-concentrates the correlation peak, and a failed
+                    # deramp (wrong per-station Doppler solve) leaves σ
+                    # large. A residual win may still adopt, but only when
+                    # σ did not materially degrade (≤1.5×) — otherwise a
+                    # failed deramp that wins the residual coin flip would
+                    # slip through.
+                    med, med2 = np.median(tdoa_std_s), np.median(std2)
+                    if (med2 <= med
+                            or (fix2.rms_residual_m <= fix.rms_residual_m
+                                and med2 <= 1.5 * med)):
+                        # Adopt the deramped measurement WHOLESALE so the
+                        # reported fields stay mutually consistent
+                        # (delays, qualities, sigmas, weights, fix).
+                        fix = fix2
+                        tgt_d = r2_delay
+                        corrected = corrected2
+                        tdoa_s = corrected / cfg.sample_rate
+                        q = q2
+                        w = w2
+                        tdoa_std_s = std2
+                        echo_win = r2.corr.cpu().numpy().astype(np.float64)
+                        deramp_note = " even after Doppler deramp"
+                        warnings.append(
+                            "significant differential Doppler (up to "
+                            f"{np.abs(nu).max():.1f} Hz — emitter motion "
+                            "and/or receiver LO offset): TDOAs re-"
+                            "measured by deramp-and-correlate and the "
+                            "position re-solved"
+                        )
+        # Lobe-shape verdict, now that motion is ruled in or out: a
+        # smeared mover's plain window is EXPECTED to be distorted
+        # whether or not the deramp re-solve was adopted (the σ gate
+        # can reject it without making the distortion multipath), and
+        # a resolvable second source already set secondary_fired (in
+        # any multi_emitter mode) — otherwise a drifting centroid is
+        # the only trace an in-peak echo leaves.
         multipath_flagged = None
         multipath_sigma = None
         echo_sep = None
@@ -1077,15 +1748,21 @@ class TDOAProcessor:
             # calibration table and the measured evidence that delay
             # RE-ESTIMATION is worse than the plain GCC-HT read live
             # there). Clean scenes stay untouched (offset < knee).
-            # Runs UNCONDITIONALLY on the reported TGT windows, because
-            # the statistic is
+            # Runs UNCONDITIONALLY on ``echo_win`` — the reported
+            # measurement's windows — because the statistic is
             # self-gating (clean lobes sit under the knee) while the
             # old motion/secondary stand-down gates silenced it on
             # exactly the scenes that needed it (round-4 calibration:
             # 2 of 3 uncovered multipath tail trials were strong
             # echoes whose 60%+ secondary peaks fired secondary_fired,
             # which then suppressed the σ accounting on the reported
-            # single-emitter fix). A co-channel source OUTSIDE the lobe (distinct peak beyond
+            # single-emitter fix). An adopted deramp reads the
+            # DERAMPED windows, where a true mover's lobes are clean
+            # (offset ~0 ⇒ no inflation) and only genuine echo drag
+            # survives; a non-adopted deramp reports the plain set, so
+            # its plain-window drag — echo or residual motion smear —
+            # belongs in the reported error budget either way. A
+            # co-channel source OUTSIDE the lobe (distinct peak beyond
             # ±60 lags) leaves the centroid alone; one inside it drags
             # the reported fix exactly like an echo and is covered the
             # same way.
@@ -1099,9 +1776,13 @@ class TDOAProcessor:
             )
 
             # Environment confirmation for the σ floor: the drift
-            # statistic on the same windows the offset reads.
-            drift_echo = lobe_drift
-            off_echo = lobe_centroid_offset(win64)
+            # statistic on the SAME windows the offset reads (equal to
+            # lobe_drift unless a deramp adoption swapped the windows).
+            drift_echo = (
+                lobe_drift if echo_win is win64
+                else _lobe_centroid_drift(echo_win)
+            )
+            off_echo = lobe_centroid_offset(echo_win)
             # Third, INDEPENDENT confirmation lane (round 5): dual-REF
             # lobe-shape consistency. A static station-local reflector
             # marks BOTH REF blocks' lobes the same way (~1/3 capture
@@ -1160,7 +1841,8 @@ class TDOAProcessor:
                     lla, tdoa_s, weights=w, pair_idx=pairs,
                     solve_z=cfg.solve_z, tdoa_sigma_s=tdoa_std_s,
                 )
-        if not secondary_fired and np.max(lobe_drift) > 1.0:
+        if (not motion_detected and not secondary_fired
+                and np.max(lobe_drift) > 1.0):
             k_d = int(np.argmax(lobe_drift))
             i_d, j_d = pairs[k_d]
             flagged = lobe_drift > 1.0
@@ -1216,12 +1898,19 @@ class TDOAProcessor:
                 f"echo (or uncompensated emitter motion — rerun with "
                 f"--solve-velocity); {sigma_note}{diag_note}"
             )
-        # The TDOA set is final now: run the consistency gate, outlier rejection, ghost/prior/power
+        # The TDOA set is final now (plain or deramp-adopted): run the
+        # consistency gate, outlier rejection, ghost/prior/power
         # analysis, and the out-of-prior warning on what will actually
         # be reported.
         fix, w, excluded_stations, ghost_verdict = self._analyze_fix(
             fix, w, tdoa_s, tdoa_std_s, names, pairs, lla, tgt, ref1,
-            warnings,
+            warnings, deramp_note=deramp_note,
+            # Only Doppler the CAF deemed significant (> 2 grid bins —
+            # the same adaptive gate as the deramp decision) may rank
+            # ghost candidates: below it the "measured" Doppler is
+            # sub-bin interpolation noise and any verdict from it would
+            # be noise-driven.
+            fdoa_hz=nu_emitter if motion_detected else None,
         )
 
         if multipath_sigma is not None and fix.cov_en is not None:
@@ -1275,6 +1964,63 @@ class TDOAProcessor:
                     conf_scales=ECHO_TAIL_CONF_SCALES,
                 )
 
+        if cfg.solve_velocity:
+            with stage("velocity"):
+                # Velocity at the (possibly re-solved) fix, in the solver's
+                # own ENU frame. Weights: the post-analysis w — the deramped
+                # qualities when adopted (the smeared plain correlation's
+                # qualities systematically zero the highest-Doppler pairs),
+                # with any outlier station's pairs zeroed.
+                st_v = lla_to_enu(lla, fix.origin_lla)
+                vsol = solve_velocity_enu(
+                    st_v, pairs, fix.enu, nu_emitter, cfg.tgt_freq,
+                    weights=w, solve_z=cfg.solve_z,
+                    # σ floor: ~1/8 Doppler bin (sub-bin parabolic
+                    # interpolation accuracy) — with barely more pairs than
+                    # unknowns the fit residual underestimates.
+                    fdoa_sigma_floor_hz=bin_hz / 8.0,
+                )
+                velocity_enu = vsol.vel_enu
+                velocity_residual_hz = vsol.residual_hz
+                velocity_sigma = vsol.sigma_enu
+                fdoa_out = nu_emitter
+                # Plausibility check (a warning, not a gate): an FDOA set
+                # mixing two co-channel emitters (or reading a ghost
+                # geometry) "fits" only with an absurd velocity. Flag it so
+                # a mixed-emitter lock is never silent.
+                spd = float(np.linalg.norm(velocity_enu))
+                sig_h = float(np.linalg.norm(velocity_sigma[:2]))
+                if spd > cfg.max_emitter_speed_mps or (
+                    sig_h > cfg.max_emitter_speed_mps / 2.0
+                ):
+                    warnings.append(
+                        f"velocity estimate implausible "
+                        f"({spd:.0f} m/s, 1σ {sig_h:.0f} m/s vs the "
+                        f"{cfg.max_emitter_speed_mps:.0f} m/s emitter "
+                        f"ceiling): the FDOA set likely mixes "
+                        f"co-channel emitters or reads a ghost "
+                        f"geometry — treat the fix and velocity with "
+                        f"suspicion"
+                    )
+                if cfg.multi_emitter > 1:
+                    # Kept for joint (lag, Doppler) association; the host
+                    # copy of the surface is only paid when the
+                    # multi-emitter branch will actually read it.
+                    caf_info = {
+                        "surface": caf.surface.cpu().numpy().astype(np.float64),
+                        "max_lag": caf_max_lag,
+                        "span_hz": cfg.sample_rate / (2.0 * seg_r),
+                        "bin_hz": bin_hz,
+                        "lim": lim,
+                    }
+
+        emitters: Optional[List[EmitterFix]] = None
+        if cfg.multi_emitter > 1:
+            with stage("associate+solve-emitters"):
+                emitters = self._separate_emitters(
+                    caf_info, clock, lla, pairs, names, drift_ppm, lo_ppm,
+                    win64, tdoa_std_s, tgt, warnings)
+
         return TDOAResult(
             fix=fix,
             station_names=names,
@@ -1289,6 +2035,11 @@ class TDOAProcessor:
             tdoa_std_s=tdoa_std_s,
             clock_drift_ppm=drift_ppm,
             warnings=warnings,
+            emitters=emitters,
+            velocity_enu=velocity_enu,
+            velocity_residual_hz=velocity_residual_hz,
+            velocity_sigma_enu=velocity_sigma,
+            fdoa_hz=fdoa_out,
             excluded_stations=excluded_stations or None,
             solve_weights=np.asarray(w, np.float64),
             multipath_flagged=multipath_flagged,

@@ -3,6 +3,8 @@ inputs, made from a numpy seed (or by the JAX simulator), go through
 ``tdoa_tpu`` on the CPU (Pallas kernels in interpret mode) and through
 ``tdoa_tpu_torch`` (its kernels' plain torch versions on CPU tensors)."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -80,3 +82,77 @@ def cuda_sm90():
     if torch.cuda.get_device_capability(dev) != (9, 0):
         pytest.skip("the kernels are built for sm_90a")
     return dev
+
+
+def tables(station_names, station_lla, ref_tx_lla):
+    """The same station table in both packages (JAX's, the port's)."""
+    from tdoa_tpu.io.stations import Station as JStation
+    from tdoa_tpu.io.stations import StationTable as JTable
+    from tdoa_tpu_torch.io.stations import Station, StationTable
+
+    rows = list(zip(station_names, station_lla))
+    return (
+        JTable(stations=[JStation(n, *p) for n, p in rows],
+               reference_tx=JStation("162400000", *ref_tx_lla)),
+        StationTable(stations=[Station(n, *p) for n, p in rows],
+                     reference_tx=Station("162400000", *ref_tx_lla)),
+    )
+
+
+def run_both(sc, cfg, jax_accumulator="auto", port_accumulator="xla"):
+    """One simulated scene through both processors on the CPU:
+    ``tdoa_tpu`` (``accumulator="auto"`` is its segmented XLA path off
+    the TPU) and the port on CPU tensors (``"xla"``, the same path).
+    Returns (jax result, port result, truth, captures)."""
+    from tdoa_tpu.pipeline.processor import ProcessorConfig as JConfig
+    from tdoa_tpu.pipeline.processor import TDOAProcessor as JProcessor
+    from tdoa_tpu.sim.scene import simulate_scene
+    from tdoa_tpu_torch.pipeline.processor import (
+        ProcessorConfig,
+        TDOAProcessor,
+    )
+
+    caps, truth = simulate_scene(sc)
+    jt, tt = tables(sc.station_names, sc.station_lla, sc.ref_tx_lla)
+    freqs = dict(ref_freq=sc.ref_freq, tgt_freq=sc.tgt_freq)
+    rj = JProcessor(JConfig(**freqs, accumulator=jax_accumulator, **cfg),
+                    jt).process_captures(
+        {n: caps[n] for n in sc.station_names})
+    caps_np = {n: tuple(np.asarray(b) for b in caps[n])
+               for n in sc.station_names}
+    rt = TDOAProcessor(ProcessorConfig(**freqs, accumulator=port_accumulator,
+                                       **cfg),
+                       tt, device="cpu").process_captures(caps_np)
+    return rj, rt, truth, caps_np
+
+
+def fix_offset_sigmas(fix, ref_fix):
+    """How far ``fix`` lies from ``ref_fix`` in units of the reference
+    fix's 1σ ellipse (Mahalanobis distance in its ENU plane)."""
+    from tdoa_tpu_torch.geo import lla_to_enu
+
+    d = lla_to_enu(np.array([fix.lat, fix.lon, ref_fix.elev]),
+                   np.array([ref_fix.lat, ref_fix.lon, ref_fix.elev]))[:2]
+    return float(np.sqrt(d @ np.linalg.solve(np.asarray(ref_fix.cov_en), d)))
+
+
+def fix_error_m(fix, tx_lla):
+    """Horizontal distance of a fix from a transmitter, m."""
+    from tdoa_tpu_torch.geo import lla_to_enu
+
+    return float(np.linalg.norm(lla_to_enu(
+        np.array([fix.lat, fix.lon, tx_lla[2]]), tx_lla)[:2]))
+
+
+_NUMBER = re.compile(r"[-+]?\d+(?:\.\d+)?")
+
+
+def assert_warnings_match(wt, wj, rtol=1e-3, atol=0.1):
+    """Same warnings, word for word; the numbers they quote agree to
+    ``rtol`` or ``atol`` (the last printed digit)."""
+    assert len(wt) == len(wj), (wt, wj)
+    for a, b in zip(wt, wj):
+        assert _NUMBER.sub("#", a) == _NUMBER.sub("#", b), (a, b)
+        np.testing.assert_allclose(
+            [float(v) for v in _NUMBER.findall(a)],
+            [float(v) for v in _NUMBER.findall(b)], rtol=rtol, atol=atol)

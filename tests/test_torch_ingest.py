@@ -518,8 +518,6 @@ def test_stream_cli_watch_tail_ingest(small_scene, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--multi-emitter", "2"], "LO compensation, CAF/velocity, multi-emitter"),
-    (["--solve-velocity"], "LO compensation, CAF/velocity, multi-emitter"),
     (["--geojson", "map.json"], "host tools"),
 ])
 def test_stream_cli_names_the_item_of_unported_options(flag, item, tmp_path,
@@ -580,7 +578,8 @@ def test_cuda_overlapped_matches_cpu_and_never_waits(cuda_sm90, tmp_path,
     the same path on the CPU: corrected TDOAs within 1e-3 samples, σ
     within 1e-3 relative. After that warm-up the streaming loop runs
     under ``set_sync_debug_mode("error")``: no chunk synchronises the
-    host with the card."""
+    host with the card, on kernel 1 and on the segmented accumulator
+    (``accumulator="xla"``, whose pair list stays on the card)."""
     from tdoa_tpu_torch.ops.kernels.corr_accum import accumulate_banks
 
     files = _synthetic_files(tmp_path, 20)
@@ -599,15 +598,29 @@ def test_cuda_overlapped_matches_cpu_and_never_waits(cuda_sm90, tmp_path,
                                rtol=1e-3, atol=1e-9)
     views = _views(dict(zip(OMAHA["names"], files)), OMAHA["names"])
     pairs = np.array([[0, 1], [0, 2], [1, 2]])
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        state, _, _ = tingest.accumulate_overlapped(
-            views, pairs, block_len=20 * K_SEG, max_lag=512,
-            device=cuda_sm90)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    assert (state.n_seg, state.n_chunks) == (20, 4)
+    states = {}
+    for acc in ("auto", "xla"):
+        # Warm-up outside the check: the pair list's first copy to the
+        # card, cuFFT plans.
+        tingest.accumulate_overlapped(views, pairs, block_len=20 * K_SEG,
+                                      max_lag=512, accumulator=acc,
+                                      device=cuda_sm90)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            states[acc], _, _ = tingest.accumulate_overlapped(
+                views, pairs, block_len=20 * K_SEG, max_lag=512,
+                accumulator=acc, device=cuda_sm90)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert (states["auto"].n_seg, states["auto"].n_chunks) == (20, 4)
+    cpu, _, _ = tingest.accumulate_overlapped(
+        views, pairs, block_len=20 * K_SEG, max_lag=512, accumulator="xla",
+        device=torch.device("cpu"))
+    got = states["xla"]
+    assert (got.n_seg, got.n_chunks) == (cpu.n_seg, cpu.n_chunks)
+    peak = float(cpu.cross.abs().max())
+    assert float((got.cross.cpu() - cpu.cross).abs().max()) < 1e-4 * peak
 
 
 @pytest.mark.cuda

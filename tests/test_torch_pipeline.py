@@ -160,7 +160,7 @@ def test_cli_json_matches_process_files(slice_run, capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--lo-compensation"], ["--solve-velocity"], ["--multi-emitter", "2"]])
+    ["--geojson", "map.json"], ["--profile"], ["--trace", "trace-dir"]])
 def test_cli_rejects_unported_flags(flag, capsys):
     with pytest.raises(SystemExit) as e:
         port_cli.main(["1", "2", CSV, "a.dat", "b.dat", "c.dat", *flag])
@@ -168,15 +168,39 @@ def test_cli_rejects_unported_flags(flag, capsys):
     assert "not ported" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("field,value", [
-    ("lo_compensation", "auto"), ("solve_velocity", True),
-    ("multi_emitter", 2)])
-def test_unported_options_raise(field, value):
-    proc = TDOAProcessor.from_csv(OMAHA["ref_freq"], OMAHA["tgt_freq"], CSV,
-                                  device="cpu", **{field: value})
-    blocks = tuple(np.zeros(BLOCK, np.complex64) for _ in range(3))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        proc.process_captures({n: blocks for n in OMAHA["names"]})
+def test_batch_route_is_decided_once_per_stations_and_card(monkeypatch):
+    """``load_files`` (decode dtype) and ``process_captures``
+    (accumulator) ask ``_fused_eligible`` at different free memory: the
+    card's verdict is taken once per (stations, card) and both calls —
+    of any processor — get it, even when the free memory would now say
+    otherwise."""
+    from tdoa_tpu_torch.ops.kernels import corr_accum
+    from tdoa_tpu_torch.pipeline import processor as tproc
+
+    answers = iter([True, False, False])
+    asked = []
+
+    def fits(n_st, m, sums, banks, device):
+        asked.append((n_st, m, sums, banks, device))
+        return next(answers)
+
+    monkeypatch.setattr(corr_accum, "fits_device", fits)
+    tproc._fused_fits.cache_clear()
+    try:
+        procs = [TDOAProcessor.from_csv(OMAHA["ref_freq"], OMAHA["tgt_freq"],
+                                        CSV, device="cpu") for _ in range(2)]
+        for p in procs:  # the card's verdict, without touching a card
+            p.device = torch.device("cuda", 0)
+        as_load_files = procs[0]._fused_eligible(3, BLOCK)
+        as_process_captures = procs[0]._fused_eligible(3, BLOCK)
+        assert as_load_files is as_process_captures is True
+        assert procs[1]._fused_eligible(3, BLOCK) is True
+        assert asked == [(3, 3, True, 4, torch.device("cuda", 0))]
+        # Off the kernel's geometry no card is asked at all.
+        assert procs[0]._fused_eligible(3, 1000) is False
+        assert len(asked) == 1
+    finally:
+        tproc._fused_fits.cache_clear()
 
 
 def test_port_imports_without_jax():

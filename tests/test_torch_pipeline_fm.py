@@ -320,4 +320,4 @@ def test_convert_carries_fm_and_segment_settings():
     cfg = convert.config_from_fields(dataclasses.asdict(jcfg))
     assert (cfg.mode, cfg.fm_decim, cfg.seg_len, cfg.accumulator) == (
         "fm", 16, 1 << 14, "xla")
-    assert not {"seg_len", "fm_decim"} & convert.REFERENCE_ONLY_FIELDS
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)

@@ -175,8 +175,7 @@ def test_convert_carries_banks_and_config():
     cfg = convert.config_from_fields(dataclasses.asdict(jcfg))
     shared = dataclasses.asdict(cfg)
     ref = dataclasses.asdict(jcfg)
-    assert set(ref) == set(shared) | convert.REFERENCE_ONLY_FIELDS
-    assert shared == {k: ref[k] for k in shared}
+    assert shared == ref
     with pytest.raises(ValueError, match="unknown"):
         convert.config_from_fields({**dataclasses.asdict(jcfg), "bogus": 1})
 
