@@ -23,9 +23,11 @@ Phases, each printing its own lines; any failure exits non-zero:
              segmented path's 9 pairs of 9 channels; kernel 3: 9
              channels × 20 M samples, D = 8, then 3 channels × 2 M
              samples on rows that are not 16-byte aligned, its scalar
-             loads, and at D = 16), each launched twice on the
-             same input (the outputs must be bitwise equal), then each
-             timed at the main path's shapes beside its bound (bytes
+             loads, and at D = 16; and 4 channels × 20 M samples, D = 8,
+             the audio match's stations and template; no path may
+             launch it at a shape not checked here), each launched twice
+             on the same input (the outputs must be bitwise equal), then
+             each timed at the main path's shapes beside its bound (bytes
              over 3.35 TB/s or f32 operations over 67 TFLOP/s, the
              larger): CUDA events around a loop of wrapper calls
              (``ms``, the host's share included where it is the slower
@@ -75,7 +77,27 @@ Phases, each printing its own lines; any failure exits non-zero:
              Kernel 2 is held to the shapes phase 3 checked, by
              ``(K, m, F)``, as kernel 1 is. Last, the CAF, a block's
              derotation and the deramp re-correlation are timed alone
-             at the processor's shapes.
+             at the processor's shapes;
+7. audio   — scenes made by the port's own simulator on the card
+             (``tdoa_tpu_torch/sim``): (a) a known-audio scene (the TGT
+             emitter broadcasts a 10 s, 44.1 kHz recording of 10 kHz
+             band-limited noise, FM at 50 kHz deviation; the recording
+             written as a WAV), its ``.dat`` files through
+             ``match_captures`` in the audio, rf and auto modes at the
+             reference tests' ``max_lag`` 1024 and an LO span of ±1.5 Hz
+             (``AM_LO_SPAN``; the default ±200 Hz printed beside)
+             (corrected TDOAs within 4
+             samples of the truth and of the pairwise pass, the audio
+             fix within 4 km, auto staying audio; kernel 1 three times,
+             kernel 3 once at 4 × 20 M where the audio domain runs, never
+             in the rf domain), timed in turns with ``process_files``
+             with stage times; the audio_match CLI on the same files
+             (its TDOAs within 1e-6 µs of the in-process run) and at its
+             defaults (printed); the rf domain's peak memory and the
+             CAF's device time over the 10 s block; (b) an FM-threshold
+             scene in memory (auto within 4 samples); (c) the simulator
+             CLI's 30 s files through the processor CLI (0.5 sample,
+             200 m) and the caf_search CLI (0.5 sample, 1 Hz).
 
 The last two lines are the card's ``nvidia-smi`` name and power limit,
 then ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -92,6 +114,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 
@@ -484,15 +507,38 @@ def phase_kernels(dev):
          "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"],
          "library_ms": None, "redesigned": True,
          "bitwise_deterministic": True},
-        k3,
+        *k3,
         *streaming,
     ]
 
 
+# Kernel 3's shapes (channels, samples, decimation): the FM path's 3
+# blocks × 3 stations, the audio match's 3 stations + the template,
+# both over a 10 s block at D = 8; rows off the 16-byte grid and D = 16
+# on 2,000,003 samples.
+K3_SHAPES = ((9, BLOCK, FM_DECIM), (4, BLOCK, FM_DECIM),
+             (3, 2_000_003, FM_DECIM), (3, 2_000_003, 16))
+
+
+def _k3_bound(C: int, n: int, decim: int) -> dict:
+    """Kernel 3's bound: IQ read once (8 bytes a sample), audio written
+    once; operations: the conjugate product and scale (7) and atan2
+    (~20) per sample, a multiply-add per tap per output."""
+    from tdoa_tpu_torch.ops.kernels import fm_demod
+
+    n_out = n // decim
+    return _bound(C * n * 8 + C * n_out * 4,
+                  C * n * 27 + C * n_out * 2 * fm_demod.NUM_TAPS)
+
+
 def _kernel3(dev, g):
-    """Kernel 3 against its plain version at the FM path's shape: the 3
+    """Kernel 3 against its plain version at the FM path's shape (the 3
     blocks × 3 stations of a 30 s capture, 9 channels × 20 M samples of
-    FM-like IQ with noise, D = 8; then both timed."""
+    FM-like IQ with noise, D = 8), at the audio match's (4 channels of
+    a 10 s block: 3 stations and the template), on rows off the 16-byte
+    grid and at D = 16; each launched twice (bitwise-equal outputs), the
+    two full-width shapes timed. Returns one ``kernels`` entry a
+    full-width shape."""
     import torch
 
     from tdoa_tpu_torch.ops.kernels import fm_demod
@@ -506,64 +552,64 @@ def _kernel3(dev, g):
         x[1, c] = 0.3 * torch.sin(phase)
         del step, phase
     x += 0.1 * torch.randn(2, C, n, device=dev, generator=g)
-    got = fm_demod.fm_demod_decimate(x, FS, decim=FM_DECIM)
-    again = fm_demod.fm_demod_decimate(x, FS, decim=FM_DECIM)
-    want = fm_demod.fm_demod_decimate_plain(x, FS, decim=FM_DECIM)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    same = _same(got, again)
-    print(f"fm_demod [{C} ch x {n} samples, D={FM_DECIM}]: max |kernel - "
-          f"plain| = {err:.3e} (tol {K3_TOL:g}); audio peak "
-          f"{float(want.abs().max()):.3f}; two launches bitwise equal: "
-          f"{same}")
-    if not err < K3_TOL:
-        raise RuntimeError("fm_demod disagrees with its plain version")
-    if not same:
-        raise RuntimeError("fm_demod is not deterministic")
-    del got, want, again
-    # Rows off the 16-byte grid (a view that starts one float in: the
-    # kernel's scalar loads) and a second decimation, at a ragged length.
-    n2 = 2_000_003
-    for what, view, decim in (
-            ("unaligned rows", x[:, 3:6, 1:1 + n2], FM_DECIM),
-            ("aligned rows", x[:, 6:9, :n2], 16)):
-        if fm_demod.rows_aligned(view) != (what == "aligned rows"):
-            raise RuntimeError(f"fm_demod [{what}]: not the rows meant")
-        got = fm_demod.fm_demod_decimate(view, FS, decim=decim)
-        want = fm_demod.fm_demod_decimate_plain(view, FS, decim=decim)
+    # The audio match stacks its 4 channels into a fresh [2, 4, n].
+    inputs = {(9, n, FM_DECIM): x, (4, n, FM_DECIM): x[:, :4].contiguous(),
+              (3, 2_000_003, FM_DECIM): x[:, 3:6, 1:2_000_004],
+              (3, 2_000_003, 16): x[:, 6:9, :2_000_003]}
+    if set(inputs) != set(K3_SHAPES):
+        raise RuntimeError(f"kernel 3 inputs {set(inputs)} != {K3_SHAPES}")
+    errs = {}
+    for (c, m, decim), xi in inputs.items():
+        what = ("unaligned rows" if not fm_demod.rows_aligned(xi)
+                else "aligned rows")
+        if (what == "unaligned rows") != (decim == FM_DECIM and m != n):
+            raise RuntimeError(f"fm_demod [{c} ch x {m}]: not the rows meant")
+        got = fm_demod.fm_demod_decimate(xi, FS, decim=decim)
+        again = fm_demod.fm_demod_decimate(xi, FS, decim=decim)
+        want = fm_demod.fm_demod_decimate_plain(xi, FS, decim=decim)
         torch.cuda.synchronize()
-        e2 = float((got - want).abs().max())
-        print(f"fm_demod [3 ch x {n2} samples, {what}, D={decim}]: max "
-              f"|kernel - plain| = {e2:.3e} (tol {K3_TOL:g})")
-        if not e2 < K3_TOL:
+        err = float((got - want).abs().max())
+        same = _same(got, again)
+        errs[(c, m, decim)] = err
+        print(f"fm_demod [{c} ch x {m} samples, {what}, D={decim}]: max "
+              f"|kernel - plain| = {err:.3e} (tol {K3_TOL:g}); audio peak "
+              f"{float(want.abs().max()):.3f}; two launches bitwise equal: "
+              f"{same}")
+        if not err < K3_TOL:
             raise RuntimeError(f"fm_demod disagrees with its plain version "
-                               f"({what})")
-        err = max(err, e2)
-        del got, want
-    k3_call = lambda: fm_demod.fm_demod_decimate(x, FS, decim=FM_DECIM)  # noqa: E731
-    k3_ms = _time_ms(k3_call, 20)
-    k3_dev = _device_ms(k3_call, "fm_demod_kernel", 20)
-    k3_plain = _time_ms(lambda: fm_demod.fm_demod_decimate_plain(
-        x, FS, decim=FM_DECIM), 2)
-    # IQ read once (8 bytes a sample), audio written once; operations:
-    # the conjugate product and scale (7) and atan2 (~20) per sample, a
-    # multiply-add per tap per output.
-    n_out = n // FM_DECIM
-    b3 = _bound(C * n * 8 + C * n_out * 4,
-                C * n * 27 + C * n_out * 2 * fm_demod.NUM_TAPS)
-    print(f"time fm_demod [{C} ch x {n}, D={FM_DECIM}]: kernel {k3_ms:.3f} "
-          f"ms (device time {k3_dev:.3f} ms), plain {k3_plain:.3f} ms, "
-          f"bound {b3['bound_ms']:.4f} ms "
-          f"({b3['bound_by']}: {b3['bytes'] / 1e6:.1f} MB, "
-          f"{b3['ops'] / 1e9:.2f} GFLOP)")
-    del x
-    return {"name": "fm_demod", "route": "cuda",
-            "source": "tdoa_tpu_torch/csrc/fm_demod.cu",
-            "replaces": "tdoa_tpu/ops/pallas/fm_demod.py:189",
-            "max_abs_err": err, "ms": k3_ms, "device_ms": k3_dev,
-            "plain_ms": k3_plain, "bitwise_deterministic": True,
-            "bound_ms": b3["bound_ms"], "bound_by": b3["bound_by"],
-            "library_ms": None, "redesigned": True}
+                               f"at {c} ch x {m}, D={decim}")
+        if not same:
+            raise RuntimeError(f"fm_demod is not deterministic at {c} ch x "
+                               f"{m}, D={decim}")
+        del got, want, again
+    entries = []
+    for c in (9, 4):
+        xi = inputs[(c, n, FM_DECIM)]
+        call = lambda: fm_demod.fm_demod_decimate(xi, FS, decim=FM_DECIM)  # noqa: E731
+        ms = _time_ms(call, 20)
+        dev_ms = _device_ms(call, "fm_demod_kernel", 20)
+        plain = _time_ms(lambda: fm_demod.fm_demod_decimate_plain(
+            xi, FS, decim=FM_DECIM), 2)
+        b3 = _k3_bound(c, n, FM_DECIM)
+        name = "fm_demod" if c == 9 else f"fm_demod[{c}x{n},D={FM_DECIM}]"
+        print(f"time {name} [{c} ch x {n}, D={FM_DECIM}]: kernel {ms:.3f} "
+              f"ms (device time {dev_ms:.3f} ms), plain {plain:.3f} ms, "
+              f"bound {b3['bound_ms']:.4f} ms "
+              f"({b3['bound_by']}: {b3['bytes'] / 1e6:.1f} MB, "
+              f"{b3['ops'] / 1e9:.2f} GFLOP)")
+        entries.append(
+            {"name": name, "route": "cuda",
+             "source": "tdoa_tpu_torch/csrc/fm_demod.cu",
+             "replaces": "tdoa_tpu/ops/pallas/fm_demod.py:189",
+             "shape": [c, n, FM_DECIM],
+             "max_abs_err": (max(errs.values()) if c == 9
+                             else errs[(c, n, FM_DECIM)]),
+             "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+             "bitwise_deterministic": True,
+             "bound_ms": b3["bound_ms"], "bound_by": b3["bound_by"],
+             "library_ms": None, "redesigned": True})
+    del x, inputs
+    return entries
 
 
 def _synthesize(dev, out_dir: Path, lo_ppm=(0.0, 0.0, 0.0), mover_enu=None,
@@ -703,16 +749,23 @@ def _reset_counts(counters):
     """Every launch count and shape count to 0 (then a path runs)."""
     for fn in counters.values():
         fn.launches = 0
-    counters["corr_accum"].launch_shapes.clear()
-    counters["zoom_probe"].launch_shapes.clear()
+        fn.launch_shapes.clear()
+
+
+# Each kernel's launches by shape: kernel 1 by (rows, segments, banks),
+# kernel 2 by (banks, pairs, FFT length), kernel 3 by (channels,
+# samples, decimation).
+SHAPE_KEYS = {"corr_accum": "k1_shapes", "zoom_probe": "k2_shapes",
+              "fm_demod": "k3_shapes"}
 
 
 def _read_counts(counters):
-    """(launches by kernel, kernel 1's launches by (rows, segments,
-    banks), kernel 2's by (banks, pairs, FFT length)) since the reset."""
+    """(launches by kernel, {"k1_shapes": ..., "k2_shapes": ...,
+    "k3_shapes": ...}: each kernel's launches by shape) since the
+    reset."""
     return ({k: fn.launches for k, fn in counters.items()},
-            {str(k): v for k, v in counters["corr_accum"].launch_shapes.items()},
-            {str(k): v for k, v in counters["zoom_probe"].launch_shapes.items()})
+            {SHAPE_KEYS[k]: {str(sh): v for sh, v in fn.launch_shapes.items()}
+             for k, fn in counters.items()})
 
 
 def _run_path(dev, paths, tau_tgt, tgt_tx, name, cfg, tdoa_tol, fix_tol,
@@ -739,7 +792,7 @@ def _run_path(dev, paths, tau_tgt, tgt_tx, name, cfg, tdoa_tol, fix_tol,
     t0 = time.perf_counter()
     res = proc.process_files(paths)  # results are host arrays: synced
     wall = time.perf_counter() - t0
-    launches, shapes, shapes2 = _read_counts(counters)
+    launches, shapes = _read_counts(counters)
     print(f"timed run: process_files {wall:.3f} s  [{_smi()}]")
     print(f"kernel launches in the timed run: {launches}")
     names = res.station_names
@@ -768,8 +821,7 @@ def _run_path(dev, paths, tau_tgt, tgt_tx, name, cfg, tdoa_tol, fix_tol,
     if not fix_err < fix_tol:
         raise RuntimeError(f"{name}: fix {fix_err:.1f} m from the "
                            f"transmitter")
-    return {"wall_s": wall, "launches": launches, "k1_shapes": shapes,
-            "k2_shapes": shapes2,
+    return {"wall_s": wall, "launches": launches, **shapes,
             "tdoa_err_samples": err.tolist(), "fix_err_m": fix_err,
             "tdoa_by_pair": _by_pair(res)}
 
@@ -851,8 +903,7 @@ def phase_overlap(dev, paths, tau_tgt, tgt_tx, fused_by_pair):
     proc.process_files_overlapped(paths)  # warm-up: pinned buffers, plans
     print(f"-- process_files_overlapped: first run "
           f"{time.perf_counter() - t0:.3f} s")
-    res, wall, (launches, shapes, shapes2) = timed(
-        proc.process_files_overlapped)
+    res, wall, (launches, shapes) = timed(proc.process_files_overlapped)
     diag = dict(proc.ingest_diag)
     _, wall_batch, _ = timed(proc.process_files)
     print(f"timed run: process_files_overlapped {wall:.3f} s, process_files "
@@ -860,12 +911,12 @@ def phase_overlap(dev, paths, tau_tgt, tgt_tx, fused_by_pair):
     print(f"chunks {diag['n_chunks']} of {diag['chunk_segs']} segments; "
           f"gather {diag['gather_s'] * 1e3:.1f} ms on the host, copy stream "
           f"{diag['transfer_stream_s'] * 1e3:.1f} ms; kernel launches "
-          f"{launches}, kernel 1 by (rows, segments, banks) {shapes}")
+          f"{launches}, kernel 1 by (rows, segments, banks) "
+          f"{shapes['k1_shapes']}")
     out = {"overlapped": _check_overlap_result(
         "overlapped", res, tau_tgt, tgt_tx, fused_by_pair)}
     out["overlapped"].update(wall_s=wall, batch_wall_s=wall_batch,
-                             launches=launches, diag=diag,
-                             k1_shapes=shapes, k2_shapes=shapes2)
+                             launches=launches, diag=diag, **shapes)
     if launches["corr_accum"] != n_chunks or diag["n_chunks"] != n_chunks:
         raise RuntimeError(f"overlapped: {launches['corr_accum']} launches of "
                            f"kernel 1 for a plan of {n_chunks} chunks")
@@ -928,11 +979,11 @@ def phase_overlap(dev, paths, tau_tgt, tgt_tx, fused_by_pair):
     tail_run()  # warm-up at the 3-row shapes
     _reset_counts(counters)
     res_t, sess, before, after_s = tail_run()
-    launches_t, shapes_t, shapes2_t = _read_counts(counters)
+    launches_t, shapes_t = _read_counts(counters)
     print(f"-- tail session: {before}/{sess.total_chunks} chunks dispatched "
           f"before the last tenth of the files; last byte → fix "
           f"{after_s:.3f} s; launches {launches_t}, kernel 1 by shape "
-          f"{shapes_t}; copy stream "
+          f"{shapes_t['k1_shapes']}; copy stream "
           f"{sess.link_diag['transfer_stream_s'] * 1e3:.1f} ms")
     # Every chunk whose samples lay within the first nine tenths of the
     # files went out before the last tenth arrived (with four or fewer
@@ -947,8 +998,7 @@ def phase_overlap(dev, paths, tau_tgt, tgt_tx, fused_by_pair):
         raise RuntimeError(f"tail: unexpected launches {launches_t}")
     out["tail"] = _check_overlap_result("tail", res_t, tau_tgt, tgt_tx,
                                         fused_by_pair)
-    out["tail"].update(wall_s=after_s, launches=launches_t,
-                       k1_shapes=shapes_t, k2_shapes=shapes2_t,
+    out["tail"].update(wall_s=after_s, launches=launches_t, **shapes_t,
                        chunks_before_close=before,
                        total_chunks=sess.total_chunks)
     print(json.dumps({"overlap": {
@@ -1141,6 +1191,27 @@ def _device_busy_ms(fn, iters: int) -> float:
                if e.device_type == DeviceType.CUDA) / iters / 1e3
 
 
+def _top_device_ops(fn, k: int = 8) -> list:
+    """The ``k`` device-side rows of one ``fn`` call's ``torch.profiler``
+    trace (after a warm-up) with the most self device time: (name, ms,
+    count)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)[:k]
+    return [(e.key[:70], e.self_device_time_total / 1e3, e.count)
+            for e in rows]
+
+
 def _time_motion_ops(dev):
     """The new stages' device work at the processor's shapes, on a
     10 s bf16 block of 3 stations: ``caf_pairs`` over the default 2^21
@@ -1276,7 +1347,7 @@ def phase_motion(dev):
             base = float(np.median(walls[runs[0][0]]))
             timing[scene] = {}
             for name, cfg, check in runs:
-                res, (launches, shapes, shapes2) = first[name]
+                res, (launches, shapes) = first[name]
                 med = float(np.median(walls[name]))
                 st_med = {k: float(np.median([s.get(k, 0.0)
                                               for s in stages[name]]))
@@ -1285,8 +1356,8 @@ def phase_motion(dev):
                       f"(runs {[round(w, 3) for w in walls[name]]}; "
                       f"{med - base:+.3f} s against the plain fused path); "
                       f"stages {({k: round(v, 4) for k, v in st_med.items()})}; "
-                      f"launches {launches}, kernel 1 {shapes}, kernel 2 "
-                      f"{shapes2}")
+                      f"launches {launches}, kernel 1 {shapes['k1_shapes']}, "
+                      f"kernel 2 {shapes['k2_shapes']}")
                 nums = _report(name, res, truth)
                 timing[scene][name] = {"wall_s": walls[name],
                                        "median_s": med, "stages_s": st_med}
@@ -1303,8 +1374,8 @@ def phase_motion(dev):
                         fails += [f"{scene} | {name}: {b}" for b in bad]
                 if len(cfg) > 1:
                     paths_out[f"{scene} | {name}"] = {
-                        "wall_s": med, "launches": launches,
-                        "k1_shapes": shapes, "k2_shapes": shapes2, **nums}
+                        "wall_s": med, "launches": launches, **shapes,
+                        **nums}
             del procs
             torch.cuda.empty_cache()
         finally:
@@ -1313,6 +1384,449 @@ def phase_motion(dev):
     print(json.dumps({"motion": timing, "motion_ops": ops}))
     if fails:
         raise RuntimeError("phase 6: " + "; ".join(fails))
+    return paths_out
+
+
+# Phase 7: audio-pattern matching on scenes the port's own simulator
+# makes on the card: tests/test_audio_match.py's known-audio scene at
+# full width (the TGT emitter broadcasts a 10 s, 44.1 kHz recording of
+# 10 kHz band-limited noise, peak 0.8, FM at 50 kHz deviation), checked
+# at the reference tests' max_lag 1024 with their bounds.
+AUDIO_FS = 44100.0
+AUDIO_DEV = 50e3
+AM_MAX_LAG = 1024
+# The checked runs' LO search span. The rf domain's CAF sums a whole
+# 10 s block coherently, so its Doppler main lobe is 1/T = 0.1 Hz wide;
+# the reference's 64 bins over the default ±200 Hz sit 6.3 Hz apart and
+# miss it (a partial or collapsed rf match; on 2^17-sample blocks, the
+# reference tests' length, the lobe is 15 Hz and the grid resolves it).
+# ±1.5 Hz puts the bins 0.048 Hz apart; the scenes plant no LO offsets.
+# The runs at the default span are printed beside, not checked.
+AM_LO_SPAN = 1.5
+AM_TDOA_TOL = 4.0  # samples, corrected TDOA against the truth
+AM_FIX_TOL = 4000.0  # m, the audio-domain fix
+AM_MODES = ("audio", "rf", "auto")
+AM_ROUNDS = 3
+CLI_TIMEOUT_S = 300
+
+
+def _audio_scene(dev, audio44, **kw):
+    """The known-audio scene over ``lat-lon-table.csv`` (KEVO the target,
+    the other callsign rows the receivers), 30 s, the smoke's clock
+    offsets, the recording resampled to the capture rate on the card."""
+    import numpy as np
+    import torch
+
+    from tdoa_tpu_torch.dsp.filters import resample_fft
+    from tdoa_tpu_torch.io.stations import load_station_table
+    from tdoa_tpu_torch.sim import SimScene
+
+    table = load_station_table(str(ROOT / "lat-lon-table.csv"),
+                               reference_freq=REF_FREQ)
+    names = tuple(n for n in table.names if n != "KEVO")
+    n_res = int(round(len(audio44) * FS / AUDIO_FS))
+    audio_fs = resample_fft(torch.from_numpy(audio44).to(dev),
+                            n_res).cpu().numpy()
+    return SimScene(
+        station_names=names, station_lla=table.lla_array(names),
+        ref_tx_lla=table.reference_tx.lla(), tgt_tx_lla=table["KEVO"].lla(),
+        ref_freq=REF_FREQ, tgt_freq=TGT_FREQ, sample_rate=FS,
+        block_len=BLOCK, clock_offsets_s=np.array(CLOCK_OFFSETS_S),
+        tgt_audio=audio_fs, tgt_deviation_hz=AUDIO_DEV, seed=SEED, **kw)
+
+
+def _truth_errors(res, names, truth):
+    """Corrected TDOAs of ``res`` minus the scene's geometric TGT TDOAs
+    (``names``: the scene's station order of ``truth``)."""
+    import numpy as np
+
+    tau = dict(zip(names, truth.station_delays_samples[:, 1]))
+    return np.asarray(res.corrected_tdoa_samples) - np.array(
+        [tau[res.station_names[j]] - tau[res.station_names[i]]
+         for i, j in res.pair_idx])
+
+
+def _check_audio_match(mode, res, err, fix_err, launches, shapes):
+    """tests/test_audio_match.py's bounds, and the kernels each domain
+    runs: kernel 1 three times at the batch shape (the pairwise pass),
+    kernel 3 once at (4, BLOCK, 8) when the audio domain runs, never in
+    the rf domain."""
+    import numpy as np
+
+    fails = []
+    if not np.all(np.abs(err) < AM_TDOA_TOL):
+        fails.append(f"corrected TDOAs off the truth by {err}")
+    if mode == "audio" and not fix_err < AM_FIX_TOL:
+        fails.append(f"fix {fix_err:.1f} m from the transmitter")
+    agree = res.corrected_tdoa_samples - res.pairwise.corrected_tdoa_samples
+    if not np.all(np.abs(agree) < AM_TDOA_TOL):
+        fails.append(f"template and pairwise TDOAs {agree} apart")
+    if not res.covered_fraction > 0.99:
+        fails.append(f"covered fraction {res.covered_fraction}")
+    if mode == "auto" and (res.mode_used != "audio" or any(
+            "escalated" in w for w in res.warnings)):
+        fails.append(f"auto escalated to {res.mode_used}")
+    if launches["corr_accum"] != 3 or shapes["k1_shapes"] != {
+            str(BATCH_SHAPE): 3}:
+        fails.append(f"pairwise pass: kernel 1 {shapes['k1_shapes']}")
+    k3 = {} if mode == "rf" else {str((4, BLOCK, FM_DECIM)): 1}
+    if launches["fm_demod"] != len(k3) or shapes["k3_shapes"] != k3:
+        fails.append(f"kernel 3 launched {shapes['k3_shapes']}, want {k3}")
+    return fails
+
+
+def _cli(*argv):
+    """Run one of the port's CLIs in its own process from the checkout;
+    its output, or an error with the end of it."""
+    r = subprocess.run([sys.executable, "-m", *argv], cwd=str(ROOT),
+                       capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+    if r.returncode != 0:
+        raise RuntimeError(f"{argv[0]} exited {r.returncode}: "
+                           f"{r.stderr[-2000:]}")
+    return r.stdout
+
+
+def _peak_line(text):
+    """caf_search's (delay samples, Doppler Hz) from its "peak:" line."""
+    import re
+
+    m = re.search(r"peak: delay (\S+) samples .*Doppler (\S+) Hz", text)
+    return float(m.group(1)), float(m.group(2))
+
+
+def _template_phase_error(dev, audio, fs_w):
+    """The largest phase error of the card's template (f32 resampling
+    and cumulative sum) against the same template in float64 on the
+    card, radians."""
+    import numpy as np
+    import torch
+
+    from tdoa_tpu_torch.pipeline.audio_match import template_iq
+
+    tpl, _ = template_iq(audio, fs_w, BLOCK, FS, AUDIO_DEV, device=dev)
+    a = torch.from_numpy(np.asarray(audio, np.float64)).to(dev)
+    n_in = int(a.shape[0])
+    n_res = int(round(n_in * FS / fs_w))  # upsampled, then cut to BLOCK
+    spec = torch.nn.functional.pad(torch.fft.rfft(a),
+                                   (0, n_res // 2 + 1 - (n_in // 2 + 1)))
+    if n_in % 2 == 0:  # an even input's Nyquist bin splits in two
+        spec[n_in // 2] *= 0.5
+    a = torch.fft.irfft(spec, n=n_res)[:BLOCK] * (n_res / n_in)
+    phase = torch.cumsum(a, 0) * (2 * np.pi * AUDIO_DEV / FS)
+    err = torch.atan2(tpl[1], tpl[0]).double() - phase
+    err = torch.remainder(err + np.pi, 2 * np.pi) - np.pi
+    return float(err.abs().max()), float(phase.abs().max())
+
+
+def phase_audio_match(dev):
+    """Phase 7: the known-audio scene through ``match_captures`` in every
+    mode (in turns with the plain ``process_files``), the CLI beside it,
+    the rf domain's memory and device time; the FM-threshold scene; the
+    simulator, processor and caf_search CLIs."""
+    import argparse as _argparse
+
+    import numpy as np
+    import torch
+
+    from tdoa_tpu_torch.cli import simulator as sim_cli
+    from tdoa_tpu_torch.io.wav import read_wav, write_wav
+    from tdoa_tpu_torch.ops.caf import caf_pairs
+    from tdoa_tpu_torch.pipeline import TDOAProcessor
+    from tdoa_tpu_torch.ops.kernels.fm_demod import fm_demod_decimate
+    from tdoa_tpu_torch.pipeline.audio_match import (
+        _median,
+        _template_pairs,
+        _with_template,
+        match_captures,
+        match_template_audio,
+        match_template_rf,
+        rf_segment,
+        template_iq,
+    )
+    from tdoa_tpu_torch.sim import (
+        IDEAL_PROFILE,
+        NoiseProfile,
+        simulate_scene,
+        write_scene_captures,
+    )
+    from tdoa_tpu_torch.sim.scene import compute_truth
+    from tdoa_tpu_torch.sim.source import bandlimited_noise
+
+    print("== phase 7: audio-pattern matching and the simulator")
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "build"))
+    csv = str(ROOT / "lat-lon-table.csv")
+    counters = _counters()
+    paths_out, fails, report = {}, [], {}
+    try:
+        # (a) the known recording, its WAV, the scene's .dat files
+        t0 = time.perf_counter()
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        a = bandlimited_noise(int(10 * AUDIO_FS), 10e3, AUDIO_FS, g)
+        audio44 = (0.8 * a / a.abs().max()).cpu().numpy()
+        wav = tmp / "recording.wav"
+        write_wav(str(wav), AUDIO_FS, audio44)
+        fs_w, audio = read_wav(str(wav))
+        sc = _audio_scene(dev, audio44)
+        files_map, truth = write_scene_captures(sc, str(tmp), prefix="am-",
+                                                device=dev)
+        files = sorted(files_map.values())
+        torch.cuda.synchronize()
+        print(f"-- (a) known-audio scene: recording {len(audio)} samples at "
+              f"{fs_w:.0f} Hz; simulated on the card and written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        proc = TDOAProcessor.from_csv(REF_FREQ, TGT_FREQ, csv, device=dev,
+                                      max_lag=AM_MAX_LAG)
+        plain = TDOAProcessor.from_csv(REF_FREQ, TGT_FREQ, csv, device=dev,
+                                       max_lag=AM_MAX_LAG)
+        proc.timer, plain.timer = _StageTimer(), _StageTimer()
+
+        def run(mode):
+            if mode == "plain":
+                return plain.process_files(files)
+            with proc.timer.stage("load"):
+                caps = proc.load_files(files)
+            return match_captures(proc, caps, audio, fs_w, mode=mode,
+                                  deviation_hz=AUDIO_DEV,
+                                  lo_span_hz=AM_LO_SPAN)
+
+        runs = ("plain", *AM_MODES)
+        for mode in runs:
+            t0 = time.perf_counter()
+            run(mode)  # warm-up: plans, allocator
+            print(f"   {mode}: first run {time.perf_counter() - t0:.3f} s")
+        walls = {m: [] for m in runs}
+        stages = {m: [] for m in runs}
+        first = {}
+        for _ in range(AM_ROUNDS):
+            for mode in runs:
+                timer = plain.timer if mode == "plain" else proc.timer
+                timer.seconds = {}
+                _reset_counts(counters)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = run(mode)  # results are host arrays: synced
+                walls[mode].append(time.perf_counter() - t0)
+                stages[mode].append(dict(timer.seconds))
+                if mode not in first:
+                    first[mode] = (res, _read_counts(counters))
+        print(f"   timed in turns, {AM_ROUNDS} rounds  [{_smi()}]")
+        base = float(np.median(walls["plain"]))
+        timing = {}
+        for mode in runs:
+            res, (launches, shapes) = first[mode]
+            med = float(np.median(walls[mode]))
+            st_med = {k: float(np.median([s_.get(k, 0.0)
+                                          for s_ in stages[mode]]))
+                      for k in stages[mode][0]}
+            timing[mode] = {"wall_s": walls[mode], "median_s": med,
+                            "stages_s": st_med}
+            print(f"-- audio match | {mode}: capture→fix median {med:.3f} s "
+                  f"(runs {[round(w, 3) for w in walls[mode]]}; "
+                  f"{med - base:+.3f} s against process_files); stages "
+                  f"{({k: round(v, 4) for k, v in st_med.items()})}; "
+                  f"launches {launches}, kernel 1 {shapes['k1_shapes']}, "
+                  f"kernel 3 {shapes['k3_shapes']}")
+            if mode == "plain":
+                continue
+            err = _truth_errors(res, sc.station_names, truth)
+            fix_err = _fix_err_m(res.fix, sc.tgt_tx_lla)
+            lo = ("" if res.lo_offset_hz is None else
+                  f"; LO offsets {np.round(res.lo_offset_hz, 3).tolist()} Hz")
+            print(f"   mode_used {res.mode_used}; TDOA err "
+                  f"{np.round(err, 4).tolist()} samples; fix {fix_err:.1f} m; "
+                  f"template − pairwise "
+                  f"{np.round(res.corrected_tdoa_samples - res.pairwise.corrected_tdoa_samples, 4).tolist()}; "
+                  f"PSR {np.round(res.station_quality, 1).tolist()}; covered "
+                  f"{res.covered_fraction:.4f}{lo}")
+            for w in res.warnings:
+                print(f"   warning: {w}")
+            bad = _check_audio_match(mode, res, err, fix_err, launches, shapes)
+            print(f"   checks: {'pass' if not bad else bad}")
+            fails += [f"audio match | {mode}: {b}" for b in bad]
+            paths_out[f"audio match | {mode}"] = {
+                "wall_s": med, "launches": launches, **shapes,
+                "tdoa_err_samples": err.tolist(), "fix_err_m": fix_err}
+        report["timing"] = timing
+        audio_res = first["audio"][0]
+        for mode in ("rf", "auto"):
+            res = match_captures(proc, proc.load_files(files), audio, fs_w,
+                                 mode=mode, deviation_hz=AUDIO_DEV)
+            err = _truth_errors(res, sc.station_names, truth)
+            lo = (None if res.lo_offset_hz is None
+                  else np.round(res.lo_offset_hz, 3).tolist())
+            print(f"-- audio match | {mode} at the default LO span ±200 Hz "
+                  f"(printed, not checked): mode_used {res.mode_used}; TDOA "
+                  f"err {np.round(err, 4).tolist()} samples; PSR "
+                  f"{np.round(res.station_quality, 1).tolist()}; LO offsets "
+                  f"{lo} Hz")
+
+        # The CLI on the same files and WAV, its own process.
+        cli = ["tdoa_tpu_torch.cli.audio_match", str(REF_FREQ), str(TGT_FREQ),
+               csv, str(wav), *files, "--deviation", str(AUDIO_DEV)]
+        t0 = time.perf_counter()
+        out = json.loads(_cli(*cli, "--json", "--max-lag", str(AM_MAX_LAG),
+                              "--lo-span", str(AM_LO_SPAN))
+                         .strip().splitlines()[-1])
+        d_us = float(np.abs(np.array(out["tdoa_us"])
+                            - audio_res.tdoa_seconds * 1e6).max())
+        d_fix = _fix_err_m(audio_res.fix, np.array(
+            [out["fix"]["lat"], out["fix"]["lon"], out["fix"]["elev"]]))
+        print(f"-- audio_match CLI --json (max_lag {AM_MAX_LAG}, "
+              f"{time.perf_counter() - t0:.1f} s): mode_used "
+              f"{out['mode_used']}; tdoa_us {np.round(out['tdoa_us'], 4)}; "
+              f"max |CLI − in-process audio mode| {d_us:.3e} µs; fixes "
+              f"{d_fix:.3e} m apart")
+        if out["stations"] != audio_res.station_names or not d_us < 1e-6 \
+                or not d_fix < 0.01:
+            fails.append(f"audio_match CLI: {d_us} µs, {d_fix} m from the "
+                         f"in-process result")
+        text = _cli(*cli)
+        print("-- audio_match CLI at the defaults (max_lag 20000; printed, "
+              "not checked):")
+        for line in text.strip().splitlines():
+            print(f"   {line}")
+
+        # The rf domain alone: peak memory and the CAF's device time
+        # over the whole 10 s block, at max_lag 1024 and at the default.
+        caps = proc.load_files(files)
+        tgt = torch.stack([caps[n][1].to(torch.float32)
+                           for n in audio_res.station_names], dim=1)
+        del caps
+        tpl, _ = template_iq(audio, fs_w, BLOCK, FS, AUDIO_DEV, device=dev)
+        rf = {}
+        for lag, req in ((AM_MAX_LAG, AM_LO_SPAN), (AM_MAX_LAG, 200.0),
+                         (20000, 200.0)):
+            seg, span = rf_segment(lag, req, FS)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev)
+            match_template_rf(tgt, tpl, FS, max_lag=lag, lo_span_hz=req)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev) - held
+            x = _with_template(tgt, tpl)
+            pairs = _template_pairs(3)
+            caf = lambda: caf_pairs(x, pairs, FS, max_lag=lag,  # noqa: E731
+                                    seg_len=seg, n_doppler=64,
+                                    doppler_span_hz=span, weighting="none")
+            key = f"max_lag {lag}, span {span:g} Hz"
+            rf[key] = {"seg_len": seg, "span_hz": span,
+                       "peak_bytes_above_inputs": peak,
+                       "caf_ms": _time_ms(caf, 2),
+                       "caf_device_ms": _device_busy_ms(caf, 2)}
+            del x
+            print(f"-- rf domain at {key}: segment {seg}; peak memory "
+                  f"{peak / 1e9:.3f} GB above its inputs; CAF over {BLOCK} "
+                  f"samples: {rf[key]['caf_ms']:.3f} ms a call (device time "
+                  f"{rf[key]['caf_device_ms']:.3f} ms)  [{_smi()}]")
+        report["rf_domain"] = rf
+        # The audio domain alone, and its click limiter's medians (two
+        # kthvalue selections a median) on the demodulated [4, L/8].
+        ax = fm_demod_decimate(_with_template(tgt, tpl), FS, decim=FM_DECIM)
+        calls = {
+            "match_template_audio": lambda: match_template_audio(
+                tgt, tpl, FS, decim=FM_DECIM, max_lag=AM_MAX_LAG,
+                seg_len=proc.config.seg_len),
+            "_median [4, L/8]": lambda: _median(ax),
+        }
+        report["audio_domain"] = {}
+        for name, fn in calls.items():
+            t = {"ms": _time_ms(fn, 3), "device_ms": _device_busy_ms(fn, 3),
+                 "top_device_ops": _top_device_ops(fn)}
+            report["audio_domain"][name] = t
+            print(f"-- audio domain: {name}: {t['ms']:.3f} ms a call "
+                  f"(device time {t['device_ms']:.3f} ms); most device "
+                  f"time: " + "; ".join(f"{n} {ms:.3f} ms ×{c}" for n, ms, c
+                                        in t["top_device_ops"]))
+        del ax
+        err_ph, span_ph = _template_phase_error(dev, audio, fs_w)
+        report["template_phase_err_rad"] = err_ph
+        print(f"-- template on the card: phase error against float64 "
+              f"{err_ph:.3e} rad (phase reaches {span_ph:.1f} rad)")
+        del tgt, tpl
+        torch.cuda.empty_cache()
+
+        # (b) FM-threshold channel noise on TGT, in memory.
+        sc_b = _audio_scene(dev, audio44, tgt_profile=NoiseProfile(
+            signal_amplitude=1.0, noise_amplitude=0.6))
+        caps_b, truth_b = simulate_scene(sc_b, device=dev)
+        caps_b = {n: caps_b[n] for n in sc_b.station_names}
+        for mode, span in (("auto", AM_LO_SPAN), ("audio", AM_LO_SPAN),
+                           ("auto", 200.0)):
+            _reset_counts(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = match_captures(proc, caps_b, audio, fs_w, mode=mode,
+                                 deviation_hz=AUDIO_DEV, lo_span_hz=span)
+            wall = time.perf_counter() - t0
+            launches, shapes = _read_counts(counters)
+            err = _truth_errors(res, sc_b.station_names, truth_b)
+            checked = mode == "auto" and span == AM_LO_SPAN
+            if span != AM_LO_SPAN:
+                mode = f"{mode} at the default LO span (printed)"
+            print(f"-- (b) FM-threshold scene | {mode}: {wall:.3f} s; "
+                  f"mode_used {res.mode_used}; TDOA err "
+                  f"{np.round(err, 3).tolist()} samples; PSR "
+                  f"{np.round(res.station_quality, 1).tolist()}; launches "
+                  f"{launches}")
+            for w in res.warnings:
+                print(f"   warning: {w}")
+            paths_out[f"audio match, FM threshold | {mode}"] = {
+                "wall_s": wall, "launches": launches, **shapes,
+                "tdoa_err_samples": err.tolist()}
+            if checked and not np.all(np.abs(err) < AM_TDOA_TOL):
+                fails.append(f"FM threshold | auto: corrected TDOAs off the "
+                             f"truth by {err}")
+        del caps_b
+        torch.cuda.empty_cache()
+
+        # (c) The simulator CLI's files through the processor and
+        # caf_search CLIs, each in its own process.
+        sim_dir = tmp / "sim"
+        sim_dir.mkdir()
+        sim_args = ["--duration-s", "30", "--clock-offsets-us", "12", "-31",
+                    "48"]
+        t0 = time.perf_counter()
+        _cli("tdoa_tpu_torch.cli.simulator", *sim_args, "--out", str(sim_dir))
+        sim_files = sorted(str(p_) for p_ in sim_dir.glob("sim-*.dat"))
+        print(f"-- simulator CLI: {len(sim_files)} files of "
+              f"{Path(sim_files[0]).stat().st_size / 1e6:.0f} MB in "
+              f"{time.perf_counter() - t0:.1f} s")
+        ap = _argparse.ArgumentParser()
+        sim_cli._add_common_args(ap)
+        sc_c = sim_cli.build_scene(ap.parse_args(sim_args), IDEAL_PROFILE,
+                                   IDEAL_PROFILE)
+        truth_c = compute_truth(sc_c)
+        out = json.loads(_cli("tdoa_tpu_torch.cli.processor", str(REF_FREQ),
+                              str(TGT_FREQ), csv, *sim_files, "--json")
+                         .strip().splitlines()[-1])
+        tau = dict(zip(sc_c.station_names,
+                       truth_c.station_delays_samples[:, 1]))
+        err_c = np.array([t * 1e-6 * FS - (tau[b] - tau[a]) for (a, b), t in
+                          zip(out["pairs"], out["tdoa_us"])])
+        fix_c = _fix_err_m(SimpleNamespace(**out["fix"]), sc_c.tgt_tx_lla)
+        print(f"-- processor CLI on them: TDOA err {np.round(err_c, 4)} "
+              f"samples, fix {fix_c:.1f} m")
+        if not (np.all(np.abs(err_c) < 0.5) and fix_c < 200.0):
+            fails.append(f"processor CLI on the simulator's files: {err_c}, "
+                         f"{fix_c:.1f} m")
+        by_name = {n: f for n in sc_c.station_names for f in sim_files
+                   if f"-{n}-" in f}
+        a_, b_ = sc_c.station_names[0], sc_c.station_names[2]
+        delay, dop = _peak_line(_cli("tdoa_tpu_torch.cli.caf_search",
+                                     by_name[a_], by_name[b_]))
+        k = [tuple(q) for q in truth_c.pair_idx.tolist()].index((0, 2))
+        want = float(truth_c.measured_tgt_delay[k])
+        print(f"-- caf_search CLI {a_}-{b_}: delay {delay:+.3f} samples "
+              f"(truth {want:+.3f}), Doppler {dop:+.3f} Hz (truth 0)")
+        if not (abs(delay - want) < 0.5 and abs(dop) < 1.0):
+            fails.append(f"caf_search: delay {delay} (truth {want}), "
+                         f"Doppler {dop}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"audio_match": report}))
+    if fails:
+        raise RuntimeError("phase 7: " + "; ".join(fails))
     return paths_out
 
 
@@ -1361,28 +1875,28 @@ def main() -> int:
     dev = phase_device()
     phase_build()
     if args.kernel3_only:
-        print(json.dumps({"kernels": [_kernel3(
-            dev, torch.Generator(device=dev).manual_seed(SEED))]}))
+        print(json.dumps({"kernels": _kernel3(
+            dev, torch.Generator(device=dev).manual_seed(SEED))}))
         return 0
     kernels = phase_kernels(dev)
     paths = phase_slice(dev)
     paths.update(phase_motion(dev))
-    # Kernels 1 and 2 are held against their plain versions shape by
-    # shape: a path may launch them at no shape that phase 3 did not
-    # check, and each of kernel 1's entries counts the launches at its
-    # own shape.
-    checked = {str(BATCH_SHAPE), *map(str, STREAM_SHAPES)}
-    checked2 = set(map(str, K2_SHAPES))
+    paths.update(phase_audio_match(dev))
+    # Every kernel is held against its plain version shape by shape: a
+    # path may launch it at no shape that phase 3 did not check, and an
+    # entry with a shape counts the launches at that shape.
+    checked = {"k1_shapes": {str(BATCH_SHAPE), *map(str, STREAM_SHAPES)},
+               "k2_shapes": set(map(str, K2_SHAPES)),
+               "k3_shapes": set(map(str, K3_SHAPES))}
     for p, r in paths.items():
-        if set(r["k1_shapes"]) - checked:
-            raise RuntimeError(f"{p}: kernel 1 launched at {r['k1_shapes']}, "
-                               f"phase 3 checked {sorted(checked)}")
-        if set(r["k2_shapes"]) - checked2:
-            raise RuntimeError(f"{p}: kernel 2 launched at {r['k2_shapes']}, "
-                               f"phase 3 checked {sorted(checked2)}")
+        for key, ok in checked.items():
+            if set(r[key]) - ok:
+                raise RuntimeError(f"{p}: {key} {r[key]}, phase 3 checked "
+                                   f"{sorted(ok)}")
     for k in kernels:
-        if "shape" in k:  # kernel 1 at one shape
-            by_path = {p: r["k1_shapes"].get(str(tuple(k["shape"])), 0)
+        if "shape" in k:  # one kernel at one shape
+            key = SHAPE_KEYS[k["name"].split("[")[0]]
+            by_path = {p: r[key].get(str(tuple(k["shape"])), 0)
                        for p, r in paths.items()}
         else:
             by_path = {p: r["launches"][k["name"]] for p, r in paths.items()}

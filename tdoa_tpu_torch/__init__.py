@@ -7,7 +7,10 @@ segment FFT, cross-spectra and banked accumulation
 zoom probe (``ops/kernels/zoom_probe.py``), and plain torch
 (``complex64``, ``torch.fft``) runs the finish stage, the clock
 correction and the solver. CPU tensors take each kernel's plain torch
-version, so the whole path runs, and is tested, without a card.
+version, so the whole path runs, and is tested, without a card. Beside
+it: FM mode (kernel 3, ``ops/kernels/fm_demod.py``), streaming and
+overlapped ingest, the CAF, audio-pattern matching, the scene simulator
+(``sim/``) and the command-line tools (``cli/``).
 
 This package imports ``torch`` and numpy, never ``jax`` or ``tdoa_tpu``.
 """

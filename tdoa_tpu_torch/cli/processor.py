@@ -13,8 +13,10 @@ block, ``--solve-velocity`` adds the CAF/FDOA emitter velocity and
 ``--multi-emitter N`` separates co-channel emitters.
 ``--overlap-ingest`` keeps the files on the host and streams them to the
 device chunk by chunk (``TDOAProcessor.process_files_overlapped``).
-Flags of ``tdoa_tpu.cli.processor`` whose paths are not ported yet are
-accepted and rejected with a message naming the ROADMAP item.
+``--geojson PATH`` also writes the result as a GeoJSON FeatureCollection
+(``io/geojson.py``). Flags of ``tdoa_tpu.cli.processor`` whose paths are
+not ported yet are accepted and rejected with a message naming the
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -31,7 +33,6 @@ from tdoa_tpu_torch.cli import parse_prior, rewrite_prior_argv
 # Flags of the reference CLI this port does not run yet: their default
 # (accepted) and the ROADMAP item that ports them.
 _UNPORTED = {
-    "geojson": (None, "host tools"),
     "profile": (False, "port benchmark"),
     "trace": (None, "port benchmark"),
 }
@@ -105,8 +106,13 @@ def main(argv=None) -> int:
                    help="stream the captures host->device chunk-by-chunk "
                         "with the file read, the copy and the correlation "
                         "overlapped; standard IQ pipeline only")
+    p.add_argument("--geojson", metavar="PATH", default=None,
+                   help="also write the result as a GeoJSON "
+                        "FeatureCollection (stations, fix, 1σ/3σ error "
+                        "ellipses, ghost candidates, emitters, course "
+                        "line) — loads directly in QGIS/Google Earth/"
+                        "geojson.io")
     # Reference flags whose paths are not ported yet.
-    p.add_argument("--geojson", default=None)
     p.add_argument("--profile", action="store_true")
     p.add_argument("--trace", default=None)
     args = p.parse_args(
@@ -158,6 +164,25 @@ def main(argv=None) -> int:
         return 2
     names = res.station_names
     fix = res.fix
+    if args.geojson:
+        from tdoa_tpu_torch.io.geojson import result_feature_collection
+
+        ref_tx = proc.stations.reference_tx
+        fc = result_feature_collection(
+            res, proc.stations.lla_array(names), names,
+            ref_tx_lla=None if ref_tx is None else ref_tx.lla(),
+        )
+        try:
+            with open(args.geojson, "w") as f:
+                json.dump(fc, f)
+        except OSError as e:
+            # A side-output path typo must not discard the fix the
+            # pipeline just spent the whole run computing.
+            print(f"warning: could not write --geojson: {e}",
+                  file=sys.stderr)
+        else:
+            print(f"GeoJSON written to {args.geojson}",
+                  file=sys.stderr if args.json else sys.stdout)
     if args.json:
         print(json.dumps({
             "fix": {"lat": fix.lat, "lon": fix.lon, "elev": fix.elev,

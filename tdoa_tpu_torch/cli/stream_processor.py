@@ -25,8 +25,9 @@ whole read+copy+compute the batch path pays.
 
 ``--multi-emitter N>1`` tracks each separated co-channel emitter as its
 own target; ``--solve-velocity`` feeds each window's CAF/FDOA velocity to
-the tracker. ``--geojson`` needs a module the port does not have yet and
-exits at start-up with the ``ROADMAP.md`` item that ports it.
+the tracker. ``--geojson PATH`` keeps a live map snapshot (stations,
+tracks, their last 1000 fixes as trails), rewritten atomically after
+every window.
 """
 
 from __future__ import annotations
@@ -40,12 +41,6 @@ from collections import defaultdict
 import numpy as np
 
 from tdoa_tpu_torch.cli import parse_prior, rewrite_prior_argv
-
-# Options of the reference CLI whose machinery is not ported yet: their
-# default (accepted) and the ROADMAP item that ports it.
-_UNPORTED = {
-    "geojson": (None, "host tools"),
-}
 
 
 def main(argv=None) -> int:
@@ -142,11 +137,6 @@ def main(argv=None) -> int:
     args = p.parse_args(
         rewrite_prior_argv(sys.argv[1:] if argv is None else argv)
     )
-    for name, (default, item) in _UNPORTED.items():
-        if getattr(args, name) != default:
-            p.error(f"--{name.replace('_', '-')} is not ported to "
-                    f"tdoa_tpu_torch yet (ROADMAP.md: \"{item}\"); "
-                    f"use python -m tdoa_tpu.cli.stream_processor")
     prior = None if args.prior is None else parse_prior(args.prior, p.error)
     if args.overlap_ingest is not None:
         if args.overlap_ingest <= 0:
@@ -279,10 +269,7 @@ def main(argv=None) -> int:
     # through this (even single-emitter ones) so identity survives
     # 1 <-> 2 emitter transitions.
     emitter_refs: dict = {}  # id -> (TDOA set samples, epoch)
-    # id -> [[lat, lon], ...]: the map trails of --geojson. Not filled
-    # here until that option is ported, but carried through --state so a
-    # state file moves between this service and the reference's.
-    track_history: dict = {}
+    track_history: dict = {}  # id -> [[lat, lon], ...] for map trails
     emitter_seq = 0
     seen_warnings: set = set()  # print each distinct warning once
     restored_processed: set = set()
@@ -684,6 +671,21 @@ def main(argv=None) -> int:
                 except OSError as e:
                     print(f"warning: could not append --jsonl: {e}",
                           file=sys.stderr)
+            if args.geojson:
+                # Trail for the map snapshot only; capped so a
+                # run-forever --watch service neither grows without
+                # bound nor rewrites an ever-larger file each window.
+                trail = track_history.setdefault(tid, [])
+                trail.append([float(tlla[0]), float(tlla[1])])
+                del trail[:-1000]
+        if args.geojson:
+            from tdoa_tpu_torch.io.geojson import tracks_feature_collection
+
+            fc = tracks_feature_collection(
+                tracker, table.lla_array(tracker_order), tracker_order,
+                history=track_history,
+            )
+            _atomic_write_json(args.geojson, fc, "--geojson")
 
     processed = set(restored_processed)
     skipped_thin = set()

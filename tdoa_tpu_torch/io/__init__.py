@@ -5,6 +5,7 @@ from tdoa_tpu_torch.io.datfile import (
     save_dat,
     split_blocks,
 )
+from tdoa_tpu_torch.io.wav import read_wav, write_wav
 from tdoa_tpu_torch.io.stations import (
     Station,
     StationTable,
@@ -22,4 +23,6 @@ __all__ = [
     "StationTable",
     "load_station_table",
     "station_from_filename",
+    "read_wav",
+    "write_wav",
 ]

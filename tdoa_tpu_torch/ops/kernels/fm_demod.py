@@ -28,6 +28,7 @@ kernel's 16-byte loads, any other view its scalar loads.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -101,7 +102,8 @@ def fm_demod_decimate(x: torch.Tensor, sample_rate: float,
 
     CPU tensors take the plain torch version; CUDA tensors launch
     ``csrc/fm_demod.cu`` and count the launch in
-    ``fm_demod_decimate.launches``."""
+    ``fm_demod_decimate.launches`` (and, by ``(C, n, decim)``, in
+    ``fm_demod_decimate.launch_shapes``)."""
     if x.device.type == "cpu":
         return fm_demod_decimate_plain(x, sample_rate, decim)
     from tdoa_tpu_torch.ops.kernels import _build
@@ -131,7 +133,9 @@ def fm_demod_decimate(x: torch.Tensor, sample_rate: float,
     if err != 0:
         raise RuntimeError(f"fm_demod kernel launch failed: CUDA error {err}")
     fm_demod_decimate.launches += 1
+    fm_demod_decimate.launch_shapes[(C, n, decim)] += 1
     return out
 
 
 fm_demod_decimate.launches = 0
+fm_demod_decimate.launch_shapes = collections.Counter()

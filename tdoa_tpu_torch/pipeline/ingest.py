@@ -227,10 +227,8 @@ class TailIngest:
     writer). ``block_len`` — the final per-block sample count — must be
     known up front (the service knows the collection duration); a station
     whose finished file disagrees invalidates the session (``mismatch``),
-    and the caller falls back to the batch path.
-
-    ``adaptive`` is accepted for the reference's signature and ignored:
-    the port plans its chunks once and does not re-plan from link rates.
+    and the caller falls back to the batch path. The chunks are planned
+    once; nothing re-plans them from link rates.
     """
 
     def __init__(
@@ -246,7 +244,6 @@ class TailIngest:
         weighting: str = "ht",
         clock_correction: bool = True,
         chunk_samples: Optional[int] = None,
-        adaptive: bool = True,
         accumulator: str = "auto",
         device: Optional[torch.device] = None,
     ):
@@ -474,7 +471,6 @@ def ingest_overlapped(
     weighting: str = "ht",
     clock_correction: bool = True,
     chunk_samples: Optional[int] = None,
-    adaptive: bool = True,
     diag: Optional[dict] = None,
     accumulator: str = "auto",
     device: Optional[torch.device] = None,
@@ -494,8 +490,7 @@ def ingest_overlapped(
     its own length), defaulting to ``block_len`` everywhere.
 
     ``chunk_samples`` sets the chunk size (default ``DEFAULT_CHUNK_SEGS``
-    segments). ``adaptive`` is accepted for the reference's signature and
-    ignored: the plan is fixed before the first chunk. ``diag``, when
+    segments); the plan is fixed before the first chunk. ``diag``, when
     given, is filled with ``mode`` ("chunked"), ``chunk_segs``,
     ``n_chunks``, ``gather_s`` (host clock around the gathers into the
     staging memory, which are the file reads) and ``transfer_stream_s``

@@ -288,6 +288,20 @@ def test_overlapped_filename_errors(small_scene, tmp_path, case, exc, match):
         _port(**SMALL).process_files_overlapped(files)
 
 
+def test_ingest_takes_no_adaptive_option():
+    """The reference's ``adaptive`` picks a chunk ladder tuned on its
+    tunnel link, which the port does not carry: asking for it is an
+    error, not a setting that is silently dropped."""
+    pair = np.array([[0, 1], [0, 2], [1, 2]], np.int32)
+    with pytest.raises(TypeError, match="adaptive"):
+        tingest.TailIngest(list(OMAHA["names"]), pair, np.zeros(3),
+                           block_len=1 << 15, device="cpu", adaptive=True)
+    host = [np.zeros(3 << 15, np.uint16)] * 3
+    with pytest.raises(TypeError, match="adaptive"):
+        tingest.ingest_overlapped(host, pair, np.zeros(3), block_len=1 << 15,
+                                  device="cpu", adaptive=False)
+
+
 def test_tail_size_mismatch_is_refused(small_scene):
     """A finished file whose block length disagrees with the session's
     means every block-1/2 chunk mixed two blocks: refuse, do not fix."""
@@ -515,18 +529,6 @@ def test_stream_cli_watch_tail_ingest(small_scene, tmp_path, capsys):
     assert rc == 0
     assert "tail-ingest" in io.err and "fell back" not in io.err
     assert "fix" in io.out and "idle for" in io.out
-
-
-@pytest.mark.parametrize("flag,item", [
-    (["--geojson", "map.json"], "host tools"),
-])
-def test_stream_cli_names_the_item_of_unported_options(flag, item, tmp_path,
-                                                       capsys):
-    with pytest.raises(SystemExit) as e:
-        port_stream.main(["1", "2", CSV, str(tmp_path), *flag])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported" in err and item in err
 
 
 def test_stream_cli_without_captures_or_card(tmp_path, capsys):

@@ -159,8 +159,7 @@ def test_cli_json_matches_process_files(slice_run, capsys):
     assert out["stations"] == rt.station_names
 
 
-@pytest.mark.parametrize("flag", [
-    ["--geojson", "map.json"], ["--profile"], ["--trace", "trace-dir"]])
+@pytest.mark.parametrize("flag", [["--profile"], ["--trace", "trace-dir"]])
 def test_cli_rejects_unported_flags(flag, capsys):
     with pytest.raises(SystemExit) as e:
         port_cli.main(["1", "2", CSV, "a.dat", "b.dat", "c.dat", *flag])
