@@ -97,7 +97,33 @@ Phases, each printing its own lines; any failure exits non-zero:
              CAF's device time over the 10 s block; (b) an FM-threshold
              scene in memory (auto within 4 samples); (c) the simulator
              CLI's 30 s files through the processor CLI (0.5 sample,
-             200 m) and the caf_search CLI (0.5 sample, 1 Hz).
+             200 m) and the caf_search CLI (0.5 sample, 1 Hz);
+8. tools   — the capture-quality and station tools on phase 4's files
+             and on impaired copies of the first (TGT clipped, a dead
+             station, +12 bytes of DC on I, the second REF block at a
+             quarter of the power, the file one byte short):
+             ``analyze_capture`` (2^21 samples a block, and the whole
+             10 s block) and ``validate_dat_structure`` on the card and
+             on the CPU (byte fractions, min/max bytes and flags equal,
+             DC within 1e-3 bytes, power within 1e-5 relative, SNR within
+             1e-2 dB, or above 120 dB on both for a dead block, whose
+             noise bins hold only FFT rounding; every planted impairment
+             reported by its own problem line or flag), each pass timed
+             (median of 5 warm runs, the profiler's device time beside);
+             the analyzer, fast_analyzer and reader CLIs in their own
+             processes (exit codes); the gain calibrator against the
+             simulated receiver on the card and the CPU (the same gain
+             history, both frequencies converged); every station tool's
+             CLI in this process, warm (median of 5): analyzer,
+             fast_analyzer, reader, gain_calibrator, a 30 s ``collector
+             --backend sim`` window (written and validated), simple_corr
+             and correlation_sanity (PASS), coverage, snr_analysis; the
+             processor CLI's ``--profile`` (a stage report with
+             load+decode, correlate+clock, solve) and ``--trace DIR``
+             (kernels 1 and 2 as device events in the trace), each
+             launching kernels 1 and 2 three times at shapes phase 3
+             checked, and its capture→fix with and without ``--profile``
+             in turns.
 
 The last two lines are the card's ``nvidia-smi`` name and power limit,
 then ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -1010,26 +1036,6 @@ def phase_overlap(dev, paths, tau_tgt, tgt_tx, fused_by_pair):
     return out
 
 
-class _StageTimer:
-    """A ``TDOAProcessor.timer``: wall seconds of each stage of
-    ``process_captures``, the card synchronised at the stage's end."""
-
-    def __init__(self):
-        self.seconds = {}
-
-    @contextlib.contextmanager
-    def stage(self, name):
-        import torch
-
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            torch.cuda.synchronize()
-            self.seconds[name] = (self.seconds.get(name, 0.0)
-                                  + time.perf_counter() - t0)
-
-
 def _fix_err_m(fix, lla) -> float:
     import numpy as np
 
@@ -1304,6 +1310,7 @@ def phase_motion(dev):
     import torch
 
     from tdoa_tpu_torch.pipeline import TDOAProcessor
+    from tdoa_tpu_torch.utils.profiling import StageTimer
 
     print("== phase 6: LO compensation, CAF/velocity, multi-emitter")
     (ROOT / "build").mkdir(exist_ok=True)
@@ -1327,20 +1334,19 @@ def phase_motion(dev):
                 t0 = time.perf_counter()
                 proc.process_files(files)  # warm-up: plans, allocator
                 print(f"   {name}: first run {time.perf_counter() - t0:.3f} s")
-                proc.timer = _StageTimer()
                 procs.append(proc)
             walls = {name: [] for name, _, _ in runs}
             stages = {name: [] for name, _, _ in runs}
             first = {}
             for _ in range(MOTION_ROUNDS):
                 for (name, cfg, check), proc in zip(runs, procs):
-                    proc.timer.seconds = {}
+                    proc.timer = StageTimer()
                     _reset_counts(counters)
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
                     res = proc.process_files(files)
                     walls[name].append(time.perf_counter() - t0)
-                    stages[name].append(dict(proc.timer.seconds))
+                    stages[name].append(dict(proc.timer.times))
                     if name not in first:
                         first[name] = (res, _read_counts(counters))
             print(f"   timed in turns, {MOTION_ROUNDS} rounds  [{_smi()}]")
@@ -1551,6 +1557,7 @@ def phase_audio_match(dev):
     )
     from tdoa_tpu_torch.sim.scene import compute_truth
     from tdoa_tpu_torch.sim.source import bandlimited_noise
+    from tdoa_tpu_torch.utils.profiling import StageTimer
 
     print("== phase 7: audio-pattern matching and the simulator")
     (ROOT / "build").mkdir(exist_ok=True)
@@ -1579,13 +1586,11 @@ def phase_audio_match(dev):
                                       max_lag=AM_MAX_LAG)
         plain = TDOAProcessor.from_csv(REF_FREQ, TGT_FREQ, csv, device=dev,
                                        max_lag=AM_MAX_LAG)
-        proc.timer, plain.timer = _StageTimer(), _StageTimer()
 
         def run(mode):
             if mode == "plain":
                 return plain.process_files(files)
-            with proc.timer.stage("load"):
-                caps = proc.load_files(files)
+            caps = proc.load_files(files)
             return match_captures(proc, caps, audio, fs_w, mode=mode,
                                   deviation_hz=AUDIO_DEV,
                                   lo_span_hz=AM_LO_SPAN)
@@ -1600,14 +1605,14 @@ def phase_audio_match(dev):
         first = {}
         for _ in range(AM_ROUNDS):
             for mode in runs:
-                timer = plain.timer if mode == "plain" else proc.timer
-                timer.seconds = {}
+                timer = StageTimer()
+                plain.timer = proc.timer = timer
                 _reset_counts(counters)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 res = run(mode)  # results are host arrays: synced
                 walls[mode].append(time.perf_counter() - t0)
-                stages[mode].append(dict(timer.seconds))
+                stages[mode].append(dict(timer.times))
                 if mode not in first:
                     first[mode] = (res, _read_counts(counters))
         print(f"   timed in turns, {AM_ROUNDS} rounds  [{_smi()}]")
@@ -1830,33 +1835,438 @@ def phase_audio_match(dev):
     return paths_out
 
 
-def phase_slice(dev):
-    import torch
+# Phase 8: the capture-quality and station tools on phase 4's files and
+# on impaired copies of the first one.
+TOOL_ROUNDS = 5  # warm runs each tool is timed over (median)
+COLLECT_S = 30  # the collector's window, its default
 
-    print("== phase 4: the slice (3 stations, 30 s capture), three paths")
-    (ROOT / "build").mkdir(exist_ok=True)
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "build"))
-    try:
-        t0 = time.perf_counter()
-        paths, truth = _synthesize(dev, tmp)
-        tau_tgt, tgt_tx = truth["tau_tgt"], truth["tgt_lla"]
-        torch.cuda.synchronize()
-        print(f"synthesized {len(paths)} x {3 * BLOCK} samples in "
-              f"{time.perf_counter() - t0:.1f} s")
-        out = {}
-        for name, cfg, tdoa_tol, fix_tol, must, must_not in PATHS:
-            out[name] = _run_path(dev, paths, tau_tgt, tgt_tx, name, cfg,
-                                  tdoa_tol, fix_tol, must, must_not)
-            torch.cuda.empty_cache()
-        out.update(phase_overlap(dev, paths, tau_tgt, tgt_tx,
-                                 out["fused IQ"]["tdoa_by_pair"]))
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+
+def _impaired(src: str, out_dir: Path) -> dict:
+    """Impaired copies of ``src`` made with numpy on the host: {name:
+    path}. TGT clipped (scaled ×8 about the centre, clamped to 0/255);
+    a dead station (every byte 127/128); +12 bytes of DC on I; the second
+    REF block at a quarter of the power (amplitude halved); the file
+    truncated by one byte."""
+    import numpy as np
+
+    raw = np.fromfile(src, dtype=np.uint8)
+    n = 2 * BLOCK  # bytes per block
+
+    def scaled(b, k):
+        return np.clip(np.floor((b.astype(np.float32) - 127.5) * k + 128.0),
+                       0, 255).astype(np.uint8)
+
+    cases = {}
+    x = raw.copy()
+    x[n:2 * n] = scaled(x[n:2 * n], 8.0)
+    cases["TGT clipped"] = x
+    x = np.full_like(raw, 127)
+    x[1::2] = 128
+    cases["station dead"] = x
+    x = raw.copy()
+    x[0::2] = np.minimum(x[0::2].astype(np.int16) + 12, 255).astype(np.uint8)
+    cases["DC +12 bytes on I"] = x
+    x = raw.copy()
+    x[2 * n:] = scaled(x[2 * n:], 0.5)
+    cases["REF2 at 1/4 power"] = x
+    cases["truncated by a byte"] = raw[:-1]
+    out = {}
+    for k, (name, data) in enumerate(cases.items()):
+        out[name] = str(out_dir / f"impaired{k}.dat")
+        data.tofile(out[name])
     return out
 
 
+def _planted_fails(name, a, rep) -> list:
+    """What must report each planted impairment: the analysis ``a``
+    (default budget) and the structural report ``rep``, both from the
+    card."""
+    from tdoa_tpu_torch.quality import assess_tdoa_suitability
+
+    _, problems = assess_tdoa_suitability(a)
+    has = lambda text, lines: any(text in p_ for p_ in lines)  # noqa: E731
+    want = {
+        "TGT clipped": (a.tgt.is_clipping and not a.ref.is_clipping
+                        and has("TGT: ADC clipping", problems)),
+        "station dead": (a.ref.is_dead and a.tgt.is_dead and all(
+            has(f"block {b}: dead receiver", rep.problems) for b in (1, 2, 3))),
+        "DC +12 bytes on I": (a.ref.dc_offset_i > 10 and all(
+            has(f"block {b}: heavy DC bias", rep.problems) for b in (1, 2, 3))),
+        "REF2 at 1/4 power": (not rep.ref_power_consistent
+                              and has("power-inconsistent", rep.problems)),
+        "truncated by a byte": (not rep.three_block_pattern_ok and has(
+            "does not form 3 equal whole-sample blocks", rep.problems)),
+    }.get(name, rep.ok)  # phase 4's files: no problem
+    return [] if want else [f"{name}: not reported ({rep.problems}, "
+                            f"{problems})"]
+
+
+def _stats_diffs(what, card, cpu) -> list:
+    """One block's metrics, card against CPU: equal byte fractions,
+    min/max bytes and flags; DC within 1e-3 bytes; power within 1e-5
+    relative; SNR within 1e-2 dB. A dead block is a constant whose
+    "noise" bins hold only each FFT's rounding: where the CPU reads its
+    SNR above 120 dB, the card must too."""
+    bad = [f for f in ("clip_fraction", "overload_fraction", "dead_fraction",
+                       "min_byte", "max_byte", "is_clipping", "is_overloaded",
+                       "is_dead", "is_noisy")
+           if getattr(card, f) != getattr(cpu, f)]
+    if max(abs(card.dc_offset_i - cpu.dc_offset_i),
+           abs(card.dc_offset_q - cpu.dc_offset_q)) >= 1e-3:
+        bad.append("dc")
+    if abs(card.power - cpu.power) > 1e-5 * cpu.power:
+        bad.append("power")
+    if cpu.is_dead and cpu.snr_db > 120.0:
+        if not card.snr_db > 120.0:
+            bad.append("snr_db")
+    elif not abs(card.snr_db - cpu.snr_db) < 1e-2:
+        bad.append("snr_db")
+    return [f"{what}: card and CPU differ in {bad}"] if bad else []
+
+
+def _tool(main, argv):
+    """One CLI's ``main`` in this process: (exit code, stdout, stderr)."""
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _median_wall(fn):
+    """(median, all) host seconds of ``TOOL_ROUNDS`` warm calls, the card
+    synchronised before and after each."""
+    import numpy as np
+    import torch
+
+    walls = []
+    for _ in range(TOOL_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return float(np.median(walls)), walls
+
+
+def phase_tools(dev, files, truth, tmp: Path):
+    """Phase 8: the quality pass (card against CPU, planted impairments),
+    the tools' CLIs, gain calibration, a 30 s collector window, the
+    correlation checks, coverage, and the processor's ``--profile`` and
+    ``--trace``."""
+    import numpy as np
+    import torch
+
+    from tdoa_tpu_torch.calib import SimCaptureBackend, calibrate
+    from tdoa_tpu_torch.cli import (analyzer, collector, correlation_sanity,
+                                    coverage, fast_analyzer, gain_calibrator,
+                                    processor, reader, simple_corr,
+                                    snr_analysis)
+    from tdoa_tpu_torch.quality import analyze_capture, validate_dat_structure
+    from tdoa_tpu_torch.quality.analyzer import fast_csv_line
+
+    print("== phase 8: capture quality and station tools")
+    csv = str(ROOT / "lat-lon-table.csv")
+    fails, report = [], {}
+    t0 = time.perf_counter()
+    impaired = _impaired(files[0], tmp)
+    print(f"-- {len(impaired)} impaired copies of {Path(files[0]).name} "
+          f"written in {time.perf_counter() - t0:.1f} s")
+
+    # (a) The quality pass on every file, card against CPU.
+    targets = {**{f"phase 4 {Path(f).name}": f for f in files}, **impaired}
+    card_runs = {}
+    worst = {"snr_db": 0.0, "dc_bytes": 0.0, "power_rel": 0.0}
+    for name, path in targets.items():
+        runs = {}
+        for d in (dev, "cpu"):
+            runs[str(d)] = (
+                analyze_capture(path, device=d),
+                analyze_capture(path, max_samples_per_block=BLOCK, device=d),
+                validate_dat_structure(path, device=d))
+        (a, whole, rep), (a_c, whole_c, rep_c) = runs[str(dev)], runs["cpu"]
+        card_runs[name] = (a, rep)
+        diffs = []
+        for what, x, y in (("default REF", a.ref, a_c.ref),
+                           ("default TGT", a.tgt, a_c.tgt),
+                           ("whole-block REF", whole.ref, whole_c.ref),
+                           ("whole-block TGT", whole.tgt, whole_c.tgt),
+                           *((f"validate block {b + 1}", x, y) for b, (x, y)
+                             in enumerate(zip(rep.block_stats,
+                                              rep_c.block_stats)))):
+            diffs += _stats_diffs(f"{name} | {what}", x, y)
+            if not y.is_dead:
+                worst["snr_db"] = max(worst["snr_db"], abs(x.snr_db - y.snr_db))
+            worst["dc_bytes"] = max(worst["dc_bytes"],
+                                    abs(x.dc_offset_i - y.dc_offset_i),
+                                    abs(x.dc_offset_q - y.dc_offset_q))
+            worst["power_rel"] = max(worst["power_rel"],
+                                     abs(x.power - y.power) / y.power)
+        if rep.problems != rep_c.problems:
+            diffs.append(f"{name}: problems differ: {rep.problems} / "
+                         f"{rep_c.problems}")
+        diffs += _planted_fails(name, a, rep)
+        fails += diffs
+        print(f"-- {name}: REF SNR {a.ref.snr_db:.2f} dB (whole block "
+              f"{whole.ref.snr_db:.2f}), TGT {a.tgt.snr_db:.2f} "
+              f"({whole.tgt.snr_db:.2f}); DC I {a.ref.dc_offset_i:+.3f}; clip "
+              f"TGT {a.tgt.clip_fraction:.6f}; dead REF "
+              f"{a.ref.dead_fraction:.4f}; problems {rep.problems}; card = "
+              f"CPU: {'yes' if not diffs else diffs}")
+
+    report["card_vs_cpu_worst"] = worst
+    print(f"-- card against CPU over {len(targets)} files, every block: "
+          f"fractions, min/max bytes and flags equal; largest |ΔSNR| "
+          f"{worst['snr_db']:.3e} dB (dead blocks aside), |ΔDC| "
+          f"{worst['dc_bytes']:.3e} bytes, |Δpower| "
+          f"{worst['power_rel']:.3e} relative")
+
+    # Times of the quality pass on one file: host wall and device time
+    # (the profiler's device rows: kernels and memsets, not the copy);
+    # the pageable host→card copy of its bytes alone beside it (CUDA
+    # events).
+    f0 = files[0]
+    passes = {  # name: (the pass, the shape of the byte rows it copies)
+        "analyze_capture (2^21 samples a block)": (
+            lambda: analyze_capture(f0, device=dev), (2, 2 << 21)),
+        "analyze_capture (whole 10 s block)": (
+            lambda: analyze_capture(f0, max_samples_per_block=BLOCK,
+                                    device=dev), (2, 2 * BLOCK)),
+        "validate_dat_structure (2^20)": (
+            lambda: validate_dat_structure(f0, device=dev), (3, 2 << 20)),
+    }
+    report["quality_pass"] = {}
+    for name, (fn, shape) in passes.items():
+        fn()  # warm-up: cuFFT plans
+        med, walls = _median_wall(fn)
+        rows = np.zeros(shape, np.uint8)
+        ops = _top_device_ops(fn, 1000)  # every device row of one call
+        t = {"wall_s": walls, "median_s": med,
+             "device_ms": _device_busy_ms(fn, 3),
+             "device_ops": sum(c for _, _, c in ops),
+             "top_device_ops": ops[:12],
+             "copy_ms": _time_ms(lambda: torch.from_numpy(rows).to(dev), 3)}
+        report["quality_pass"][name] = t
+        print(f"-- {name}: median {med * 1e3:.3f} ms of {TOOL_ROUNDS} (runs "
+              f"{[round(w * 1e3, 2) for w in walls]}); device time "
+              f"{t['device_ms']:.3f} ms in {t['device_ops']} device ops; the "
+              f"pageable host→card copy of its "
+              f"{rows.nbytes / 1e6:.1f} MB alone {t['copy_ms']:.3f} ms; most "
+              f"device time: " + "; ".join(
+                  f"{n} {ms:.3f} ms ×{c}" for n, ms, c in t["top_device_ops"])
+              + f"  [{_smi()}]")
+
+    # (b) The CLIs as a user runs them (own processes, in parallel): exit
+    # codes against what the card's in-process results say.
+    a0, rep0 = card_runs[f"phase 4 {Path(f0).name}"]
+    jobs = {
+        "analyzer": (["tdoa_tpu_torch.cli.analyzer", f0],
+                     0 if a0.suitable else 1),
+        "analyzer, TGT clipped": (
+            ["tdoa_tpu_torch.cli.analyzer", impaired["TGT clipped"]], 1),
+        "fast_analyzer": (["tdoa_tpu_torch.cli.fast_analyzer", f0], 0),
+        "reader": (["tdoa_tpu_torch.cli.reader", f0, str(3 * BLOCK / FS)],
+                   0 if rep0.ok else 1),
+        "reader, truncated": (["tdoa_tpu_torch.cli.reader",
+                               impaired["truncated by a byte"]], 1),
+    }
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen([sys.executable, "-m", *argv], cwd=str(ROOT),
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for k, (argv, _) in jobs.items()}
+    outs = {}
+    try:
+        for k, p_ in procs.items():
+            outs[k] = (*p_.communicate(timeout=CLI_TIMEOUT_S), p_.returncode)
+    finally:
+        for p_ in procs.values():
+            if p_.poll() is None:
+                p_.kill()
+                p_.wait()
+    print(f"-- the CLIs in their own processes, in parallel: "
+          f"{time.perf_counter() - t0:.1f} s")
+    for k, (out, err, rc) in outs.items():
+        want = jobs[k][1]
+        print(f"   {k}: exit {rc} (want {want}); last line "
+              f"{out.strip().splitlines()[-1] if out.strip() else err[-300:]!r}")
+        if rc != want:
+            fails.append(f"{k} CLI exited {rc}, want {want}: {err[-500:]}")
+    csv_line = fast_csv_line(analyze_capture(
+        f0, nfft=8192, max_samples_per_block=32768, device=dev))
+    if outs["fast_analyzer"][0].strip() != csv_line:
+        fails.append(f"fast_analyzer CLI printed {outs['fast_analyzer'][0]!r},"
+                     f" in-process {csv_line!r}")
+
+    # (c) Gain calibration, card against CPU.
+    cal = {str(d): calibrate(SimCaptureBackend(), REF_FREQ, TGT_FREQ,
+                             device=d) for d in (dev, "cpu")}
+    for r_card, r_cpu in zip(cal[str(dev)], cal["cpu"]):
+        same = ([g for g, _ in r_card.history] == [g for g, _ in r_cpu.history]
+                and all(abs(s1 - s2) < 1e-2 for (_, s1), (_, s2)
+                        in zip(r_card.history, r_cpu.history)))
+        print(f"-- gain calibration {r_card.freq_hz / 1e6:.1f} MHz on the "
+              f"card: gain {r_card.gain_db:.2f} dB, SNR {r_card.snr_db:.3f} "
+              f"dB, converged {r_card.converged} in {r_card.iterations}; "
+              f"history {[(g, round(s_, 3)) for g, s_ in r_card.history]}; "
+              f"same as the CPU's: {same}")
+        if not (same and r_card.converged and r_cpu.converged):
+            fails.append(f"gain calibration {r_card.freq_hz}: card "
+                         f"{r_card.history}, CPU {r_cpu.history}")
+
+    # (d) Each tool in this process, warm, on the card: exit code, what it
+    # must print, median wall time of TOOL_ROUNDS runs.
+    coll_dir = tmp / "collector"
+    coll_dir.mkdir()
+
+    def collect():
+        for old in coll_dir.glob("*.dat"):
+            old.unlink()
+        return _tool(collector.main, [
+            str(REF_FREQ), str(TGT_FREQ), "0", "kx0u", "--backend", "sim",
+            "--duration", str(COLLECT_S), "--out", str(coll_dir)])
+
+    tools = {
+        "analyzer": (lambda: _tool(analyzer.main, [f0]),
+                     0 if a0.suitable else 1, "TDOA suitability"),
+        "fast_analyzer": (lambda: _tool(fast_analyzer.main, [f0]), 0, "TGT,"),
+        "reader": (lambda: _tool(reader.main, [f0, str(3 * BLOCK / FS)]),
+                   0 if rep0.ok else 1, "RESULT:"),
+        "gain_calibrator --backend sim": (
+            lambda: _tool(gain_calibrator.main, [str(REF_FREQ), str(TGT_FREQ),
+                                                 "--backend", "sim"]),
+            0, "tdoa_tpu_torch.cli.collector --gain1"),
+        f"collector --backend sim --duration {COLLECT_S}": (collect, 0,
+                                                            "Validated:"),
+        "simple_corr": (lambda: _tool(simple_corr.main, []), 0, "ALL PASS"),
+        "correlation_sanity (30 s file)": (
+            lambda: _tool(correlation_sanity.main, [f0]), 0, "\nPASS"),
+        "coverage": (lambda: _tool(coverage.main, [csv]), 0,
+                     "Coverage map:"),
+        "snr_analysis": (lambda: _tool(snr_analysis.main, []), 0,
+                         "Coherent integration gain"),
+    }
+    report["tools"] = {}
+    for name, (fn, want_rc, must_print) in tools.items():
+        rc, out, err = fn()  # warm-up, and the run that is checked
+        ok = rc == want_rc and must_print in out
+        if name.startswith("collector"):
+            made = list(coll_dir.glob("kx0u-*.dat"))
+            ok = ok and len(made) == 1 and made[0].stat().st_size == \
+                2 * 3 * (COLLECT_S * int(FS) // 3)
+        if name.startswith("gain"):
+            ok = ok and out.count("(converged,") == 2
+        med, walls = _median_wall(fn)
+        report["tools"][name] = {"rc": rc, "median_s": med, "wall_s": walls}
+        last = out.strip().splitlines()[-1] if out.strip() else err[-300:]
+        print(f"-- {name}: exit {rc}; median {med:.3f} s of {TOOL_ROUNDS} "
+              f"warm runs (runs {[round(w, 3) for w in walls]}); last line "
+              f"{last!r}  [{_smi()}]")
+        if not ok:
+            fails.append(f"{name}: exit {rc}, output {out[-800:]!r} "
+                         f"{err[-500:]!r}")
+
+    # (e) The processor CLI's --profile and --trace on phase 4's files.
+    counters = _counters()
+    args = [str(REF_FREQ), str(TGT_FREQ), csv, *files, "--json"]
+    _tool(processor.main, args)  # warm-up
+    paths_out = {}
+    trace_dir = tmp / "trace"
+    for label, extra in (("processor --profile", ["--profile"]),
+                         ("processor --trace", ["--trace", str(trace_dir)])):
+        _reset_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc, out, err = _tool(processor.main, [*args, *extra])
+        wall = time.perf_counter() - t0
+        launches, shapes = _read_counts(counters)
+        res = json.loads(out.strip().splitlines()[-1])
+        fix_err = _fix_err_m(SimpleNamespace(**res["fix"]), truth["tgt_lla"])
+        print(f"-- {label}: exit {rc}, {wall:.3f} s, fix {fix_err:.1f} m "
+              f"from the planted transmitter; launches {launches}, kernel 1 "
+              f"{shapes['k1_shapes']}, kernel 2 {shapes['k2_shapes']}")
+        paths_out[label] = {"wall_s": wall, "launches": launches, **shapes,
+                            "fix_err_m": fix_err}
+        if rc != 0 or not fix_err < 200.0:
+            fails.append(f"{label}: exit {rc}, fix {fix_err:.1f} m: "
+                         f"{err[-500:]}")
+        if (launches["corr_accum"], launches["zoom_probe"],
+                launches["fm_demod"]) != (3, 3, 0):
+            fails.append(f"{label}: launches {launches}")
+        if label.endswith("--profile"):
+            report_text = err.split("stage timings:\n", 1)[-1]
+            for line in report_text.strip().splitlines():
+                print(f"   {line}")
+            stages = [line.split()[0] for line in
+                      report_text.strip().splitlines()[1:]]
+            if not {"load+decode", "correlate+clock", "solve"} <= set(stages):
+                fails.append(f"--profile reported stages {stages}")
+    traces = list(trace_dir.glob("trace-*.json"))
+    device_names = []  # the names of the trace's device kernel events
+    if len(traces) == 1:
+        events = json.loads(traces[0].read_text())["traceEvents"]
+        device_names = [e["name"] for e in events
+                        if e.get("cat") == "kernel"]
+    seen = {k: sum(k in n for n in device_names)
+            for k in ("corr_accum_kernel", "zoom_probe_kernel")}
+    print(f"-- --trace wrote {len(traces)} trace(s), "
+          f"{len(device_names)} device kernel events; kernels 1 and 2 "
+          f"among them: {seen} "
+          f"({sorted({n for n in device_names if 'probe' in n or 'accum' in n})})")
+    if not (seen["corr_accum_kernel"] and seen["zoom_probe_kernel"]):
+        fails.append(f"--trace: {len(traces)} traces, device kernels "
+                     f"{sorted(set(device_names))[:20]}")
+    report["trace_kernel_events"] = seen
+
+    # The cost of --profile's stage syncs: capture→fix of the CLI in
+    # turns with the plain run.
+    walls = {"plain": [], "--profile": []}
+    for _ in range(TOOL_ROUNDS):
+        for mode, extra in (("plain", []), ("--profile", ["--profile"])):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _tool(processor.main, [*args, *extra])
+            walls[mode].append(time.perf_counter() - t0)
+    med = {m: float(np.median(w)) for m, w in walls.items()}
+    report["profile_cost"] = {"walls_s": walls, "median_s": med}
+    print(f"-- processor CLI capture→fix in turns, {TOOL_ROUNDS} rounds: "
+          f"plain median {med['plain']:.3f} s (runs "
+          f"{[round(w, 3) for w in walls['plain']]}), --profile "
+          f"{med['--profile']:.3f} s (runs "
+          f"{[round(w, 3) for w in walls['--profile']]}): "
+          f"{med['--profile'] - med['plain']:+.3f} s  [{_smi()}]")
+    print(json.dumps({"tools": report}))
+    if fails:
+        raise RuntimeError("phase 8: " + "; ".join(fails))
+    return paths_out
+
+
+def phase_slice(dev, tmp: Path):
+    """Phases 4 and 5 on a synthesized capture written into ``tmp``;
+    returns (the paths' results, the files, the truth)."""
+    import torch
+
+    print("== phase 4: the slice (3 stations, 30 s capture), three paths")
+    t0 = time.perf_counter()
+    paths, truth = _synthesize(dev, tmp)
+    tau_tgt, tgt_tx = truth["tau_tgt"], truth["tgt_lla"]
+    torch.cuda.synchronize()
+    print(f"synthesized {len(paths)} x {3 * BLOCK} samples in "
+          f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+    for name, cfg, tdoa_tol, fix_tol, must, must_not in PATHS:
+        out[name] = _run_path(dev, paths, tau_tgt, tgt_tx, name, cfg,
+                              tdoa_tol, fix_tol, must, must_not)
+        torch.cuda.empty_cache()
+    out.update(phase_overlap(dev, paths, tau_tgt, tgt_tx,
+                             out["fused IQ"]["tdoa_by_pair"]))
+    return out, paths, truth
+
+
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--kernel3-only", action="store_true",
                     help="phases 1 and 2, then kernel 3's checks and times "
                          "alone (for work on that kernel; prints no result "
@@ -1879,9 +2289,15 @@ def main() -> int:
             dev, torch.Generator(device=dev).manual_seed(SEED))}))
         return 0
     kernels = phase_kernels(dev)
-    paths = phase_slice(dev)
-    paths.update(phase_motion(dev))
-    paths.update(phase_audio_match(dev))
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "build"))
+    try:  # phase 4's files serve phase 8 too
+        paths, files, truth = phase_slice(dev, tmp)
+        paths.update(phase_motion(dev))
+        paths.update(phase_audio_match(dev))
+        paths.update(phase_tools(dev, files, truth, tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     # Every kernel is held against its plain version shape by shape: a
     # path may launch it at no shape that phase 3 did not check, and an
     # entry with a shape counts the launches at that shape.

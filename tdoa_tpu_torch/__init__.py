@@ -10,7 +10,9 @@ correction and the solver. CPU tensors take each kernel's plain torch
 version, so the whole path runs, and is tested, without a card. Beside
 it: FM mode (kernel 3, ``ops/kernels/fm_demod.py``), streaming and
 overlapped ingest, the CAF, audio-pattern matching, the scene simulator
-(``sim/``) and the command-line tools (``cli/``).
+(``sim/``), capture quality (``quality/``, ``dsp/snr.py``), gain
+calibration (``calib/``), stage timing and tracing
+(``utils/profiling.py``) and the command-line tools (``cli/``).
 
 This package imports ``torch`` and numpy, never ``jax`` or ``tdoa_tpu``.
 """

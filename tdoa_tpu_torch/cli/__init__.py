@@ -1,7 +1,29 @@
 """Command-line tools of the PyTorch/CUDA port, each ``python -m
 tdoa_tpu_torch.cli.<name>`` with the argument contract of its
-``tdoa_tpu.cli`` counterpart. They run on the card unless ``--device cpu``
-is given."""
+``tdoa_tpu.cli`` counterpart. The tools that compute on tensors run on
+the card unless ``--device cpu`` is given (``--torch-device cpu`` for the
+collector and the gain calibrator, whose ``--device`` is the reference's
+USB dongle index); ``coverage`` and ``snr_analysis`` are numpy and
+arithmetic only."""
+
+import sys
+
+
+def tool_device(spec, flag: str = "--device"):
+    """The torch device a tool runs on: ``spec`` (``"cpu"``, ``"cuda"``,
+    ``"cuda:1"``), or the card when ``spec`` is None. Without a card it
+    prints the error, naming the tool's own ``flag``, and returns None:
+    the tool then exits with 2."""
+    import torch
+
+    from tdoa_tpu_torch.utils.platform import default_device
+
+    try:
+        return default_device() if spec is None else torch.device(spec)
+    except RuntimeError as e:
+        hint = "" if flag == "--device" else f" (this tool: {flag} cpu)"
+        print(f"error: {e}{hint}", file=sys.stderr)
+        return None
 
 
 def rewrite_prior_argv(argv):

@@ -14,14 +14,16 @@ block, ``--solve-velocity`` adds the CAF/FDOA emitter velocity and
 ``--overlap-ingest`` keeps the files on the host and streams them to the
 device chunk by chunk (``TDOAProcessor.process_files_overlapped``).
 ``--geojson PATH`` also writes the result as a GeoJSON FeatureCollection
-(``io/geojson.py``). Flags of ``tdoa_tpu.cli.processor`` whose paths are
-not ported yet are accepted and rejected with a message naming the
-ROADMAP item.
+(``io/geojson.py``). ``--profile`` prints per-stage timings (each stage
+ends with the card synchronised) to stderr; ``--trace DIR`` writes a
+``torch.profiler`` Chrome trace of the run, the card's kernels included,
+into DIR (``utils/profiling.py``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import sys
@@ -29,13 +31,6 @@ import sys
 import numpy as np
 
 from tdoa_tpu_torch.cli import parse_prior, rewrite_prior_argv
-
-# Flags of the reference CLI this port does not run yet: their default
-# (accepted) and the ROADMAP item that ports them.
-_UNPORTED = {
-    "profile": (False, "port benchmark"),
-    "trace": (None, "port benchmark"),
-}
 
 
 def main(argv=None) -> int:
@@ -112,16 +107,13 @@ def main(argv=None) -> int:
                         "ellipses, ghost candidates, emitters, course "
                         "line) — loads directly in QGIS/Google Earth/"
                         "geojson.io")
-    # Reference flags whose paths are not ported yet.
-    p.add_argument("--profile", action="store_true")
-    p.add_argument("--trace", default=None)
+    p.add_argument("--profile", action="store_true",
+                   help="print per-stage timings (device-synced) to stderr")
+    p.add_argument("--trace", metavar="DIR", default=None,
+                   help="capture a torch.profiler trace (Chrome trace "
+                        "JSON, the card's kernels included) into DIR")
     args = p.parse_args(
         rewrite_prior_argv(sys.argv[1:] if argv is None else argv))
-    for name, (default, item) in _UNPORTED.items():
-        if getattr(args, name) != default:
-            p.error(f"--{name.replace('_', '-')} is not ported to "
-                    f"tdoa_tpu_torch yet (ROADMAP.md: \"{item}\"); "
-                    f"use python -m tdoa_tpu.cli.processor")
     prior = None if args.prior is None else parse_prior(args.prior, p.error)
 
     from tdoa_tpu_torch.pipeline import TDOAProcessor
@@ -155,13 +147,21 @@ def main(argv=None) -> int:
           f"(ref {args.ref_freq/1e6:.4f} MHz, target "
           f"{args.target_freq/1e6:.4f} MHz)",
           file=sys.stderr if args.json else sys.stdout)
+    from tdoa_tpu_torch.utils.profiling import StageTimer, trace
+
+    if args.profile:
+        proc.timer = StageTimer()
+    tracer = trace(args.trace) if args.trace else contextlib.nullcontext()
     try:
-        run = (proc.process_files_overlapped if args.overlap_ingest
-               else proc.process_files)
-        res = run(args.dat_files)
+        with tracer:
+            run = (proc.process_files_overlapped if args.overlap_ingest
+                   else proc.process_files)
+            res = run(args.dat_files)
     except (FileNotFoundError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    if args.profile:
+        print("stage timings:\n" + proc.timer.report(), file=sys.stderr)
     names = res.station_names
     fix = res.fix
     if args.geojson:

@@ -480,10 +480,17 @@ class TDOAProcessor:
         # ``diag``): chunk size and count, gather and copy-stream times.
         self.ingest_diag: dict = {}
         # Optional per-stage wall-clock accounting: any object whose
-        # ``stage(name)`` is a context manager around one stage of
-        # process_captures ("lo-compensate", "correlate+clock", "solve",
-        # "caf+deramp", "velocity", "associate+solve-emitters").
+        # ``stage(name)`` is a context manager around one stage
+        # ("load+decode", "mmap", "lo-compensate", "correlate+clock",
+        # "solve", "re-solve (echo-bias σ)", "caf+deramp", "velocity",
+        # "associate+solve-emitters"), e.g. utils.profiling.StageTimer.
         self.timer = None
+
+    def _stage(self, name: str):
+        """The timer's stage ``name``, or nothing without a timer."""
+        if self.timer is None:
+            return contextlib.nullcontext()
+        return self.timer.stage(name)
 
     @classmethod
     def from_csv(
@@ -1322,8 +1329,7 @@ class TDOAProcessor:
             orig_block_len = min(int(captures[n][0].shape[-1])
                                  for n in names)
             ref1, tgt, ref2 = stack(0), stack(1), stack(2)
-        stage = (self.timer.stage if self.timer is not None
-                 else lambda name: contextlib.nullcontext())
+        stage = self._stage
         warnings: List[str] = []
         lo_ppm = None
         if cfg.lo_compensation == "auto":
@@ -1837,10 +1843,11 @@ class TDOAProcessor:
                 tdoa_std_s = np.sqrt(
                     tdoa_std_s ** 2 + (mp_sigma / cfg.sample_rate) ** 2
                 )
-                fix = solve_fix(
-                    lla, tdoa_s, weights=w, pair_idx=pairs,
-                    solve_z=cfg.solve_z, tdoa_sigma_s=tdoa_std_s,
-                )
+                with stage("re-solve (echo-bias σ)"):
+                    fix = solve_fix(
+                        lla, tdoa_s, weights=w, pair_idx=pairs,
+                        solve_z=cfg.solve_z, tdoa_sigma_s=tdoa_std_s,
+                    )
         if (not motion_detected and not secondary_fired
                 and np.max(lobe_drift) > 1.0):
             k_d = int(np.argmax(lobe_drift))
@@ -2100,28 +2107,29 @@ class TDOAProcessor:
         multi-emitter need whole blocks on device and raise)."""
         captures: Dict[str, HostCapture] = {}
         known = self.stations.names
-        for path in dat_paths:
-            if not os.path.exists(path):
-                raise FileNotFoundError(
-                    f"capture file not found: {path}")
-            st = station_from_filename(path, known)
-            if st is None:
-                raise ValueError(
-                    f"cannot infer station from filename: {path} "
-                    f"(known stations: {', '.join(known)})"
+        with self._stage("mmap"):
+            for path in dat_paths:
+                if not os.path.exists(path):
+                    raise FileNotFoundError(
+                        f"capture file not found: {path}")
+                st = station_from_filename(path, known)
+                if st is None:
+                    raise ValueError(
+                        f"cannot infer station from filename: {path} "
+                        f"(known stations: {', '.join(known)})"
+                    )
+                if st in captures:
+                    raise ValueError(
+                        f"two capture files resolve to station '{st}' "
+                        f"(second: {path}); pass one file per station"
+                    )
+                raw = np.memmap(path, dtype=np.uint8, mode="r")
+                if raw.size < 6:
+                    raise ValueError(f"capture too short: {path}")
+                captures[st] = HostCapture(
+                    u16=iq_bytes_as_u16(raw[: (raw.size // 2) * 2]),
+                    block_len=raw.size // 2 // 3,
                 )
-            if st in captures:
-                raise ValueError(
-                    f"two capture files resolve to station '{st}' "
-                    f"(second: {path}); pass one file per station"
-                )
-            raw = np.memmap(path, dtype=np.uint8, mode="r")
-            if raw.size < 6:
-                raise ValueError(f"capture too short: {path}")
-            captures[st] = HostCapture(
-                u16=iq_bytes_as_u16(raw[: (raw.size // 2) * 2]),
-                block_len=raw.size // 2 // 3,
-            )
         return self.process_captures(captures)
 
     def load_files(
@@ -2147,20 +2155,23 @@ class TDOAProcessor:
         dtype = torch.bfloat16 if fused else torch.float32
         captures: Dict[str, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
         known = self.stations.names
-        for path in dat_paths:
-            if not os.path.exists(path):
-                raise FileNotFoundError(f"capture file not found: {path}")
-            st = station_from_filename(path, known)
-            if st is None:
-                raise ValueError(
-                    f"cannot infer station from filename: {path} "
-                    f"(known stations: {', '.join(known)})"
-                )
-            if st in captures:
-                raise ValueError(
-                    f"two capture files resolve to station '{st}' "
-                    f"(second: {path}); pass one file per station"
-                )
-            cap = load_dat(path, station=st, dtype=dtype, device=self.device)
-            captures[st] = (cap.ref1, cap.tgt, cap.ref2)
+        with self._stage("load+decode"):
+            for path in dat_paths:
+                if not os.path.exists(path):
+                    raise FileNotFoundError(
+                        f"capture file not found: {path}")
+                st = station_from_filename(path, known)
+                if st is None:
+                    raise ValueError(
+                        f"cannot infer station from filename: {path} "
+                        f"(known stations: {', '.join(known)})"
+                    )
+                if st in captures:
+                    raise ValueError(
+                        f"two capture files resolve to station '{st}' "
+                        f"(second: {path}); pass one file per station"
+                    )
+                cap = load_dat(path, station=st, dtype=dtype,
+                               device=self.device)
+                captures[st] = (cap.ref1, cap.tgt, cap.ref2)
         return captures

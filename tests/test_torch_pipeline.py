@@ -24,6 +24,7 @@ try:  # the card's machine has no JAX: there only the `cuda` tests run
 except ModuleNotFoundError:
     pass
 from tdoa_tpu_torch.cli import processor as port_cli
+from tdoa_tpu_torch.io.datfile import save_dat
 from tdoa_tpu_torch.pipeline import TDOAProcessor
 
 REPO = Path(__file__).resolve().parents[1]
@@ -160,11 +161,30 @@ def test_cli_json_matches_process_files(slice_run, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--profile"], ["--trace", "trace-dir"]])
-def test_cli_rejects_unported_flags(flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        port_cli.main(["1", "2", CSV, "a.dat", "b.dat", "c.dat", *flag])
-    assert e.value.code == 2
-    assert "not ported" in capsys.readouterr().err
+def test_cli_rejects_unported_flags(flag, tmp_path, capsys):
+    """The two flags the CLI once rejected as unported now run:
+    ``--profile`` prints the stage timings to stderr, ``--trace DIR``
+    writes a ``torch.profiler`` Chrome trace into DIR."""
+    n = 1 << 16
+    x = fm_block(3, 3 * n, (0.0, 3.5, -7.25), seed=21)
+    files = []
+    for s, name in enumerate(OMAHA["names"]):
+        z = (x[0, s] + 1j * x[1, s]).astype(np.complex64)
+        files.append(str(tmp_path / f"sim-{name}-1.dat"))
+        save_dat(files[-1], z[:n], z[n:2 * n], z[2 * n:])
+    if flag[0] == "--trace":
+        flag = ["--trace", str(tmp_path / flag[1])]
+    rc = port_cli.main([str(OMAHA["ref_freq"]), str(OMAHA["tgt_freq"]), CSV,
+                        *files, "--max-lag", "512", "--device", "cpu", *flag])
+    assert rc == 0
+    err = capsys.readouterr().err
+    if flag[0] == "--profile":
+        report = err.split("stage timings:\n", 1)[1]
+        for stage in ("total", "load+decode", "correlate+clock", "solve"):
+            assert stage in report
+    else:
+        (trace,) = Path(flag[1]).glob("trace-*.json")
+        assert json.loads(trace.read_text())["traceEvents"]
 
 
 def test_batch_route_is_decided_once_per_stations_and_card(monkeypatch):
