@@ -123,7 +123,32 @@ Phases, each printing its own lines; any failure exits non-zero:
              (kernels 1 and 2 as device events in the trace), each
              launching kernels 1 and 2 three times at shapes phase 3
              checked, and its capture→fix with and without ``--profile``
-             in turns.
+             in turns;
+9. sharded — the sequence-parallel step (``tdoa_tpu_torch/parallel``)
+             on phase 4's files, each block cut to its first 440 kernel
+             segments (f32, divisible over 1, 2 and 4 ranks): worlds of
+             1 rank (NCCL) and of 2 and 4 ranks sharing the card (gloo
+             on CUDA tensors), each started by ``parallel.launch.spawn``
+             and running the kernel route (kernel 1 on every rank's
+             chunk) and the segmented route (a warm-up, then a timed run
+             with the counts set to 0 just before it): corrected TDOAs
+             within 1e-3 sample of the unsharded path on the same
+             capture and 0.5 sample of the truth, each rank's wall time
+             and peak memory, kernel launches gathered from the ranks;
+             then ``parallel.dryrun`` on the 4-rank world (meshes of 2
+             and 4 ranks, 3 and 5 stations, within 1e-3 sample of one
+             device). The kernels' shapes here (f32 single-bank chunks
+             of 9 rows, kernel 2 on 2 rank groups, the dry run's) are
+             checked in phase 3;
+10. calibration — the gates of ``scripts/monte_carlo_torch.py`` (every
+             regime, 2 trials, its floor, no silent failure) and of
+             ``scripts/ellipse_calibration_torch.py`` (4 trials of each
+             gated regime, pooled 3σ coverage ≥ 90 %) on the card, at
+             the scripts' own seeds; the trials' kernel shapes (kernel 2
+             on the segmented route's banks — their 2^17- and
+             2^18-sample blocks hold fewer than the 8 kernel segments
+             the kernel route needs — and kernel 3 on the audio-match
+             trial's 4 × 2^17) are checked in phase 3.
 
 The last two lines are the card's ``nvidia-smi`` name and power limit,
 then ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -164,6 +189,28 @@ STREAM_SHAPES = ((9, 96, 1), (9, 59, 1), (3, 96, 1), (3, 59, 1))
 # overlapped paths' stacked blocks (9 pairs), and of a deramp over 2^18
 # samples at max_lag 512 (8 segments of 32256 in FFTs of 32768).
 K2_SHAPES = ((4, 3, 65536), (4, 9, 65536), (4, 3, 32768))
+# Phase 9, the sequence-parallel step on phase 4's capture truncated to
+# 440 kernel segments (divisible over 1, 2 and 4 ranks), f32: kernel 1
+# on each rank's chunk of the 9 stacked rows (one bank, no DC sums) and
+# on the unsharded comparator's K = 4 banks; kernel 2 on 2 rank groups
+# (4 groups: K2_SHAPES). ``parallel.dryrun`` at 4 ranks: kernel 1 on one
+# segment a rank and on its comparator's 4 segments in 2 banks; kernel 2
+# on the segmented route's 1024-point spectra (3 and 5 stations, 3
+# blocks) and on 2 groups of the 3 kernel-route pairs.
+SHARD_SEGS = 440
+SHARD_K1_SHAPES = ((9, 440, 1), (9, 220, 1), (9, 110, 1), (9, 440, 4))
+DRYRUN_K1_SHAPES = ((3, 1, 1), (3, 4, 2))
+SHARD_K2_SHAPES = ((2, 9, 65536), (2, 9, 1024), (4, 9, 1024),
+                   (4, 30, 1024), (2, 3, 65536))
+# Phase 10, the calibration trials: on their 2^17- and 2^18-sample blocks
+# (2 or 5 kernel segments, under the 8 the kernel route needs) the
+# segmented correlator runs, and kernel 2 probes its K = 4 banks of the 3
+# stacked blocks' pairs (3, 4 or 5 stations) in FFTs of 16384 or 32768
+# (K = 2 at 65536 for wild-clocks' max_lag 20000: SHARD_K2_SHAPES);
+# kernel 3 demodulates the audio-match trial's 3 stations and template.
+CAL_K2_SHAPES = ((4, 9, 16384), (4, 9, 32768), (4, 18, 16384),
+                 (4, 30, 16384))
+CAL_K3_SHAPES = ((4, 1 << 17, 8),)
 # Phase 6: receiver LO errors (ppm; pairwise up to 0.3 ppm, 49 Hz at the
 # REF carrier), the mover's ENU velocity (130 m/s) and the static
 # co-channel interferer's position.
@@ -281,18 +328,29 @@ def _bound(n_bytes: float, n_ops: float) -> dict:
             "bytes": n_bytes, "ops": n_ops}
 
 
-def _k1_bound(n_st: int, m: int, n_seg: int, n_banks: int) -> dict:
-    """Kernel 1's bound: bf16 planar input read once; cross, psd and
-    DC-sum banks written once. Operations: a 5·F·log2(F) complex FFT per
-    station and segment, 8 per bin per pair (cross MAC), 4 (PSD) and 2
-    (sums) per bin per station."""
+def _k1_bound(n_st: int, m: int, n_seg: int, n_banks: int,
+              elem_bytes: int = 2, sums: bool = True) -> dict:
+    """Kernel 1's bound: planar input (bf16: 2 bytes an element, f32: 4)
+    read once; cross, psd and (with DC sums) sum banks written once.
+    Operations: a 5·F·log2(F) complex FFT per station and segment, 8 per
+    bin per pair (cross MAC), 4 (PSD) and 2 (sums) per bin per station."""
     from tdoa_tpu_torch.ops.kernels.corr_accum import FFT_LEN as F
     from tdoa_tpu_torch.ops.kernels.corr_accum import SEG_LEN
 
     return _bound(
-        2 * n_st * n_seg * SEG_LEN * 2
-        + n_banks * F * (8 * m + 4 * n_st + 8 * n_st),
-        n_seg * F * (n_st * 5 * 16 + 8 * m + 6 * n_st))
+        2 * n_st * n_seg * SEG_LEN * elem_bytes
+        + n_banks * F * (8 * m + 4 * n_st + (8 * n_st if sums else 0)),
+        n_seg * F * (n_st * 5 * 16 + 8 * m + (6 if sums else 4) * n_st))
+
+
+def _k2_bound(K: int, m: int, n_st: int, F: int) -> dict:
+    """Kernel 2's bound: the cross and PSD banks read once, the windows
+    written once. Operations per (probe row, bin): 8 per lag of the
+    33-lag zoom DFT, ~40 for the LOO weighting and the deramp."""
+    from tdoa_tpu_torch.ops.kernels.zoom_probe import W
+
+    return _bound(K * F * (8 * m + 4 * n_st) + K * m * W * 8,
+                  K * m * F * (8 * W + 40))
 
 
 def _pair_list(n_st: int, stacked: bool) -> list:
@@ -467,12 +525,7 @@ def phase_kernels(dev):
         cross_g, psd_g, pairs, coarse, nseg), 20)
     F, n_st, m = corr_accum.FFT_LEN, 3, len(pairs)
     b1 = _k1_bound(3, len(pairs), 443, K)
-    # Kernel 2: the cross and PSD banks read once, the windows written
-    # once. Operations per (probe row, bin): 8 per lag of the 33-lag
-    # zoom DFT, ~40 for the LOO weighting and the deramp.
-    W = zoom_probe.W
-    b2 = _bound(K * F * (8 * m + 4 * n_st) + K * m * W * 8,
-                K * m * F * (8 * W + 40))
+    b2 = _k2_bound(K, m, n_st, F)
     print(f"time corr_accum [3 st, 443 seg, K={K}]: kernel {k1_ms:.3f} ms "
           f"(device time {k1_dev:.3f} ms), plain {k1_plain:.3f} ms, "
           f"bound {b1['bound_ms']:.4f} ms "
@@ -535,6 +588,7 @@ def phase_kernels(dev):
          "bitwise_deterministic": True},
         *k3,
         *streaming,
+        *_later_shapes(dev, g),
     ]
 
 
@@ -635,6 +689,158 @@ def _kernel3(dev, g):
              "bound_ms": b3["bound_ms"], "bound_by": b3["bound_by"],
              "library_ms": None, "redesigned": True})
     del x, inputs
+    return entries
+
+
+def _k1_block(dev, g, n_seg: int, n_st: int, dtype):
+    """Planar [2, n_st, n_seg·SEG_LEN] noise, every row but the first
+    carrying a delayed copy of the first, with DC, as ``dtype``."""
+    import torch
+
+    from tdoa_tpu_torch.ops.kernels.corr_accum import SEG_LEN
+
+    x = torch.randn(2, n_st, n_seg * SEG_LEN, device=dev, generator=g)
+    for s in range(1, n_st):
+        x[:, s] += 0.5 * torch.roll(x[:, 0], 11 * s - 70, dims=-1)
+    return (0.3 * x + 0.01).to(dtype).contiguous()
+
+
+def _entry(name, source, replaces, shape, err, call, plain_call, kernel,
+           bound, iters):
+    """A ``kernels`` entry for one kernel at one shape: its check's error,
+    its time (event loop and profiler device time) beside the plain
+    version's and the bound. Prints one line."""
+    ms = _time_ms(call, iters)
+    dev_ms = _device_ms(call, kernel, iters)
+    plain = _time_ms(plain_call, 2)
+    print(f"time {name}: kernel {ms:.4f} ms (device time {dev_ms:.4f} ms), "
+          f"plain {plain:.3f} ms, bound {bound['bound_ms']:.5f} ms "
+          f"({bound['bound_by']}: {bound['bytes'] / 1e6:.2f} MB, "
+          f"{bound['ops'] / 1e9:.3f} GFLOP)")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "shape": list(shape), "max_abs_err": err,
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "library_ms": None, "bitwise_deterministic": True}
+
+
+def _later_shapes(dev, g):
+    """Phase 3 for the shapes phases 9 and 10 give the kernels: each
+    against its plain version (2 launches, bitwise equal), then timed.
+    Kernel 1 at the sharded step's f32 single-bank chunks, its
+    comparator's and the dry run's shapes; kernel 2 at every (K, m, F)
+    of those paths and of the calibration trials not in K2_SHAPES;
+    kernel 3 at the audio-match trial's."""
+    import torch
+
+    from tdoa_tpu_torch.ops.corr import _accumulate_cross_spectra
+    from tdoa_tpu_torch.ops.kernels import corr_accum, fm_demod, zoom_probe
+    from tdoa_tpu_torch.ops.peaks import parabolic_peak
+
+    k1_src = ("tdoa_tpu_torch/csrc/corr_accum.cu",
+              "tdoa_tpu/ops/pallas/corr_accum.py:634")
+    k2_src = ("tdoa_tpu_torch/csrc/zoom_probe.cu",
+              "tdoa_tpu/ops/pallas/zoom_probe.py:244")
+    k3_src = ("tdoa_tpu_torch/csrc/fm_demod.cu",
+              "tdoa_tpu/ops/pallas/fm_demod.py:189")
+    entries = []
+    # Kernel 1 as the sharded paths run it: f32, one bank or the
+    # comparator's banks, no DC sums.
+    for n_st, n_seg, kb in SHARD_K1_SHAPES + DRYRUN_K1_SHAPES:
+        x = _k1_block(dev, g, n_seg, n_st, torch.float32)
+        pn = _pair_list(n_st, stacked=n_st == 9)
+        got = corr_accum.accumulate_banks(x, pn, kb, False)[:2]
+        again = corr_accum.accumulate_banks(x, pn, kb, False)[:2]
+        want = corr_accum.accumulate_banks_plain(x, pn, kb, False)[:2]
+        torch.cuda.synchronize()
+        errs = [_errs(a, b) for a, b in zip(got, want)]
+        a_err, r_err = max(e[0] for e in errs), max(e[1] for e in errs)
+        same = _same(got, again)
+        print(f"corr_accum [{n_st} st, {n_seg} seg, K={kb}, f32]: max "
+              f"|kernel - plain| = {a_err:.3e}, / row peak = {r_err:.3e} "
+              f"(tol {K1_TOL:g}); two launches bitwise equal: {same}")
+        if not (r_err < K1_TOL and same):
+            raise RuntimeError(f"corr_accum at {n_st} st, {n_seg} seg, "
+                               f"K={kb}, f32: error {r_err:.3e}, "
+                               f"deterministic {same}")
+        entries.append(_entry(
+            f"corr_accum[{n_st}x{n_seg},K={kb},f32]", *k1_src,
+            (n_st, n_seg, kb), a_err,
+            lambda: corr_accum.accumulate_banks(x, pn, kb, False),  # noqa: B023
+            lambda: corr_accum.accumulate_banks_plain(x, pn, kb, False),  # noqa: B023
+            "corr_accum_kernel",
+            _k1_bound(n_st, len(pn), n_seg, kb, 4, False), 10))
+        del x, got, again, want
+    # Kernel 2 on banks that the segmented correlator accumulates from
+    # rows with planted integer delays (2 segments a bank), the coarse
+    # delays the planted ones.
+    for K, m, F in SHARD_K2_SHAPES + CAL_K2_SHAPES:
+        # m pairs: of 3 stations, or of 3 stacked blocks of 3, 4 or 5.
+        n_st, grp = {3: (3, 3), 9: (9, 3), 18: (12, 4), 30: (15, 5)}[m]
+        pn = [(grp * b + i, grp * b + j) for b in range(n_st // grp)
+              for i, j in _pair_list(grp, stacked=False)]
+        seg = (3 * F) // 4
+        d = [(11 * (s % grp) - 7 * (s % grp > 0)) for s in range(n_st)]
+        x = torch.randn(2, n_st, 2 * K * seg, device=dev, generator=g)
+        for s in range(n_st):
+            if s % grp:
+                x[:, s] += 0.5 * torch.roll(x[:, s - s % grp], d[s], dims=-1)
+        banks = [_accumulate_cross_spectra(
+            x[..., 2 * k * seg:2 * (k + 1) * seg], pn, seg, F)
+            for k in range(K)]
+        cross = torch.stack([a[0] for a in banks]).contiguous()
+        psd = torch.stack([a[1] for a in banks]).contiguous()
+        coarse = torch.tensor([float(d[j] - d[i]) for i, j in pn],
+                              device=dev)
+        nseg = torch.full((K * m,), 2.0 * (K - 1), device=dev)
+        w_k = zoom_probe.loo_zoom_windows(cross, psd, pn, coarse, nseg)
+        w_again = zoom_probe.loo_zoom_windows(cross, psd, pn, coarse, nseg)
+        w_p = zoom_probe.loo_zoom_windows_plain(cross, psd, pn, coarse, nseg)
+        torch.cuda.synchronize()
+        dd = float((parabolic_peak(w_k.abs())[0]
+                    - parabolic_peak(w_p.abs())[0]).abs().max())
+        a2, r2 = _errs(w_k, w_p)
+        same = _same(w_k, w_again)
+        print(f"zoom_probe [K={K}, m={m}, n_st={n_st}, F={F}]: max |delay "
+              f"kernel - plain| = {dd:.3e} samples (tol {K2_TOL:g}); window "
+              f"max |kernel - plain| = {a2:.3e}, / row peak {r2:.3e}; two "
+              f"launches bitwise equal: {same}")
+        if not (dd < K2_TOL and same):
+            raise RuntimeError(f"zoom_probe at {(K, m, F)}: delay error "
+                               f"{dd:.3e}, deterministic {same}")
+        entry = _entry(
+            f"zoom_probe[{K}x{m}x{F}]", *k2_src, (K, m, F), a2,
+            lambda: zoom_probe.loo_zoom_windows(  # noqa: B023
+                cross, psd, pn, coarse, nseg),  # noqa: B023
+            lambda: zoom_probe.loo_zoom_windows_plain(  # noqa: B023
+                cross, psd, pn, coarse, nseg),  # noqa: B023
+            "zoom_probe_kernel", _k2_bound(K, m, n_st, F), 20)
+        entry["max_delay_err_samples"] = dd
+        entries.append(entry)
+        del x, banks, cross, psd
+    for C, n, decim in CAL_K3_SHAPES:
+        step = torch.randn(C, n, device=dev, generator=g, dtype=torch.float64)
+        phase = torch.cumsum(0.3 * step, -1)
+        x = torch.stack([0.3 * torch.cos(phase), 0.3 * torch.sin(phase)])
+        x = (x + 0.1 * torch.randn(x.shape, device=dev, generator=g,
+                                   dtype=torch.float64)).float().contiguous()
+        got = fm_demod.fm_demod_decimate(x, FS, decim=decim)
+        again = fm_demod.fm_demod_decimate(x, FS, decim=decim)
+        want = fm_demod.fm_demod_decimate_plain(x, FS, decim=decim)
+        torch.cuda.synchronize()
+        err, same = float((got - want).abs().max()), _same(got, again)
+        print(f"fm_demod [{C} ch x {n} samples, D={decim}]: max |kernel - "
+              f"plain| = {err:.3e} (tol {K3_TOL:g}); two launches bitwise "
+              f"equal: {same}")
+        if not (err < K3_TOL and same):
+            raise RuntimeError(f"fm_demod at {(C, n, decim)}: error "
+                               f"{err:.3e}, deterministic {same}")
+        entries.append(_entry(
+            f"fm_demod[{C}x{n},D={decim}]", *k3_src, (C, n, decim), err,
+            lambda: fm_demod.fm_demod_decimate(x, FS, decim=decim),  # noqa: B023
+            lambda: fm_demod.fm_demod_decimate_plain(  # noqa: B023
+                x, FS, decim=decim),  # noqa: B023
+            "fm_demod_kernel", _k3_bound(C, n, decim), 20))
     return entries
 
 
@@ -2242,6 +2448,288 @@ def phase_tools(dev, files, truth, tmp: Path):
     return paths_out
 
 
+# Phase 9: worlds of 1 rank (NCCL) and of 2 and 4 ranks sharing the card
+# (gloo on CUDA tensors), both routes in each.
+SHARD_WORLDS = (1, 2, 4)
+SHARD_ROUTES = ("pallas", "xla")
+# The segmented route's segment: the kernel's own (45056 + max_lag 20000
+# fits its 65536-point FFT), so the 440-segment capture splits into
+# whole segments over every world.
+SHARD_SEG_LEN = 45056
+SHARD_TOL = 1e-3  # samples, sharded against unsharded
+
+
+def _host_blocks(paths, n_use: int):
+    """Phase 4's files as three planar f32 [2, n_st, n_use] host tensors
+    (REF₁, TGT, REF₂), each block cut to its first ``n_use`` samples."""
+    import numpy as np
+    import torch
+
+    from tdoa_tpu_torch.io.datfile import bytes_to_iq_planar
+
+    raws = [np.fromfile(p, dtype=np.uint8) for p in paths]
+    return [torch.stack([bytes_to_iq_planar(torch.from_numpy(
+        raw[2 * b * BLOCK:2 * b * BLOCK + 2 * n_use])) for raw in raws],
+        dim=1) for b in range(3)]
+
+
+def _shard_rank(paths, n_use, pairs, geo, max_lag, dryrun):
+    """One rank of phase 9: the sharded step on each route (a warm-up,
+    then a timed run with the launch counts set to 0 just before it and
+    read just after), the rank's peak device memory; with ``dryrun``,
+    then ``parallel.dryrun`` on the world, its launches counted apart."""
+    import torch
+    import torch.distributed as dist
+
+    from tdoa_tpu_torch.parallel import make_mesh, process_blocks_sharded
+    from tdoa_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    mesh = make_mesh()
+    blocks = _host_blocks(paths, n_use)
+    counters = _counters()
+    out = {"rank": mesh.rank, "backend": dist.get_backend(mesh.group)}
+    for route in SHARD_ROUTES:
+        kw = dict(max_lag=max_lag, seg_len=SHARD_SEG_LEN, accumulator=route)
+        process_blocks_sharded(*blocks, pairs, geo, mesh, **kw)
+        torch.cuda.synchronize()
+        dist.barrier(group=mesh.group)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts(counters)
+        t0 = time.perf_counter()
+        res = process_blocks_sharded(*blocks, pairs, geo, mesh, **kw)
+        corrected = res[0].cpu().numpy()  # waits for the card
+        wall = time.perf_counter() - t0
+        launches, shapes = _read_counts(counters)
+        out[route] = {"corrected": corrected, "std": res[6].cpu().numpy(),
+                      "wall_s": wall,
+                      "peak_bytes": torch.cuda.max_memory_allocated(),
+                      "launches": launches, **shapes}
+    if dryrun:
+        _reset_counts(counters)
+        t0 = time.perf_counter()
+        report = dryrun_multichip(mesh.size, "cuda")
+        launches, shapes = _read_counts(counters)
+        out["dryrun"] = {"report": report, "launches": launches,
+                         "wall_s": time.perf_counter() - t0, **shapes}
+    return out
+
+
+def _sum_counts(runs) -> dict:
+    """Launch counts of several ranks' runs, summed (kernel and shape)."""
+    out = {"launches": {}, **{k: {} for k in SHAPE_KEYS.values()}}
+    for r in runs:
+        for k, v in r["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+        for key in SHAPE_KEYS.values():
+            for sh, v in r[key].items():
+                out[key][sh] = out[key].get(sh, 0) + v
+    return out
+
+
+def phase_sharded(dev, files, truth):
+    """Phase 9: ``tdoa_tpu_torch/parallel`` on phase 4's files (their first
+    440 kernel segments a block, f32): worlds of 1, 2 and 4 ranks, the
+    kernel route and the segmented route in each, against the planted
+    truth (0.5 sample) and the unsharded path on the same capture
+    (1e-3 sample); each rank's wall time and peak memory; kernel
+    launches gathered from the ranks; then ``parallel.dryrun`` on the
+    4-rank world."""
+    import numpy as np
+    import torch
+
+    from tdoa_tpu_torch.ops.corr import (
+        clock_correct_blocks,
+        correlate_pairs_fused,
+    )
+    from tdoa_tpu_torch.ops.kernels.corr_accum import SEG_LEN
+    from tdoa_tpu_torch.parallel.launch import spawn
+    from tdoa_tpu_torch.pipeline.processor import TDOAProcessor, process_blocks
+    from tdoa_tpu_torch.solve.multilateration import station_pairs
+    from tdoa_tpu_torch.utils.constants import DEFAULT_MAX_LAG
+
+    print("== phase 9: the sequence-parallel step (tdoa_tpu_torch/parallel)")
+    names = list(truth["tau_tgt"])  # the files' order
+    pairs = station_pairs(len(names))
+    m = len(pairs)
+    geo = TDOAProcessor.from_csv(
+        REF_FREQ, TGT_FREQ, str(ROOT / "lat-lon-table.csv"), device="cpu",
+    )._ref_geo_tdoa_samples(names, pairs).astype(np.float32)
+    tau = truth["tau_tgt"]
+    want = np.array([tau[names[j]] - tau[names[i]] for i, j in pairs])
+    n_use = SHARD_SEGS * SEG_LEN
+    max_lag = DEFAULT_MAX_LAG
+    paths_out, fails = {}, []
+
+    # The unsharded path on the same capture, on this card: the kernel
+    # route (the 9 stacked rows, demeaned, through the fused correlator)
+    # and the segmented route (process_blocks).
+    blocks = [b.to(dev) for b in _host_blocks(files, n_use)]
+    geo_d = torch.as_tensor(geo, device=dev)
+
+    def unsharded(route):
+        if route == "xla":
+            return process_blocks(*blocks, pairs, geo_d, max_lag=max_lag,
+                                  seg_len=SHARD_SEG_LEN, weighting="ht",
+                                  accumulator="xla")
+        x = torch.cat(blocks, dim=1)
+        x -= x.mean(-1, keepdim=True)
+        all_pairs = (pairs[None] + np.arange(3)[:, None, None] * len(names)
+                     ).reshape(-1, 2)
+        r = correlate_pairs_fused(x, all_pairs, max_lag=max_lag,
+                                  weighting="ht")
+        return clock_correct_blocks(
+            r.delay.reshape(3, m), r.delay_std.reshape(3, m),
+            r.quality.reshape(3, m), r.peak_value.reshape(3, m),
+            r.corr.reshape(3, m, -1), r.corr_c.reshape(3, m, -1), geo_d)
+
+    counters = _counters()
+    single = {}
+    for route in SHARD_ROUTES:
+        unsharded(route)  # warm-up
+        torch.cuda.synchronize()
+        _reset_counts(counters)
+        t0 = time.perf_counter()
+        out = unsharded(route)
+        single[route] = out[0].cpu().numpy()
+        wall = time.perf_counter() - t0
+        launches, shapes = _read_counts(counters)
+        err = single[route] - want
+        print(f"-- unsharded {route}: {wall:.3f} s, corrected TDOAs "
+              f"{single[route].round(4).tolist()} (truth err "
+              f"{err.round(4).tolist()}), 1σ "
+              f"{out[6].cpu().numpy().round(4).tolist()}; launches "
+              f"{launches}, kernel 1 {shapes['k1_shapes']}, kernel 2 "
+              f"{shapes['k2_shapes']}")
+        paths_out[f"unsharded {route} (phase 9)"] = {
+            "wall_s": wall, "launches": launches, **shapes}
+        if not np.all(np.abs(err) < 0.5):
+            fails.append(f"unsharded {route}: truth err {err}")
+    del blocks, out
+    torch.cuda.empty_cache()
+
+    for world in SHARD_WORLDS:
+        t0 = time.perf_counter()
+        ranks = spawn(_shard_rank, world, "cuda", files, n_use, pairs, geo,
+                      max_lag, world == max(SHARD_WORLDS))
+        print(f"-- {world} rank(s), backend {ranks[0]['backend']}: world "
+              f"started, ran and joined in {time.perf_counter() - t0:.1f} s  "
+              f"[{_smi()}]")
+        for route in SHARD_ROUTES:
+            runs = [r[route] for r in ranks]
+            dev_single = max(float(np.abs(r["corrected"] - single[route]
+                                          ).max()) for r in runs)
+            err = runs[0]["corrected"] - want
+            wall = max(r["wall_s"] for r in runs)
+            counts = _sum_counts(runs)
+            print(f"   {route}: corrected TDOAs "
+                  f"{runs[0]['corrected'].round(4).tolist()} (truth err "
+                  f"{err.round(4).tolist()}, max |Δ| vs unsharded "
+                  f"{dev_single:.2e}), 1σ "
+                  f"{runs[0]['std'].round(4).tolist()}; wall per rank "
+                  f"{[round(r['wall_s'], 4) for r in runs]} s, peak memory "
+                  f"per rank {[round(r['peak_bytes'] / 2**20, 1) for r in runs]}"
+                  f" MiB; launches {counts['launches']}, kernel 1 "
+                  f"{counts['k1_shapes']}, kernel 2 {counts['k2_shapes']}")
+            paths_out[f"sharded {route}, {world} rank(s)"] = {
+                "wall_s": wall, "backend": ranks[0]["backend"],
+                "wall_by_rank_s": [r["wall_s"] for r in runs],
+                "peak_bytes_by_rank": [r["peak_bytes"] for r in runs],
+                "max_dev_vs_unsharded": dev_single,
+                "tdoa_err_samples": err.tolist(), **counts}
+            if not (dev_single < SHARD_TOL and np.all(np.abs(err) < 0.5)):
+                fails.append(f"{route} at {world} ranks: {dev_single:.2e} "
+                             f"from unsharded, truth err {err}")
+            if route == "pallas" and counts["launches"]["corr_accum"] != world:
+                fails.append(f"pallas at {world} ranks: kernel 1 launched "
+                             f"{counts['launches']['corr_accum']} times")
+            if world > 1 and counts["launches"]["zoom_probe"] != world:
+                fails.append(f"{route} at {world} ranks: kernel 2 launched "
+                             f"{counts['launches']['zoom_probe']} times")
+        dry = [r["dryrun"] for r in ranks if "dryrun" in r]
+        if dry:
+            worst = max(max(d["report"].values()) for d in dry if
+                        d["report"])
+            counts = _sum_counts(dry)
+            print(f"-- parallel.dryrun on {world} ranks: "
+                  f"{dry[0]['report']}; largest |Δ| {worst:.2e}; launches "
+                  f"{counts['launches']}, kernel 1 {counts['k1_shapes']}, "
+                  f"kernel 2 {counts['k2_shapes']}")
+            paths_out[f"parallel.dryrun, {world} ranks"] = {
+                "wall_s": max(d["wall_s"] for d in dry), **counts}
+            if not worst < SHARD_TOL:
+                fails.append(f"dryrun: {dry[0]['report']}")
+    print(json.dumps({"sharded": {k: {kk: vv for kk, vv in v.items()
+                                      if kk not in SHAPE_KEYS.values()}
+                                  for k, v in paths_out.items()}}))
+    if fails:
+        raise RuntimeError("phase 9: " + "; ".join(fails))
+    return paths_out
+
+
+# Phase 10: the calibration gates of scripts/monte_carlo_torch.py and
+# scripts/ellipse_calibration_torch.py, reduced: the first trials of
+# every Monte Carlo regime and of every gated ellipse regime, at the
+# scripts' own seeds, gated as the scripts gate.
+CAL_MC_TRIALS = 2
+CAL_ELLIPSE_TRIALS = 4
+
+
+def phase_calibration(dev):
+    """Phase 10: the calibration sweeps at reduced size on the card, with
+    their gates (every Monte Carlo regime at its floor and no silent
+    failure; the pooled 3σ coverage of the gated ellipse regimes ≥
+    90 %) and the kernels' launches by shape."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import ellipse_calibration_torch as ec
+    import monte_carlo_torch as mc
+
+    print("== phase 10: calibration gates, reduced")
+    counters = _counters()
+    out = {}
+    _reset_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    failed = silent = 0
+    for regime, floor in mc.REGIMES.items():
+        results = [mc.run_trial(regime, mc.trial_seed(regime, 1000, t), dev)
+                   for t in range(CAL_MC_TRIALS)]
+        f, s, _, _ = mc.summarize(regime, results, floor)
+        failed += f
+        silent += s
+    wall = time.perf_counter() - t0
+    launches, shapes = _read_counts(counters)
+    print(f"-- Monte Carlo, {CAL_MC_TRIALS} trials a regime: {wall:.1f} s, "
+          f"failed regimes {failed}, silent failures {silent}; launches "
+          f"{launches}, kernel 1 {shapes['k1_shapes']}, kernel 2 "
+          f"{shapes['k2_shapes']}, kernel 3 {shapes['k3_shapes']}  "
+          f"[{_smi()}]")
+    out["calibration: Monte Carlo"] = {"wall_s": wall, "launches": launches,
+                                       **shapes}
+    _reset_counts(counters)
+    t0 = time.perf_counter()
+    pooled, n_ghost = {}, 0
+    for regime in ec.GATED:
+        pooled[regime], ghosts = ec.regime_mahas(regime, CAL_ELLIPSE_TRIALS,
+                                                 5000, dev)
+        n_ghost += ghosts
+        print(ec.coverage_line(regime, pooled[regime]), flush=True)
+    covered = ec.pooled_gate(pooled, n_ghost)
+    wall = time.perf_counter() - t0
+    launches, shapes = _read_counts(counters)
+    print(f"-- ellipse calibration, {CAL_ELLIPSE_TRIALS} trials a gated "
+          f"regime: {wall:.1f} s; launches {launches}, kernel 1 "
+          f"{shapes['k1_shapes']}, kernel 2 {shapes['k2_shapes']}")
+    out["calibration: ellipse"] = {"wall_s": wall, "launches": launches,
+                                   **shapes}
+    if failed or silent or not covered:
+        raise RuntimeError(f"phase 10: {failed} regime(s) below the floor, "
+                           f"{silent} silent failure(s), pooled 3σ gate "
+                           f"met: {covered}")
+    return out
+
+
 def phase_slice(dev, tmp: Path):
     """Phases 4 and 5 on a synthesized capture written into ``tmp``;
     returns (the paths' results, the files, the truth)."""
@@ -2296,14 +2784,19 @@ def main() -> int:
         paths.update(phase_motion(dev))
         paths.update(phase_audio_match(dev))
         paths.update(phase_tools(dev, files, truth, tmp))
+        paths.update(phase_sharded(dev, files, truth))
+        paths.update(phase_calibration(dev))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # Every kernel is held against its plain version shape by shape: a
     # path may launch it at no shape that phase 3 did not check, and an
     # entry with a shape counts the launches at that shape.
-    checked = {"k1_shapes": {str(BATCH_SHAPE), *map(str, STREAM_SHAPES)},
-               "k2_shapes": set(map(str, K2_SHAPES)),
-               "k3_shapes": set(map(str, K3_SHAPES))}
+    checked = {"k1_shapes": set(map(str, (
+                   BATCH_SHAPE, *STREAM_SHAPES, *SHARD_K1_SHAPES,
+                   *DRYRUN_K1_SHAPES))),
+               "k2_shapes": set(map(str, K2_SHAPES + SHARD_K2_SHAPES
+                                    + CAL_K2_SHAPES)),
+               "k3_shapes": set(map(str, K3_SHAPES + CAL_K3_SHAPES))}
     for p, r in paths.items():
         for key, ok in checked.items():
             if set(r[key]) - ok:

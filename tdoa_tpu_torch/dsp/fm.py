@@ -24,6 +24,28 @@ import torch
 from tdoa_tpu_torch.dsp.filters import fir_decimate, fir_filter, hilbert_taps, remove_dc
 
 
+# Row width of ``running_sum``'s blocked scan.
+_SCAN_ROW = 4096
+
+
+def running_sum(x: torch.Tensor) -> torch.Tensor:
+    """Running sum of f32 ``x`` [..., N] along the last axis, the same
+    bit for bit on every run. ``torch.cumsum`` of one long CUDA row is a
+    single-pass scan whose float association changes from run to run.
+    Here rows of ``_SCAN_ROW`` samples are
+    scanned independently, in a fixed order, and the running sum of the
+    row totals, in float64 on the host, offsets them."""
+    x = x.to(torch.float32)
+    n = int(x.shape[-1])
+    rows = torch.nn.functional.pad(x, (0, (-n) % _SCAN_ROW)).unflatten(
+        -1, (-1, _SCAN_ROW))
+    inner = torch.cumsum(rows, dim=-1)
+    totals = inner[..., -1].to(torch.float64).cpu()
+    offsets = (torch.cumsum(totals, dim=-1) - totals).to(x.device)
+    out = inner.to(torch.float64) + offsets[..., None]
+    return out.flatten(-2)[..., :n].to(torch.float32)
+
+
 def fm_modulate(
     audio: torch.Tensor,
     sample_rate: float,
@@ -32,9 +54,9 @@ def fm_modulate(
     """The unit-amplitude planar baseband FM signal ``[2, ..., N]`` an
     audio program generates: ``f_inst = k_f·audio`` around the carrier.
     ``audio`` must already be at ``sample_rate``; full scale ±1 maps to
-    ±``deviation_hz``. Phase integrates from 0 at sample 0."""
-    phase = (2.0 * np.pi * deviation_hz / sample_rate) * torch.cumsum(
-        audio.to(torch.float32), dim=-1)
+    ±``deviation_hz``. Phase integrates from 0 at sample 0
+    (``running_sum``: the same on every run)."""
+    phase = (2.0 * np.pi * deviation_hz / sample_rate) * running_sum(audio)
     return torch.stack([torch.cos(phase), torch.sin(phase)])
 
 

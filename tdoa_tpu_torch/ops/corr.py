@@ -323,8 +323,14 @@ def _split_half_sigma(cross_a: torch.Tensor, cross_b: torch.Tensor,
     return (0.5 * _SPLIT_STD_SCALE[2]) * (da - db).abs()
 
 
+# Welch segments a capture should hold: fewer give a biased HT coherence
+# and split-σ banks of one segment, whose coherence is identically 1.
+TARGET_SEGS = 8
+
+
 def auto_seg_len(n: int, max_lag: int, seg_len: Optional[int],
-                 target_segs: int = 8, floor: int = 4096) -> Optional[int]:
+                 target_segs: int = TARGET_SEGS,
+                 floor: int = 4096) -> Optional[int]:
     """Shrink a configured segment length so SHORT captures still hold
     ``target_segs`` Welch segments (a less-biased HT coherence and a
     multi-dof split σ); long captures keep the configured segment. Never

@@ -38,7 +38,12 @@ import numpy as np
 import torch
 
 from tdoa_tpu_torch.io.datfile import u16_to_iq_planar
-from tdoa_tpu_torch.ops.corr import clock_correct_blocks, resolve_seg
+from tdoa_tpu_torch.ops.corr import (
+    TARGET_SEGS,
+    auto_seg_len,
+    clock_correct_blocks,
+    resolve_seg,
+)
 from tdoa_tpu_torch.pipeline.streaming import (
     AccState,
     acc_finalize,
@@ -91,21 +96,27 @@ def _geometry(n_rows: int, n_pairs: int, block_len: int, max_lag: int,
               device: torch.device):
     """(seg_len, fft_len, dtype) of a streamed accumulation over
     ``n_rows`` channels: kernel 1's geometry with bf16 operands when the
-    lag window, the block length and the kernel's single-bank footprint
-    on ``device`` allow it and ``accumulator`` is not ``"xla"``, else the
-    segmented geometry (``resolve_seg``) in f32. ``"pallas"``, the
-    reference's name for the kernel route, reads as ``"auto"``."""
+    lag window, the block length (``TARGET_SEGS`` kernel segments, the
+    batch route's rule: ``TDOAProcessor._fused_eligible``) and the
+    kernel's single-bank footprint on ``device`` allow it and
+    ``accumulator`` is not ``"xla"``, else the segmented geometry
+    (``resolve_seg``) in f32 — for a short block the batch route's
+    segmented geometry (``auto_seg_len``) unless ``"xla"`` asks for the
+    reference's streaming geometry. ``"pallas"``, the reference's name
+    for the kernel route, reads as ``"auto"``."""
     from tdoa_tpu_torch.ops.kernels.corr_accum import FFT_LEN, SEG_LEN
 
     if accumulator not in ("auto", "pallas", "xla"):
         raise ValueError(
             f"accumulator must be 'auto', 'pallas' or 'xla', got "
             f"{accumulator!r}")
-    if (accumulator != "xla" and max_lag <= FFT_LEN - SEG_LEN
-            and kernel_geometry(n_rows, n_pairs, SEG_LEN, FFT_LEN, block_len,
-                                True, device)):
-        return SEG_LEN, FFT_LEN, torch.bfloat16
     want = seg_len if seg_len is not None else 1 << 16
+    if accumulator != "xla" and max_lag <= FFT_LEN - SEG_LEN:
+        if (block_len >= TARGET_SEGS * SEG_LEN
+                and kernel_geometry(n_rows, n_pairs, SEG_LEN, FFT_LEN,
+                                    block_len, True, device)):
+            return SEG_LEN, FFT_LEN, torch.bfloat16
+        want = auto_seg_len(block_len, max_lag, want)
     seg, fft_len = resolve_seg(block_len, max_lag, want, None)
     return seg, fft_len, torch.float32
 

@@ -52,6 +52,7 @@ from tdoa_tpu_torch.io.stations import (
     station_from_filename,
 )
 from tdoa_tpu_torch.ops.corr import (
+    TARGET_SEGS,
     auto_seg_len,
     clock_correct_blocks,
     correlate_pairs,
@@ -93,9 +94,9 @@ class ProcessorConfig:
     fm_decim: int = 8  # audio decimation for mode="fm" (divides 128)
     solve_z: bool = False
     truncate_samples: Optional[int] = None
-    # "auto": the fused kernels when the geometry allows
-    # (_fused_eligible), else the segmented correlator; "pallas"/"xla"
-    # force one.
+    # "auto": the fused kernels when the geometry allows (_fused_eligible:
+    # 8 kernel segments a block), else the segmented correlator;
+    # "pallas"/"xla" force one.
     accumulator: str = "auto"
     # Multi-emitter resolution: >1 separates up to this many co-channel
     # emitters from the per-pair top-K correlation peaks by TDOA
@@ -526,19 +527,29 @@ class TDOAProcessor:
                 f"{cfg.accumulator!r}")
 
     def _fused_eligible(self, n_stations: int, min_block_samples: int) -> bool:
-        """Whether the fused kernels can run: the IQ mode, the kernel's
-        alias-free lag window and at least one segment per block on any
-        device; on CUDA also the kernel's own shared-memory and
-        device-buffer footprint, decided once per (stations, card)
+        """Whether the fused kernels run: the IQ mode, the kernel's
+        alias-free lag window and ``TARGET_SEGS`` kernel segments per
+        block on any device; on CUDA also the kernel's own shared-memory
+        and device-buffer footprint, decided once per (stations, card)
         (``_fused_fits``). The one predicate behind both the
-        accumulator="auto" decision and the bf16-decode decision."""
+        accumulator="auto" decision and the bf16-decode decision.
+
+        The reference's TPU route asks for one segment. The kernel's
+        segment is fixed, so a shorter block holds fewer Welch segments
+        than the segmented correlator's ``auto_seg_len`` shrinks its own
+        segment to reach: with 2 or 3 the split σ's banks hold one
+        segment, whose HT coherence is identically 1, and σ comes out
+        over 10× the segmented route's, which silences the ghost and the
+        audio-match cross-validation warnings (ROADMAP Queue 3). Such
+        blocks take the segmented route, as the reference's own
+        ``accumulator="auto"`` does off the TPU."""
         from tdoa_tpu_torch.ops.kernels.corr_accum import FFT_LEN, SEG_LEN
 
         cfg = self.config
         ok = (
             cfg.mode == "iq"
             and cfg.max_lag <= FFT_LEN - SEG_LEN
-            and min_block_samples >= SEG_LEN
+            and min_block_samples >= TARGET_SEGS * SEG_LEN
         )
         if ok and self.device.type == "cuda":
             index = (torch.cuda.current_device() if self.device.index is None

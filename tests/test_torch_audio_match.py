@@ -463,30 +463,39 @@ def test_fm_threshold_scene_escalates_to_rf(matched):
 
 
 def test_bf16_blocks_match_f32_blocks(tmp_path):
-    """The captures ``load_files`` decodes on the fused path are bf16;
-    ``match_captures`` casts them to f32 as the reference's ``prep``
-    does. The same u8 files decoded to bf16 and to f32, through the
-    fused pairwise path (kernel 1's plain version) and both domains:
-    pairwise results equal (the fused path rounds its operands to bf16
-    either way), template TOAs within 1e-3 samples and PSRs within 1e-3
-    relative — the bf16 rounding of the TGT samples (measured: 8.4e-5
-    samples audio, 3.1e-5 rf; PSR 1e-5 relative)."""
-    from tdoa_tpu_torch.io.datfile import load_dat
+    """The captures ``load_files`` decodes on the fused path are bf16
+    (blocks of 8 kernel segments or more; shorter ones take the
+    segmented route in f32); ``match_captures`` casts them to f32 as the
+    reference's ``prep`` does. The same u8 files decoded to bf16 and to
+    f32, through the fused pairwise path (kernel 1's plain version) and
+    both domains: pairwise results equal (the fused path rounds its
+    operands to bf16 either way), template TOAs within 1e-3 samples and
+    PSRs within 1e-3 relative — the bf16 rounding of the TGT samples
+    (measured: 8.4e-5 samples audio, 3.1e-5 rf; PSR 1e-5 relative)."""
+    from tdoa_tpu_torch.io.datfile import load_dat, save_dat
 
     sc, audio44 = _known_audio_scene(
         seed=9, tgt_profile=NoiseProfile(signal_amplitude=1.0,
                                          noise_amplitude=0.05))
     paths, _ = write_scene_captures(sc, str(tmp_path))
     tp = TDOAProcessor.from_csv(*FREQS, CSV, device=CPU, seg_len=None,
-                                max_lag=1024)
+                                max_lag=1024, accumulator="pallas")
     caps = {}
     for dtype in (torch.bfloat16, torch.float32):
         caps[dtype] = {}
         for n in sc.station_names:
             c = load_dat(paths[n], dtype=dtype, device=CPU)
             caps[dtype][n] = (c.ref1, c.tgt, c.ref2)
-    assert tp.load_files(sorted(paths.values()))["kx0u"][1].dtype \
-        == torch.bfloat16
+    long_dir = tmp_path / "long"
+    long_dir.mkdir()
+    block = np.zeros(8 * 45056, np.complex64)
+    long_paths = [str(long_dir / f"{n}-1700000000.dat")
+                  for n in sc.station_names]
+    for p in long_paths:
+        save_dat(p, block, block, block)
+    for proc, files, dtype in ((tp, sorted(paths.values()), torch.float32),
+                               (tp, long_paths, torch.bfloat16)):
+        assert proc.load_files(files)["kx0u"][1].dtype == dtype
     for mode in ("audio", "rf"):
         r16, r32 = (tam.match_captures(tp, caps[d], audio44, 44100.0,
                                        mode=mode, deviation_hz=50e3)
@@ -652,3 +661,21 @@ def test_cuda_audio_domain_matches_cpu(cuda_sm90):
                                cpu.quality.numpy(), rtol=1e-3)
     np.testing.assert_allclose(cpu.toa_samples.numpy(), [0.0, 36.5, -20.25],
                                atol=2.0)
+
+
+@pytest.mark.cuda
+def test_cuda_template_is_bitwise_repeatable(cuda_sm90):
+    """The template of a 10 s recording at 2 Msps (20 M samples) comes
+    out the same bit for bit on every call: its FM phase integral is
+    ``dsp.fm.running_sum``, not one ``torch.cumsum`` over the row, whose
+    single-pass scan on the card changes its float association from run
+    to run (a CLI run and an in-process run of the same match disagreed
+    by one float32 ulp of a TDOA)."""
+    rng = np.random.default_rng(4)
+    audio = (0.5 * rng.standard_normal(441_000)).astype(np.float32)
+    first = tam.template_iq(audio, 44100.0, 20_000_000, device=cuda_sm90)[0]
+    for _ in range(3):
+        again = tam.template_iq(audio, 44100.0, 20_000_000,
+                                device=cuda_sm90)[0]
+        assert torch.equal(first, again)
+

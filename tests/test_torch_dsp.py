@@ -130,3 +130,19 @@ def test_resample_fft_matches(n_in, n_out):
         np.float32)
     _close(tfilt.resample_fft(torch.from_numpy(x), n_out),
            jfilt.resample_fft(jnp.asarray(x), n_out))
+
+
+@pytest.mark.parametrize("shape", [(5,), (3, 4096), (2, 100_003)])
+def test_running_sum_matches_float64(shape):
+    """``fm.running_sum`` (the FM phase integral: rows of 4096 scanned
+    apart, their offsets in float64) equals numpy's float64 running sum
+    within float32 rounding of the sum's magnitude, at lengths on and
+    off the row width and with leading axes."""
+    x = torch.from_numpy(
+        np.random.default_rng(3).standard_normal(shape).astype(np.float32))
+    got = tfm.running_sum(x)
+    want = np.cumsum(x.numpy().astype(np.float64), axis=-1)
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=64 * np.finfo(np.float32).eps
+                               * max(np.abs(want).max(), 1.0))

@@ -150,7 +150,7 @@ SCENES = {
         lambda: _scene(tgt_velocity_enu=VEL, clock_drifts_ppm=DRIFTS,
                        drift_doppler=True, seed=7),
         dict(max_lag=512, lo_compensation="auto", solve_velocity=True),
-        ("pallas", "auto"), _check_lo_velocity),
+        ("pallas", "pallas"), _check_lo_velocity),
     "lo_drift": (
         lambda: _scene(clock_drifts_ppm=DRIFTS, drift_doppler=True, seed=7),
         dict(max_lag=512, lo_compensation="auto"), ("auto", "xla"),
