@@ -17,10 +17,21 @@ Phases, each printing its own lines; any failure exits non-zero:
              branch that reloads its accumulators, and at the streaming
              shapes: one bank over 96 segments and over 59 segments (a
              capture's short last chunk), each on the overlapped
-             ingest's 9 rows and on a tail session's 3; no path may
-             launch it at a shape not checked here; kernel 2: K = 4,
+             ingest's 9 rows and on a tail session's 3; at phase 11's
+             shapes: 12 stations × 443 segments × K = 4 (66 pairs in one
+             launch, the reload branch at full length; also forced into
+             2 tiles, bitwise the single launch), 16 and 24 stations
+             pair-tiled (2 and 6 launches), and the overlapped ingest's
+             stacked rows of 12, 16 and 24 stations (198, 360 and 828
+             pairs: a launch per 12-row block, 2 tiles per 16-row
+             block, 6 per 24-row block) at 96 and 59 segments, K = 1;
+             launches are counted
+             by (rows, segments, banks, pairs) and no path may launch it
+             at a shape not checked here; kernel 2: K = 4,
              m = 3, F = 65536 on the 443-segment banks, and the
-             segmented path's 9 pairs of 9 channels; kernel 3: 9
+             segmented path's 9 pairs of 9 channels, and m = 66, 120,
+             276 (phase 11's batch banks) and 198, 360, 828 (its
+             overlapped paths'); kernel 3: 9
              channels × 20 M samples, D = 8, then 3 channels × 2 M
              samples on rows that are not 16-byte aligned, its scalar
              loads, and at D = 16; and 4 channels × 20 M samples, D = 8,
@@ -148,7 +159,25 @@ Phases, each printing its own lines; any failure exits non-zero:
              on the segmented route's banks — their 2^17- and
              2^18-sample blocks hold fewer than the 8 kernel segments
              the kernel route needs — and kernel 3 on the audio-match
-             trial's 4 × 2^17) are checked in phase 3.
+             trial's 4 × 2^17) are checked in phase 3;
+11. network — a 12-station 30 s scene (the 5 stations of
+             ``tests/test_multistation.py`` and 7 more within ~25 km, a
+             CSV in the temp directory, each station's own clock
+             offset, st4's TGT block delayed 160 samples: the reference
+             test's planted outlier) written as u8 ``.dat`` files:
+             ``process_files`` (warm-up, then timed; st4 the one station
+             excluded, every clean pair's corrected TDOA within 0.5
+             sample of the truth, the fix within 200 m; the host's
+             leave-stations-out re-solves timed) and
+             ``process_files_overlapped`` (within 0.05 sample of the
+             batch result, kernel 1 on the stacked rows); then the
+             station sweep's (``scripts/station_sweep_torch.py``) 16-
+             and 24-station ``process_blocks`` once each (kernel 1
+             pair-tiled, within 0.5 sample of the planted delays), the
+             route and tiles printed, and the same blocks as u8 I/Q
+             through ``ingest_overlapped`` (warm-up, then timed; kernel
+             1 on every block's tiles of the stacked rows, within 0.05
+             sample of ``process_blocks`` on the same bytes).
 
 The last two lines are the card's ``nvidia-smi`` name and power limit,
 then ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -177,12 +206,14 @@ K1_TOL = 1e-4  # relative to each row's peak magnitude
 K2_TOL = 2e-3  # samples
 K3_TOL = 2e-4  # audio, absolute (tests/test_pallas_fm.py's tolerance)
 FM_DECIM = 8
-# Kernel 1's shape on the batch path (stations, segments, banks), and
-# its streaming shapes: a default chunk and a 10 s block's short last
-# chunk (443 = 4·96 + 59), each over the stacked 9 rows of the
-# overlapped ingest and over the 3 rows of a tail session's block.
-BATCH_SHAPE = (3, 443, 4)
-STREAM_SHAPES = ((9, 96, 1), (9, 59, 1), (3, 96, 1), (3, 59, 1))
+# Kernel 1's launches are counted by (rows, segments, banks, pairs):
+# its shape on the batch path, and its streaming shapes: a default chunk
+# and a 10 s block's short last chunk (443 = 4·96 + 59), each over the
+# stacked 9 rows of the overlapped ingest and over the 3 rows of a tail
+# session's block.
+BATCH_SHAPE = (3, 443, 4, 3)
+STREAM_SHAPES = ((9, 96, 1, 9), (9, 59, 1, 9), (3, 96, 1, 3),
+                 (3, 59, 1, 3))
 # Kernel 2's shapes (banks, pairs, FFT length): the split-σ probes of
 # the fused path, the LO probe's coarse pre-alignment and the deramp
 # re-correlations over 2^21 samples (3 pairs), of the segmented and
@@ -198,8 +229,9 @@ K2_SHAPES = ((4, 3, 65536), (4, 9, 65536), (4, 3, 32768))
 # on the segmented route's 1024-point spectra (3 and 5 stations, 3
 # blocks) and on 2 groups of the 3 kernel-route pairs.
 SHARD_SEGS = 440
-SHARD_K1_SHAPES = ((9, 440, 1), (9, 220, 1), (9, 110, 1), (9, 440, 4))
-DRYRUN_K1_SHAPES = ((3, 1, 1), (3, 4, 2))
+SHARD_K1_SHAPES = ((9, 440, 1, 9), (9, 220, 1, 9), (9, 110, 1, 9),
+                   (9, 440, 4, 9))
+DRYRUN_K1_SHAPES = ((3, 1, 1, 3), (3, 4, 2, 3))
 SHARD_K2_SHAPES = ((2, 9, 65536), (2, 9, 1024), (4, 9, 1024),
                    (4, 30, 1024), (2, 3, 65536))
 # Phase 10, the calibration trials: on their 2^17- and 2^18-sample blocks
@@ -246,28 +278,39 @@ def _time_ms(fn, iters: int) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def _device_ms(fn, kernel: str, iters: int) -> float:
+def _device_ms(fn, kernel: str, iters: int, tries: int = 3):
     """The device time per launch of the CUDA kernel whose name contains
     ``kernel`` (each wrapper call launches it once; the wrapper's other
     ops are left out), from a ``torch.profiler`` trace of ``iters``
     calls after a warm-up. Divided by the launches the trace holds: the
-    profiler can drop events of a cycle."""
+    profiler can drop events of a cycle, and now and then a whole
+    trace's. A trace that holds none is taken again, up to ``tries``
+    traces; after that the time is None ("not measured", printed)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    seen = [e for e in prof.key_averages()
-            if kernel in e.key and e.device_time_total > 0]
-    if not seen:
-        raise RuntimeError(f"the profiler saw no device time of {kernel}")
-    return (sum(e.device_time_total for e in seen)
-            / sum(e.count for e in seen) / 1e3)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        seen = [e for e in prof.key_averages()
+                if kernel in e.key and e.device_time_total > 0]
+        if seen:
+            return (sum(e.device_time_total for e in seen)
+                    / sum(e.count for e in seen) / 1e3)
+    print(f"device time of {kernel}: not measured (the profiler saw none "
+          f"of its launches in {tries} traces)")
+    return None
+
+
+def _dev_str(ms, digits: int) -> str:
+    """A device time for the log: ``ms`` to ``digits`` places, or "not
+    measured" where the profiler saw none."""
+    return "not measured" if ms is None else f"{ms:.{digits}f} ms"
 
 
 def _same(a, b) -> bool:
@@ -276,6 +319,8 @@ def _same(a, b) -> bool:
 
     if isinstance(a, torch.Tensor):
         return torch.equal(a, b)
+    if a is None:
+        return b is None
     return all(_same(u, v) for u, v in zip(a, b))
 
 
@@ -353,14 +398,13 @@ def _k2_bound(K: int, m: int, n_st: int, F: int) -> dict:
                   K * m * F * (8 * W + 40))
 
 
-def _pair_list(n_st: int, stacked: bool) -> list:
-    """All pairs of ``n_st`` stations; ``stacked``: the 3-station pairs of
-    each block of ``n_st // 3`` stacked blocks, offset into the row axis
-    (the overlapped ingest's layout: 9 rows carry 9 pairs)."""
-    if stacked:
-        return [(3 * b + i, 3 * b + j) for b in range(n_st // 3)
-                for i, j in ((0, 1), (0, 2), (1, 2))]
-    return [(i, j) for i in range(n_st) for j in range(i + 1, n_st)]
+def _pair_list(n_rows: int, block: int = 0) -> list:
+    """All pairs of ``n_rows`` rows; with ``block``, the pairs within each
+    consecutive block of that many rows (the overlapped ingest's
+    stacked layout: 3 stations × 3 blocks, 9 rows, carry 9 pairs)."""
+    block = block or n_rows
+    return [(b + i, b + j) for b in range(0, n_rows, block)
+            for i in range(block) for j in range(i + 1, block)]
 
 
 def _errs(got, want) -> tuple:
@@ -402,11 +446,12 @@ def phase_kernels(dev):
     # chunk, and the same two chunks over a tail session's 3 rows.
     k1_abs, k1_rel, k1_cfg = 0.0, 0.0, {}
     stream_x, stream_err = {}, {}
-    for n_st, n_seg, kb in ((3, 16, K), (3, 443, K), (12, 5, 2),
-                            *STREAM_SHAPES):
+    for shape in ((3, 16, K, 3), BATCH_SHAPE, (12, 5, 2, 66),
+                  *STREAM_SHAPES):
+        n_st, n_seg, kb, _ = shape
         x = block(n_seg, n_st)
-        pn = _pair_list(n_st, stacked=kb == 1)
-        cfg = corr_accum.kernel_config(n_st, len(pn), True, kb)
+        pn = _pair_list(n_st, 3 if kb == 1 else 0)
+        cfg = corr_accum.kernel_config(n_st, pn, True, kb)
         run = corr_accum.bank_run(n_st, kb, n_seg)
         cfg.update(run=run, chunks=int(corr_accum.chunk_plan(
             n_seg, kb, run).shape[0]))
@@ -418,8 +463,8 @@ def phase_kernels(dev):
         a_err, r_err = max(e[0] for e in errs), max(e[1] for e in errs)
         same = _same(got, again)
         if kb == 1:
-            stream_x[(n_st, n_seg, kb)] = x
-            stream_err[(n_st, n_seg, kb)] = (a_err, r_err)
+            stream_x[shape] = x
+            stream_err[shape] = (a_err, r_err)
         else:
             k1_abs, k1_rel = max(k1_abs, a_err), max(k1_rel, r_err)
         k1_cfg[f"{n_st} st, {n_seg} seg, K={kb}"] = cfg
@@ -527,21 +572,21 @@ def phase_kernels(dev):
     b1 = _k1_bound(3, len(pairs), 443, K)
     b2 = _k2_bound(K, m, n_st, F)
     print(f"time corr_accum [3 st, 443 seg, K={K}]: kernel {k1_ms:.3f} ms "
-          f"(device time {k1_dev:.3f} ms), plain {k1_plain:.3f} ms, "
+          f"(device time {_dev_str(k1_dev, 3)}), plain {k1_plain:.3f} ms, "
           f"bound {b1['bound_ms']:.4f} ms "
           f"({b1['bound_by']}: {b1['bytes'] / 1e6:.1f} MB, "
           f"{b1['ops'] / 1e9:.2f} GFLOP)")
     print(f"time zoom_probe [K={K}, m=3, F=65536]: kernel {k2_ms:.4f} ms "
-          f"(device time {k2_dev:.4f} ms), plain {k2_plain:.3f} ms, "
+          f"(device time {_dev_str(k2_dev, 4)}), plain {k2_plain:.3f} ms, "
           f"bound {b2['bound_ms']:.4f} ms "
           f"({b2['bound_by']}: {b2['bytes'] / 1e6:.2f} MB, "
           f"{b2['ops'] / 1e9:.3f} GFLOP)")
     del x443, got443
     streaming = []
     for shape in STREAM_SHAPES:
-        n_s, n_seg_s, kb = shape
+        n_s, n_seg_s, kb, _ = shape
         xs = stream_x.pop(shape)
-        pn = _pair_list(n_s, stacked=True)
+        pn = _pair_list(n_s, 3)
         call = lambda: corr_accum.accumulate_banks(xs, pn, kb, True)  # noqa: E731
         ms = _time_ms(call, 10)
         dev_ms = _device_ms(call, "corr_accum_kernel", 10)
@@ -549,8 +594,8 @@ def phase_kernels(dev):
             xs, pn, kb, True), 2)
         bs = _k1_bound(n_s, len(pn), n_seg_s, kb)
         name = f"corr_accum[{n_s}x{n_seg_s},K={kb}]"
-        print(f"time {name}: kernel {ms:.3f} ms (device time {dev_ms:.3f} "
-              f"ms), plain {plain:.3f} ms, bound {bs['bound_ms']:.4f} ms "
+        print(f"time {name}: kernel {ms:.3f} ms (device time "
+              f"{_dev_str(dev_ms, 3)}), plain {plain:.3f} ms, bound {bs['bound_ms']:.4f} ms "
               f"({bs['bound_by']}: {bs['bytes'] / 1e6:.1f} MB, "
               f"{bs['ops'] / 1e9:.2f} GFLOP)")
         streaming.append(
@@ -673,7 +718,7 @@ def _kernel3(dev, g):
         b3 = _k3_bound(c, n, FM_DECIM)
         name = "fm_demod" if c == 9 else f"fm_demod[{c}x{n},D={FM_DECIM}]"
         print(f"time {name} [{c} ch x {n}, D={FM_DECIM}]: kernel {ms:.3f} "
-              f"ms (device time {dev_ms:.3f} ms), plain {plain:.3f} ms, "
+              f"ms (device time {_dev_str(dev_ms, 3)}), plain {plain:.3f} ms, "
               f"bound {b3['bound_ms']:.4f} ms "
               f"({b3['bound_by']}: {b3['bytes'] / 1e6:.1f} MB, "
               f"{b3['ops'] / 1e9:.2f} GFLOP)")
@@ -706,14 +751,18 @@ def _k1_block(dev, g, n_seg: int, n_st: int, dtype):
 
 
 def _entry(name, source, replaces, shape, err, call, plain_call, kernel,
-           bound, iters):
+           bound, iters, launches_per_call=1):
     """A ``kernels`` entry for one kernel at one shape: its check's error,
-    its time (event loop and profiler device time) beside the plain
-    version's and the bound. Prints one line."""
+    its time (event loop and profiler device time per call: the sum of
+    its ``launches_per_call`` launches) beside the plain version's and
+    the bound. Prints one line."""
     ms = _time_ms(call, iters)
     dev_ms = _device_ms(call, kernel, iters)
+    if dev_ms is not None:
+        dev_ms *= launches_per_call
     plain = _time_ms(plain_call, 2)
-    print(f"time {name}: kernel {ms:.4f} ms (device time {dev_ms:.4f} ms), "
+    print(f"time {name}: kernel {ms:.4f} ms (device time "
+          f"{_dev_str(dev_ms, 4)}), "
           f"plain {plain:.3f} ms, bound {bound['bound_ms']:.5f} ms "
           f"({bound['bound_by']}: {bound['bytes'] / 1e6:.2f} MB, "
           f"{bound['ops'] / 1e9:.3f} GFLOP)")
@@ -744,41 +793,76 @@ def _later_shapes(dev, g):
     k3_src = ("tdoa_tpu_torch/csrc/fm_demod.cu",
               "tdoa_tpu/ops/pallas/fm_demod.py:189")
     entries = []
-    # Kernel 1 as the sharded paths run it: f32, one bank or the
-    # comparator's banks, no DC sums.
-    for n_st, n_seg, kb in SHARD_K1_SHAPES + DRYRUN_K1_SHAPES:
-        x = _k1_block(dev, g, n_seg, n_st, torch.float32)
-        pn = _pair_list(n_st, stacked=n_st == 9)
-        got = corr_accum.accumulate_banks(x, pn, kb, False)[:2]
-        again = corr_accum.accumulate_banks(x, pn, kb, False)[:2]
-        want = corr_accum.accumulate_banks_plain(x, pn, kb, False)[:2]
+    # Kernel 1 as the sharded paths run it (f32, one bank or the
+    # comparator's banks, no DC sums), then at the network phase's
+    # shapes (bf16, DC sums, pair-tiled where a launch does not hold the
+    # pairs): each call's launch keys are its tiles'.
+    k1_calls = [(n_st, n_seg, kb, 3 if n_st == 9 else n_st, torch.float32,
+                 False) for n_st, n_seg, kb, _ in
+                SHARD_K1_SHAPES + DRYRUN_K1_SHAPES]
+    k1_calls += [(3 * n_st if stacked else n_st, n_seg, kb, n_st,
+                  torch.bfloat16, True) for n_st, n_seg, kb, stacked in NET_K1]
+    for rows, n_seg, kb, block, dtype, sums in k1_calls:
+        f32 = dtype == torch.float32
+        x = _k1_block(dev, g, n_seg, rows, dtype)
+        pn = _pair_list(rows, block)
+        keys = _k1_launch_keys(rows, n_seg, kb, pn, sums, dev)
+        got = corr_accum.accumulate_banks(x, pn, kb, sums)
+        again = corr_accum.accumulate_banks(x, pn, kb, sums)
+        want = corr_accum.accumulate_banks_plain(x, pn, kb, sums)
         torch.cuda.synchronize()
-        errs = [_errs(a, b) for a, b in zip(got, want)]
+        errs = [_errs(a, b) for a, b in zip(got, want) if b is not None]
         a_err, r_err = max(e[0] for e in errs), max(e[1] for e in errs)
         same = _same(got, again)
-        print(f"corr_accum [{n_st} st, {n_seg} seg, K={kb}, f32]: max "
-              f"|kernel - plain| = {a_err:.3e}, / row peak = {r_err:.3e} "
-              f"(tol {K1_TOL:g}); two launches bitwise equal: {same}")
+        del want, again
+        name = (f"corr_accum[{rows}x{n_seg},K={kb},"
+                f"{'f32' if f32 else f'm={len(pn)}'}]")
+        print(f"corr_accum [{rows} rows, {len(pn)} pairs, {n_seg} seg, "
+              f"K={kb}, {'f32' if f32 else 'bf16, sums'}]: launches {keys}"
+              f"; largest launch {corr_accum.kernel_config(rows, pn, sums, kb, not f32)}"
+              f"; max |kernel - plain| = {a_err:.3e}, / row peak = "
+              f"{r_err:.3e} (tol {K1_TOL:g}); two calls bitwise equal: "
+              f"{same}")
         if not (r_err < K1_TOL and same):
-            raise RuntimeError(f"corr_accum at {n_st} st, {n_seg} seg, "
-                               f"K={kb}, f32: error {r_err:.3e}, "
-                               f"deterministic {same}")
-        entries.append(_entry(
-            f"corr_accum[{n_st}x{n_seg},K={kb},f32]", *k1_src,
-            (n_st, n_seg, kb), a_err,
-            lambda: corr_accum.accumulate_banks(x, pn, kb, False),  # noqa: B023
-            lambda: corr_accum.accumulate_banks_plain(x, pn, kb, False),  # noqa: B023
+            raise RuntimeError(f"{name}: error {r_err:.3e}, deterministic "
+                               f"{same}")
+        extra = {}
+        if (rows, n_seg, kb) == NET_FORCED[:3]:
+            forced = corr_accum.accumulate_banks(x, pn, kb, sums,
+                                                 max_pairs=NET_FORCED[3])
+            torch.cuda.synchronize()
+            equal = _same(forced, got)
+            print(f"  forced into tiles of {NET_FORCED[3]} pairs: "
+                  f"bitwise the untiled launch: {equal}")
+            if not equal:
+                raise RuntimeError(f"{name}: 2 tiles differ from one launch")
+            extra["forced_2_tiles_bitwise_equal"] = True
+            del forced
+        del got
+        entry = _entry(
+            name, *k1_src, (rows, n_seg, kb, len(pn)), a_err,
+            lambda: corr_accum.accumulate_banks(x, pn, kb, sums),  # noqa: B023
+            lambda: corr_accum.accumulate_banks_plain(  # noqa: B023
+                x, pn, kb, sums),  # noqa: B023
             "corr_accum_kernel",
-            _k1_bound(n_st, len(pn), n_seg, kb, 4, False), 10))
-        del x, got, again, want
+            _k1_bound(rows, len(pn), n_seg, kb, 4 if f32 else 2, sums),
+            10 if f32 else 3, launches_per_call=len(keys))
+        entry.update(launch_keys=[list(k) for k in keys], tiles=len(keys),
+                     max_rel_err_row_peak=r_err, **extra)
+        entries.append(entry)
+        del x
+        torch.cuda.empty_cache()
     # Kernel 2 on banks that the segmented correlator accumulates from
     # rows with planted integer delays (2 segments a bank), the coarse
     # delays the planted ones.
-    for K, m, F in SHARD_K2_SHAPES + CAL_K2_SHAPES:
-        # m pairs: of 3 stations, or of 3 stacked blocks of 3, 4 or 5.
-        n_st, grp = {3: (3, 3), 9: (9, 3), 18: (12, 4), 30: (15, 5)}[m]
+    for K, m, F in SHARD_K2_SHAPES + CAL_K2_SHAPES + NET_K2_SHAPES:
+        # m pairs: of 3, 12, 16 or 24 stations, or of 3 stacked blocks
+        # of 3, 4, 5, 12, 16 or 24.
+        n_st, grp = {3: (3, 3), 9: (9, 3), 18: (12, 4), 30: (15, 5),
+                     66: (12, 12), 120: (16, 16), 276: (24, 24),
+                     198: (36, 12), 360: (48, 16), 828: (72, 24)}[m]
         pn = [(grp * b + i, grp * b + j) for b in range(n_st // grp)
-              for i, j in _pair_list(grp, stacked=False)]
+              for i, j in _pair_list(grp)]
         seg = (3 * F) // 4
         d = [(11 * (s % grp) - 7 * (s % grp > 0)) for s in range(n_st)]
         x = torch.randn(2, n_st, 2 * K * seg, device=dev, generator=g)
@@ -818,6 +902,7 @@ def _later_shapes(dev, g):
         entry["max_delay_err_samples"] = dd
         entries.append(entry)
         del x, banks, cross, psd
+    torch.cuda.empty_cache()
     for C, n, decim in CAL_K3_SHAPES:
         step = torch.randn(C, n, device=dev, generator=g, dtype=torch.float64)
         phase = torch.cumsum(0.3 * step, -1)
@@ -844,10 +929,44 @@ def _later_shapes(dev, g):
     return entries
 
 
-def _synthesize(dev, out_dir: Path, lo_ppm=(0.0, 0.0, 0.0), mover_enu=None,
-                interferer_lla=None, prefix: str = "sim"):
-    """Write one u8 [REF | TGT | REF] .dat per station; return (paths,
-    truth). ``truth``: per-station TGT delays (samples) at the TGT
+# The network phase's kernel shapes, checked in phase 3 by
+# ``_later_shapes``: kernel 1 over a 10 s block (443 segments, K = 4) of
+# 12 stations (66 pairs in one launch: the reload branch at full
+# length), 16 and 24 stations (pair-tiled), and over the overlapped
+# ingest's stacked rows (3 blocks of n_st rows, each block's pairs in
+# one launch or in tiles) of 12, 16 and 24 stations at a default chunk
+# and at a block's short last chunk (K = 1); kernel 2 on the split-σ
+# banks of those pair counts: 66, 120, 276 (batch) and 198, 360, 828
+# (overlapped).
+NET_K1 = ((12, 443, 4, False), (16, 443, 4, False), (24, 443, 4, False),
+          *((n_st, n_seg, 1, True) for n_st in (12, 16, 24)
+            for n_seg in (96, 59)))
+NET_K2_SHAPES = tuple((4, m, 65536) for m in (66, 120, 276, 198, 360, 828))
+# The 12-station block's launch (rows, segments, banks) forced into tiles
+# of 33 pairs (2 tiles): bitwise the untiled launch.
+NET_FORCED = (12, 443, 4, 33)
+
+
+def _k1_launch_keys(rows: int, n_seg: int, kb: int, pairs, sums: bool,
+                    dev) -> list:
+    """Kernel 1's launch keys (rows, segments, banks, pairs) of one
+    ``accumulate_banks`` call, by its tile plan on ``dev``."""
+    from tdoa_tpu_torch.ops.kernels import corr_accum
+
+    return [(r1 - r0, n_seg, kb, hi - lo) for r0, r1, lo, hi in
+            corr_accum.plan_tiles(pairs, rows, sums,
+                                  corr_accum.smem_optin(dev))]
+
+
+def _synthesize(dev, out_dir: Path, lo_ppm=None, mover_enu=None,
+                interferer_lla=None, prefix: str = "sim",
+                csv: Path = ROOT / "lat-lon-table.csv",
+                clock_offsets_s=CLOCK_OFFSETS_S, tgt_shift=None):
+    """Write one u8 [REF | TGT | REF] .dat per receiver of ``csv`` (every
+    row but the KEVO target and the REF transmitter) with its clock
+    offset; return (paths, truth). ``tgt_shift`` ({name: samples})
+    delays a station's TGT block further, its REF blocks untouched (a
+    multipath lock: tests/test_multistation.py's ``_roll_tgt``). ``truth``: per-station TGT delays (samples) at the TGT
     block's midpoint geometry (``tau_tgt``), the transmitter's lat/lon/
     elev there (``tgt_lla``), its per-station delay rates from motion
     alone (``rate``), and the interferer's delays and position.
@@ -869,12 +988,12 @@ def _synthesize(dev, out_dir: Path, lo_ppm=(0.0, 0.0, 0.0), mover_enu=None,
     from tdoa_tpu_torch.io.stations import load_station_table
     from tdoa_tpu_torch.utils.constants import SPEED_OF_LIGHT
 
-    table = load_station_table(str(ROOT / "lat-lon-table.csv"),
-                               reference_freq=REF_FREQ)
+    table = load_station_table(str(csv), reference_freq=REF_FREQ)
     # The table's KEVO row is the target transmitter; the other
     # callsign rows are the receivers.
     tgt0 = table["KEVO"].lla()
     names = [n for n in table.names if n != "KEVO"]
+    shift = np.array([(tgt_shift or {}).get(n, 0.0) for n in names])
     st = lla_to_ecef(table.lla_array(names))
     t_mid_tgt = 1.5 * BLOCK / FS
     v_ecef = np.zeros(3)
@@ -885,7 +1004,8 @@ def _synthesize(dev, out_dir: Path, lo_ppm=(0.0, 0.0, 0.0), mover_enu=None,
     u = st - p_tgt
     u /= np.linalg.norm(u, axis=-1, keepdims=True)
     rate_motion = -(u @ v_ecef) / SPEED_OF_LIGHT  # d|station - p|/dt / c
-    drift = 1e-6 * np.asarray(lo_ppm, np.float64)
+    drift = 1e-6 * (np.zeros(len(names)) if lo_ppm is None
+                    else np.asarray(lo_ppm, np.float64))
 
     def delays(tx_ecef):
         return np.linalg.norm(st - tx_ecef, axis=-1) / SPEED_OF_LIGHT * FS
@@ -920,14 +1040,15 @@ def _synthesize(dev, out_dir: Path, lo_ppm=(0.0, 0.0, 0.0), mover_enu=None,
     for b, kind in enumerate(("ref", "tgt", "ref")):
         carrier = TGT_FREQ if kind == "tgt" else REF_FREQ
         # Each station's clock at this block's midpoint, in samples.
-        clock = (np.asarray(CLOCK_OFFSETS_S)
+        clock = (np.asarray(clock_offsets_s)
                  + drift * (b + 0.5) * BLOCK / FS) * FS
         rate = drift + (rate_motion if kind == "tgt" else 0.0)
         spec = source()
         spec_int = (source() if kind == "tgt" and tau_int is not None
                     else None)
         for s, name in enumerate(names):
-            z = delayed(spec, tau[kind][s] + clock[s])
+            z = delayed(spec, tau[kind][s] + clock[s]
+                        + (shift[s] if kind == "tgt" else 0.0))
             if rate[s] != 0.0:
                 z *= torch.polar(torch.ones_like(t_rel),
                                  -2 * np.pi * carrier * rate[s] * t_rel)
@@ -984,9 +1105,10 @@ def _reset_counts(counters):
         fn.launch_shapes.clear()
 
 
-# Each kernel's launches by shape: kernel 1 by (rows, segments, banks),
-# kernel 2 by (banks, pairs, FFT length), kernel 3 by (channels,
-# samples, decimation).
+# Each kernel's launches by shape: kernel 1 by (rows, segments, banks,
+# pairs) of each launch (a tile's, where the pair list is tiled), kernel
+# 2 by (banks, pairs, FFT length), kernel 3 by (channels, samples,
+# decimation).
 SHAPE_KEYS = {"corr_accum": "k1_shapes", "zoom_probe": "k2_shapes",
               "fm_demod": "k3_shapes"}
 
@@ -1119,7 +1241,7 @@ def phase_overlap(dev, paths, tau_tgt, tgt_tx, fused_by_pair):
     counters = _counters()
     _, spans = ingest.plan_chunks(BLOCK, SEG_LEN)
     n_chunks = len(spans)
-    if {(rows, n // SEG_LEN, 1) for rows in (9, 3)
+    if {(rows, n // SEG_LEN, 1, rows) for rows in (9, 3)
             for _, n in spans} != set(STREAM_SHAPES):
         raise RuntimeError(f"phase 3 checked kernel 1 at {STREAM_SHAPES}, "
                            f"the plan has chunks {spans}")
@@ -1143,7 +1265,7 @@ def phase_overlap(dev, paths, tau_tgt, tgt_tx, fused_by_pair):
     print(f"chunks {diag['n_chunks']} of {diag['chunk_segs']} segments; "
           f"gather {diag['gather_s'] * 1e3:.1f} ms on the host, copy stream "
           f"{diag['transfer_stream_s'] * 1e3:.1f} ms; kernel launches "
-          f"{launches}, kernel 1 by (rows, segments, banks) "
+          f"{launches}, kernel 1 by (rows, segments, banks, pairs) "
           f"{shapes['k1_shapes']}")
     out = {"overlapped": _check_overlap_result(
         "overlapped", res, tau_tgt, tgt_tx, fused_by_pair)}
@@ -2730,6 +2852,247 @@ def phase_calibration(dev):
     return out
 
 
+# Phase 11: a 12-station network — the 5 stations of
+# tests/test_multistation.py and 7 more within ~25 km of them — under
+# the shipped table's REF and KEVO transmitters, each station with its
+# own clock offset, and st4's TGT block delayed 160 samples (the
+# reference test's planted outlier, ~24 km of range).
+NET_STATIONS = (
+    ("kx0u", 41.18660274289527, -95.96064116595667, 355.69),
+    ("n3pay", 41.24669616513154, -96.08366304481238, 329.0),
+    ("kf0mtl", 41.32916620016985, -96.03513381562004, 373.18),
+    ("st4", 41.26, -95.90, 340.0), ("st5", 41.36, -96.12, 360.0),
+    ("st6", 41.20, -96.16, 345.0), ("st7", 41.15, -96.05, 340.0),
+    ("st8", 41.38, -95.95, 350.0), ("st9", 41.30, -96.20, 330.0),
+    ("st10", 41.22, -95.85, 345.0), ("st11", 41.40, -96.05, 365.0),
+    ("st12", 41.12, -95.92, 330.0))
+NET_CLOCK_OFFSETS_S = tuple(1e-6 * v for v in (12, -31, 48, 5, -9, 14, -2,
+                                               7, -4, 22, -17, 9))
+NET_OUTLIER, NET_SHIFT = "st4", 160
+# The sweep's station counts that phase 11 runs once each.
+NET_SWEEP = (16, 24)
+
+
+def _network_overlapped(dev, blocks, n_st: int, counters, out) -> list:
+    """The sweep's blocks at ``n_st`` stations as u8 I/Q (about 27 byte
+    steps a standard deviation) through ``ingest_overlapped`` on
+    the kernel route — the overlapped ingest's stacked 3·n_st rows,
+    each block's pairs in its own tiles — against ``process_blocks`` on
+    the same bytes decoded. Returns the failures."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import station_sweep_torch as sweep
+    from tdoa_tpu_torch.io.datfile import iq_bytes_as_u16
+    from tdoa_tpu_torch.pipeline.ingest import ingest_overlapped
+    from tdoa_tpu_torch.utils.constants import IQ_CENTER, IQ_SCALE
+
+    L = int(blocks[0].shape[-1])
+    pairs = blocks[3]
+    q = [torch.clamp(torch.round(b.float() * 24.0 + IQ_CENTER), 0,
+                     255).to(torch.uint8) for b in blocks[:3]]
+    decoded = [((v.float() - IQ_CENTER) / IQ_SCALE).to(torch.bfloat16)
+               for v in q]
+    host = [iq_bytes_as_u16(torch.cat([v[:, s].T for v in q]).contiguous()
+                            .cpu().numpy().reshape(-1))
+            for s in range(n_st)]  # each station's 3 blocks, [3·L] words
+    del q
+    batch = sweep.run((*decoded, pairs))[0]
+    geo = np.zeros(len(pairs))
+
+    def run(accumulator):
+        return ingest_overlapped(host, pairs, geo, block_len=L,
+                                 max_lag=sweep.MAX_LAG, weighting="ht",
+                                 accumulator=accumulator, device=dev)[0]
+
+    def timed(accumulator):
+        run(accumulator)  # warm-up
+        _reset_counts(counters)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = run(accumulator)
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t
+
+    # The segmented route, timed beside: where the ingest went at 8 to
+    # 24 stations before kernel 1 was pair-tiled.
+    _, wall_seg = timed("xla")
+    got, wall = timed("pallas")
+    launches, shapes = _read_counts(counters)
+    dev_batch = float((got - batch).abs().max())
+    e = sweep.tdoa_error((got,), blocks[4])
+    print(f"-- ingest_overlapped, {n_st} stations ({3 * n_st} stacked rows, "
+          f"{3 * len(pairs)} pairs): {wall:.3f} s (segmented route "
+          f"{wall_seg:.3f} s); largest |overlapped - batch| "
+          f"{dev_batch:.2e} samples, |TDOA - planted| {e:.4f}; launches "
+          f"{launches}, kernel 1 {shapes['k1_shapes']}, kernel 2 "
+          f"{shapes['k2_shapes']}  [{_smi()}]")
+    out[f"network: ingest_overlapped, {n_st} stations"] = {
+        "wall_s": wall, "segmented_wall_s": wall_seg, "launches": launches,
+        **shapes, "vs_batch_samples": dev_batch, "tdoa_err_max_samples": e}
+    del decoded, host
+    if not (dev_batch < 0.05 and e < 0.5 and launches["corr_accum"] > 0):
+        return [f"overlapped at {n_st} stations: {dev_batch:.4f} samples "
+                f"from the batch path, TDOA error {e:.3f}, launches "
+                f"{launches}"]
+    return []
+
+
+def _network_csv(out: Path) -> Path:
+    """The network's station CSV (lat-lon-table.csv's format, its KEVO
+    and REF transmitter rows)."""
+    rows = ["Name,Latitude,Longitude,Elevation"]
+    for line in (ROOT / "lat-lon-table.csv").read_text().splitlines()[1:]:
+        if line.split(",")[0] in ("KEVO", f"{REF_FREQ:.0f}"):
+            rows.append(line)
+    rows += [",".join(map(str, r)) for r in NET_STATIONS]
+    out.write_text("\n".join(rows) + "\n")
+    return out
+
+
+def phase_network(dev, tmp: Path):
+    """Phase 11: the 12-station scene through ``process_files`` (the
+    planted outlier excluded, the clean pairs within 0.5 sample, the
+    fix within 200 m; the leave-stations-out re-solves timed on the
+    host) and ``process_files_overlapped`` (within 0.05 sample of the
+    batch result, kernel 1 on the stacked rows), then the station
+    sweep's 16- and 24-station ``process_blocks`` once each."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import station_sweep_torch as sweep
+    from tdoa_tpu_torch.ops.kernels import corr_accum
+    from tdoa_tpu_torch.pipeline import TDOAProcessor
+
+    print("== phase 11: a 12-station network, and the station sweep")
+    out, counters = {}, _counters()
+    csv = _network_csv(tmp / "network.csv")
+    t0 = time.perf_counter()
+    paths, truth = _synthesize(dev, tmp, prefix="net", csv=csv,
+                               clock_offsets_s=NET_CLOCK_OFFSETS_S,
+                               tgt_shift={NET_OUTLIER: NET_SHIFT})
+    torch.cuda.synchronize()
+    print(f"synthesized {len(paths)} x {3 * BLOCK} samples in "
+          f"{time.perf_counter() - t0:.1f} s")
+    tau, tgt_tx = truth["tau_tgt"], truth["tgt_lla"]
+    proc = TDOAProcessor.from_csv(REF_FREQ, TGT_FREQ, str(csv), device=dev)
+    resolves = []
+    reject = proc._reject_outliers
+
+    def timed_reject(*args, **kw):  # the host's leave-stations-out solves
+        t = time.perf_counter()
+        r = reject(*args, **kw)
+        resolves.append(time.perf_counter() - t)
+        return r
+
+    proc._reject_outliers = timed_reject
+    fails = []
+
+    def timed(fn, name):
+        fn(paths)  # warm-up
+        resolves.clear()
+        _reset_counts(counters)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn(paths)  # results are host arrays: synced
+        wall = time.perf_counter() - t
+        launches, shapes = _read_counts(counters)
+        print(f"-- {name}: {wall:.3f} s (leave-stations-out re-solves "
+              f"{[round(v, 4) for v in resolves]} s on the host)  "
+              f"[{_smi()}]; launches {launches}, kernel 1 "
+              f"{shapes['k1_shapes']}, kernel 2 {shapes['k2_shapes']}")
+        out[f"network: {name}"] = {"wall_s": wall, "launches": launches,
+                                   **shapes, "resolve_s": list(resolves)}
+        return res
+
+    res = timed(proc.process_files, "process_files, 12 stations")
+    names = res.station_names
+    err = {}
+    for k, (i, j) in enumerate(res.pair_idx):
+        if NET_OUTLIER not in (names[i], names[j]):
+            err[(names[i], names[j])] = (res.corrected_tdoa_samples[k]
+                                         - (tau[names[j]] - tau[names[i]]))
+    fix_err = _fix_err_m(res.fix, tgt_tx)
+    worst = max(abs(v) for v in err.values())
+    print(f"   excluded {res.excluded_stations}; {len(err)} clean pairs, "
+          f"largest |TDOA - truth| {worst:.4f} samples; fix {fix_err:.1f} m "
+          f"from the planted transmitter; 1σ ellipse "
+          f"{res.fix.ellipse[0]:.2f} x {res.fix.ellipse[1]:.2f} m")
+    for w in res.warnings:
+        print(f"   warning: {w}")
+    out["network: process_files, 12 stations"].update(
+        excluded=res.excluded_stations, tdoa_err_max_samples=worst,
+        fix_err_m=fix_err)
+    if res.excluded_stations != [NET_OUTLIER]:
+        fails.append(f"excluded {res.excluded_stations}, planted "
+                     f"{NET_OUTLIER}")
+    if not (worst < 0.5 and fix_err < 200.0):
+        fails.append(f"batch: TDOA error {worst:.3f}, fix {fix_err:.1f} m")
+    if out["network: process_files, 12 stations"]["launches"][
+            "corr_accum"] < 1:
+        fails.append("batch: kernel 1 did not launch")
+    batch = _by_pair(res)
+
+    res_o = timed(proc.process_files_overlapped,
+                  "process_files_overlapped, 12 stations")
+    dev_batch = max(abs(v - batch[k]) for k, v in _by_pair(res_o).items())
+    print(f"   excluded {res_o.excluded_stations}; largest |overlapped - "
+          f"batch| {dev_batch:.4f} samples; fix "
+          f"{_fix_err_m(res_o.fix, tgt_tx):.1f} m")
+    o = out["network: process_files_overlapped, 12 stations"]
+    o.update(excluded=res_o.excluded_stations, vs_batch_samples=dev_batch)
+    if not dev_batch < 0.05 or o["launches"]["corr_accum"] < 1:
+        fails.append(f"overlapped: {dev_batch:.4f} samples from the batch "
+                     f"path, kernel 1 launches {o['launches']}")
+    # The segmented route, timed beside: where the overlapped ingest went
+    # at 8 to 24 stations before kernel 1 was pair-tiled.
+    proc_x = TDOAProcessor.from_csv(REF_FREQ, TGT_FREQ, str(csv), device=dev,
+                                    accumulator="xla")
+    res_x = timed(proc_x.process_files_overlapped,
+                  "process_files_overlapped, 12 stations, segmented route")
+    print(f"   excluded {res_x.excluded_stations}; largest |segmented - "
+          f"batch| {max(abs(v - batch[k]) for k, v in _by_pair(res_x).items()):.4f}"
+          f" samples")
+
+    for n_st in NET_SWEEP:
+        blocks = sweep.make_blocks(n_st, 3 * BLOCK / FS, SEED + n_st, dev)
+        tiles = corr_accum.plan_tiles(blocks[3], n_st, True,
+                                      corr_accum.smem_optin(dev))
+        _reset_counts(counters)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = sweep.run(blocks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches, shapes = _read_counts(counters)
+        e = sweep.tdoa_error(r, blocks[4])
+        route = "kernel 1" if launches["corr_accum"] else "segmented"
+        print(f"-- station sweep, {n_st} stations ({len(blocks[3])} pairs): "
+              f"process_blocks {wall:.3f} s (first run), route {route}, "
+              f"{len(tiles)} tiles a block {[hi - lo for *_, lo, hi in tiles]}"
+              f"; largest |TDOA - planted| {e:.4f} samples; launches "
+              f"{launches}, kernel 1 {shapes['k1_shapes']}, kernel 2 "
+              f"{shapes['k2_shapes']}")
+        out[f"network: sweep process_blocks, {n_st} stations"] = {
+            "wall_s": wall, "launches": launches, **shapes,
+            "tiles": len(tiles), "tdoa_err_max_samples": e}
+        if launches["corr_accum"] != 3 * len(tiles) or not e < 0.5:
+            fails.append(f"sweep at {n_st} stations: route {route}, "
+                         f"launches {launches}, TDOA error {e:.3f}")
+        del r
+        fails += _network_overlapped(dev, blocks, n_st, counters, out)
+        del blocks
+        torch.cuda.empty_cache()
+    print(json.dumps({"network": {k: {kk: vv for kk, vv in v.items()
+                                      if kk not in SHAPE_KEYS.values()}
+                                  for k, v in out.items()}}))
+    if fails:
+        raise RuntimeError("phase 11: " + "; ".join(fails))
+    return out
+
+
 def phase_slice(dev, tmp: Path):
     """Phases 4 and 5 on a synthesized capture written into ``tmp``;
     returns (the paths' results, the files, the truth)."""
@@ -2786,16 +3149,18 @@ def main() -> int:
         paths.update(phase_tools(dev, files, truth, tmp))
         paths.update(phase_sharded(dev, files, truth))
         paths.update(phase_calibration(dev))
+        paths.update(phase_network(dev, tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # Every kernel is held against its plain version shape by shape: a
     # path may launch it at no shape that phase 3 did not check, and an
     # entry with a shape counts the launches at that shape.
+    later_k1 = [tuple(key) for k in kernels
+                for key in k.get("launch_keys", [])]
     checked = {"k1_shapes": set(map(str, (
-                   BATCH_SHAPE, *STREAM_SHAPES, *SHARD_K1_SHAPES,
-                   *DRYRUN_K1_SHAPES))),
+                   BATCH_SHAPE, *STREAM_SHAPES, *later_k1))),
                "k2_shapes": set(map(str, K2_SHAPES + SHARD_K2_SHAPES
-                                    + CAL_K2_SHAPES)),
+                                    + CAL_K2_SHAPES + NET_K2_SHAPES)),
                "k3_shapes": set(map(str, K3_SHAPES + CAL_K3_SHAPES))}
     for p, r in paths.items():
         for key, ok in checked.items():
@@ -2803,9 +3168,10 @@ def main() -> int:
                 raise RuntimeError(f"{p}: {key} {r[key]}, phase 3 checked "
                                    f"{sorted(ok)}")
     for k in kernels:
-        if "shape" in k:  # one kernel at one shape
+        if "shape" in k:  # one kernel at one shape (kernel 1: its tiles')
             key = SHAPE_KEYS[k["name"].split("[")[0]]
-            by_path = {p: r[key].get(str(tuple(k["shape"])), 0)
+            shapes = set(map(tuple, k.get("launch_keys", [k["shape"]])))
+            by_path = {p: sum(r[key].get(str(sh), 0) for sh in shapes)
                        for p, r in paths.items()}
         else:
             by_path = {p: r["launches"][k["name"]] for p, r in paths.items()}

@@ -489,7 +489,8 @@ def correlate_pairs_fused(x: torch.Tensor, pairs: Sequence[Tuple[int, int]],
                           refine: str = "phase",
                           remove_dc: bool = False) -> CorrResult:
     """GCC correlation of planar ``x`` [2, n_st, N] through kernel 1
-    (fixed geometry: seg 45056, FFT 65536) and the shared finish stage.
+    (fixed geometry: seg 45056, FFT 65536; pair-tiled where one launch
+    does not hold the pairs) and the shared finish stage.
     With ``refine="phase"`` and ≥2 segments the capture is accumulated
     as K split banks in ONE kernel call; every bank is scaled by the
     FULL capture's per-station RMS so the banks still sum to the full

@@ -18,6 +18,17 @@ stages passes through two L2-sized scratch buffers. ``accumulate_banks``
 is its wrapper: a CUDA tensor launches it (or raises), a CPU tensor
 takes ``accumulate_banks_plain``, the same sums with ``torch.fft`` —
 also what the kernel is held against on the card.
+
+Pair tiling (the counterpart of the reference's pair chunks,
+``tdoa_tpu/ops/pallas/corr_accum.py:497-538``): one (bank, row) item of
+the kernel holds ``n_slots`` rows of 256 f32 accumulators in a CTA's
+shared memory, so from 13 stations (all pairs, DC sums) no launch holds
+the whole pair list. ``plan_tiles`` sizes tiles by the kernel's own
+footprint formula (``smem_bytes``, a mirror of ``csrc/corr_accum.cu``)
+against the card's opt-in limit, and ``accumulate_banks`` launches once
+per tile and stitches the cross banks along the pair axis. Every sum in
+the kernel runs in segment order, per pair and per station alone, so a
+tiled result is bitwise the untiled one.
 """
 
 from __future__ import annotations
@@ -40,9 +51,103 @@ SEG_LEN = SEG_ROWS * R  # 45056
 # H100's 50 MB L2: 3 stations × 4 banks × 4 segments. Two 12 MB buffers
 # measured slower (more phases, each ending in a grid-wide barrier).
 SCRATCH_BUF_BYTES = 24 << 20
-# The CUDA error the kernel's launch-shape choice returns where not even
-# one (bank, row) item's accumulators fit a CTA.
-_NO_SHAPE = 9  # cudaErrorInvalidConfiguration
+# The kernel's transform-buffer constants (csrc/corr_accum.cu: GROUPS,
+# SLOT), for the footprint mirror below.
+_GROUPS = 16
+_SLOT = 16 * 17 + 1
+
+
+def n_slots(n_st: int, m: int, track: bool) -> int:
+    """Accumulator rows of one (bank, row) item: cross re/im for each
+    pair, PSD per station, and with ``track`` the sums' re/im
+    (``n_slots`` in ``csrc/corr_accum.cu``)."""
+    return 2 * m + n_st * (3 if track else 1)
+
+
+def smem_bytes(n_st: int, m: int, track: bool, n_res: int = 1) -> int:
+    """Shared memory of a CTA holding ``n_res`` items' accumulators:
+    the twiddle tables, the transform buffers and their flags, the pair
+    list and the accumulators — the kernel's own formula
+    (``smem_bytes`` in ``csrc/corr_accum.cu``), mirrored here for the
+    tile planner; ``fits_device`` holds the two to each other."""
+    def pad4(n):
+        return (n + 3) & ~3
+
+    xs = max(n_st, _GROUPS)
+    return (3 * R * 8 + xs * _SLOT * 8 + 4 * pad4(xs) + 4 * pad4(2 * m)
+            + n_res * n_slots(n_st, m, track) * R * 4)
+
+
+def max_tile_pairs(n_st: int, track: bool, optin: int) -> int:
+    """The most pairs one launch over ``n_st`` rows holds: one item's
+    accumulators (the reload branch) within ``optin`` bytes of shared
+    memory; 0 where the per-station rows alone exceed it."""
+    room = optin - smem_bytes(n_st, 0, track)
+    m = max(room // (2 * R * 4 + 8), 0)  # 2 rows and 2 indices a pair
+    while m > 0 and smem_bytes(n_st, m, track) > optin:
+        m -= 1
+    return m
+
+
+@functools.lru_cache(maxsize=8)
+def smem_optin(device) -> int:
+    """The opt-in shared memory a block may use on CUDA ``device``."""
+    return int(torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin)
+
+
+def plan_tiles(pairs, n_st: int, track: bool, optin=None,
+               max_pairs=None) -> tuple:
+    """The kernel launches that accumulate ``pairs`` over ``n_st``
+    rows: a tuple of ``(r0, r1, lo, hi)``, each launch running on rows
+    ``r0:r1`` for ``pairs[lo:hi]``, in pair order.
+
+    One launch where it holds every pair (``max_tile_pairs`` against
+    ``optin`` bytes; no limit when both it and ``max_pairs`` are None, as
+    for the plain version on the CPU). Else the pair list splits first
+    where it falls into blocks of rows that share no pair (the stacked
+    3·n_st rows of the overlapped ingest: one block each), then each
+    block's pairs into near-equal tiles (q or q+1 pairs, as the
+    reference's chunks) at the block's own capacity, or at
+    ``max_pairs`` (the counterpart of the reference's
+    ``_force_max_pairs``, for tests). A block's first tile carries its
+    rows' PSD and sums. Raises ``ValueError`` where one pair does not
+    fit a launch."""
+    p = np.asarray(pairs, np.int64).reshape(-1, 2)
+    m = len(p)
+
+    def cap(rows):
+        if max_pairs is not None:
+            return int(max_pairs)
+        if optin is None:
+            return m
+        return max_tile_pairs(rows, track, optin)
+
+    if m <= cap(n_st):
+        return ((0, n_st, 0, m),)
+    lo_row, hi_row = p.min(1), p.max(1)
+    # Split before pair k where every earlier pair lies below every later.
+    before = np.maximum.accumulate(hi_row)[:-1]
+    after = np.minimum.accumulate(lo_row[::-1])[::-1][1:]
+    cuts = [0, *(np.nonzero(before < after)[0] + 1).tolist(), m]
+    rows = [0, *(int(lo_row[k:].min()) for k in cuts[1:-1]), n_st]
+    tiles = []
+    for g in range(len(cuts) - 1):
+        r0, r1 = rows[g], rows[g + 1]
+        c = cap(r1 - r0)
+        if c < 1:
+            raise ValueError(
+                f"corr_accum: no launch holds one pair over {r1 - r0} rows "
+                f"(per-station accumulators alone exceed the shared memory)")
+        m_g = cuts[g + 1] - cuts[g]
+        n_t = -(-m_g // c)
+        q, r = divmod(m_g, n_t)
+        lo = cuts[g]
+        for t in range(n_t):
+            hi = lo + q + (1 if t < r else 0)
+            tiles.append((r0, r1, lo, hi))
+            lo = hi
+    return tuple(tiles)
 
 
 @functools.lru_cache(maxsize=None)
@@ -176,20 +281,32 @@ def _launch_shape(n_st, m, track_sums, n_banks, bf16, device):
                          (int(v) for v in out)))
 
 
-def kernel_config(n_st: int, m: int, track_sums: bool, n_banks: int,
+def kernel_config(n_st: int, pairs, track_sums: bool, n_banks: int,
                   bf16: bool = True, device=None) -> dict:
-    """The launch the kernel takes on ``device`` (default: the current
-    card): whether each CTA keeps its items' accumulators in shared
-    memory for the whole launch (``resident``) or reloads one item's per
-    chunk, the grid, CTAs per SM, (bank, row) items per CTA and shared
-    memory per CTA."""
+    """The launches the kernel takes on ``device`` (default: the current
+    card) for ``pairs`` over ``n_st`` rows, as ``accumulate_banks`` runs
+    them (the tiles of ``plan_tiles``): the launch of the largest tile —
+    whether each CTA keeps its items' accumulators in shared memory for
+    the whole launch (``resident``) or reloads one item's per chunk, the
+    grid, CTAs per SM, (bank, row) items per CTA and shared memory per
+    CTA — with ``tiles`` (launches), ``rows`` and ``m_tile`` (the
+    largest tile's rows and pairs)."""
     dev = torch.device("cuda", torch.cuda.current_device()) \
         if device is None else torch.device(device)
-    err, cfg = _launch_shape(n_st, m, track_sums, n_banks, bf16, dev)
+    tiles = _tiles(pairs_key(pairs), n_st, track_sums, smem_optin(dev), None)
+    rows, m_tile = max(_launch_shapes(tiles),
+                       key=lambda s: smem_bytes(*s, track_sums))
+    err, cfg = _launch_shape(rows, m_tile, track_sums, n_banks, bf16, dev)
     if err != 0:
-        raise RuntimeError(f"corr_accum has no launch for {n_st} stations, "
-                           f"{m} pairs, {n_banks} banks: CUDA error {err}")
-    return cfg
+        raise RuntimeError(f"corr_accum has no launch for {rows} rows, "
+                           f"{m_tile} pairs, {n_banks} banks: CUDA error "
+                           f"{err}")
+    return {**cfg, "tiles": len(tiles), "rows": rows, "m_tile": m_tile}
+
+
+def _launch_shapes(tiles) -> list:
+    """The distinct (rows, pairs) of a tile plan's launches."""
+    return sorted({(r1 - r0, hi - lo) for r0, r1, lo, hi in tiles})
 
 
 @functools.lru_cache(maxsize=64)
@@ -197,36 +314,79 @@ def _device_plan(n_seg: int, n_banks: int, run: int, device) -> torch.Tensor:
     return torch.from_numpy(chunk_plan(n_seg, n_banks, run)).to(device)
 
 
-def fits_device(n_st: int, m: int, track_sums: bool, n_banks: int,
+def fits_device(n_st: int, pairs, track_sums: bool, n_banks: int,
                 device: torch.device) -> bool:
-    """Whether the kernel runs on ``device``: the built library finds it
-    a launch shape there (at least one item's accumulators fit a CTA's
-    shared memory, by the kernel's own footprint formula against the
-    device's opt-in limit) and the device holds the two scratch buffers
-    of the largest chunk plus the bank accumulators."""
-    err, _ = _launch_shape(n_st, m, track_sums, n_banks, True, device)
-    if err == _NO_SHAPE:
+    """Whether the kernel runs ``pairs`` over ``n_st`` rows on
+    ``device`` as ``accumulate_banks`` launches them (the tiles of
+    ``plan_tiles`` at the device's opt-in shared memory): every tile's
+    launch has a shape (the footprint mirror plans them, the built
+    library must agree) and the device holds the two scratch buffers of
+    the largest tile's chunk, the bank accumulators and, where the list
+    is tiled, the tiles' outputs beside them."""
+    key = pairs_key(pairs)
+    try:
+        tiles = _tiles(key, n_st, track_sums, smem_optin(device), None)
+    except ValueError:  # no launch holds one pair
         return False
-    if err != 0:
-        raise RuntimeError(f"corr_accum launch shape: CUDA error {err}")
-    run = bank_run(n_st, n_banks, 1 << 30)
-    scratch = 2 * n_st * n_banks * run * FFT_LEN * 8
-    acc = n_banks * FFT_LEN * (8 * m + 4 * n_st + (8 * n_st if track_sums
-                                                    else 0))
+    for rows, m_tile in _launch_shapes(tiles):
+        err, _ = _launch_shape(rows, m_tile, track_sums, n_banks, True,
+                               device)
+        if err != 0:
+            raise RuntimeError(
+                f"corr_accum launch shape for {rows} rows, {m_tile} pairs: "
+                f"CUDA error {err} (the footprint mirror says it fits)")
+    rows = max(r1 - r0 for r0, r1, _, _ in tiles)
+    run = bank_run(rows, n_banks, 1 << 30)
+    scratch = 2 * rows * n_banks * run * FFT_LEN * 8
+    acc = n_banks * FFT_LEN * (8 * len(key) + 4 * n_st
+                               + (8 * n_st if track_sums else 0))
+    tiled = acc if len(tiles) > 1 else 0
     free, _ = torch.cuda.mem_get_info(device)
-    return scratch + acc < free
+    return scratch + acc + tiled < free
 
 
 def accumulate_banks(x: torch.Tensor, pairs, n_banks: int = 1,
-                     track_sums: bool = False):
+                     track_sums: bool = False, max_pairs=None):
     """Raw banked accumulators of planar ``x`` [2, n_st, N] (bf16 or
     f32; N truncated to whole segments): (cross c64 [K, m, F], psd f32
     [K, n_st, F], sums c64 [K, n_st, F] or None), true frequency order.
 
-    CPU tensors take the plain torch version; CUDA tensors launch
-    ``csrc/corr_accum.cu`` and count the launch in
-    ``accumulate_banks.launches`` (and, by ``(n_st, n_seg, n_banks)``, in
-    ``accumulate_banks.launch_shapes``)."""
+    The pair list goes in the tiles of ``plan_tiles`` (on a card: as many
+    pairs a launch as its shared memory holds; ``max_pairs`` forces the
+    tile size, for tests and the smoke), each tile one call below; the
+    cross banks are stitched along the pair axis, PSD and sums taken
+    from each row block's first tile. CPU tensors take the plain torch
+    version per tile; CUDA tensors launch ``csrc/corr_accum.cu`` per
+    tile (a launch that fails raises) and count each launch in
+    ``accumulate_banks.launches`` and, by ``(rows, segments, banks,
+    pairs)``, in ``accumulate_banks.launch_shapes``."""
+    n_st, _, _ = _check_input(x, pairs)
+    key = pairs_key(pairs)
+    optin = None if x.device.type == "cpu" else smem_optin(x.device)
+    tiles = _tiles(key, n_st, track_sums, optin, max_pairs)
+    if len(tiles) == 1:
+        return _accumulate_tile(x, key, n_banks, track_sums)
+    cross, psd, sums = [], [], []
+    for t, (r0, r1, lo, hi) in enumerate(tiles):
+        sub = tuple((i - r0, j - r0) for i, j in key[lo:hi])
+        c, p, s = _accumulate_tile(x[:, r0:r1], sub, n_banks, track_sums)
+        cross.append(c)
+        if t == 0 or r0 != tiles[t - 1][0]:  # a row block's first tile
+            psd.append(p)
+            sums.append(s)
+    return (torch.cat(cross, 1), torch.cat(psd, 1),
+            torch.cat(sums, 1) if track_sums else None)
+
+
+@functools.lru_cache(maxsize=64)
+def _tiles(key, n_st, track, optin, max_pairs) -> tuple:
+    return plan_tiles(key, n_st, track, optin, max_pairs)
+
+
+def _accumulate_tile(x: torch.Tensor, pairs, n_banks: int,
+                     track_sums: bool):
+    """One tile: the plain version for a CPU tensor, one launch of the
+    kernel for a CUDA tensor (or an error)."""
     if x.device.type == "cpu":
         return accumulate_banks_plain(x, pairs, n_banks, track_sums)
     from tdoa_tpu_torch.ops.kernels import _build
@@ -262,9 +422,10 @@ def accumulate_banks(x: torch.Tensor, pairs, n_banks: int = 1,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     if err != 0:
-        raise RuntimeError(f"corr_accum kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"corr_accum kernel launch failed: CUDA error {err} "
+                           f"({n_st} rows, {m} pairs, {n_banks} banks)")
     accumulate_banks.launches += 1
-    accumulate_banks.launch_shapes[(n_st, n_seg, n_banks)] += 1
+    accumulate_banks.launch_shapes[(n_st, n_seg, n_banks, m)] += 1
     return cross, psd, sums
 
 

@@ -91,14 +91,17 @@ def plan_chunks(
     return chunk, spans
 
 
-def _geometry(n_rows: int, n_pairs: int, block_len: int, max_lag: int,
+def _geometry(n_rows: int, pairs, block_len: int, max_lag: int,
               seg_len: Optional[int], accumulator: str,
               device: torch.device):
-    """(seg_len, fft_len, dtype) of a streamed accumulation over
-    ``n_rows`` channels: kernel 1's geometry with bf16 operands when the
-    lag window, the block length (``TARGET_SEGS`` kernel segments, the
-    batch route's rule: ``TDOAProcessor._fused_eligible``) and the
-    kernel's single-bank footprint on ``device`` allow it and
+    """(seg_len, fft_len, dtype) of a streamed accumulation of ``pairs``
+    (host [m, 2]) over ``n_rows`` channels: kernel 1's geometry with
+    bf16 operands when the lag window, the block length (``TARGET_SEGS``
+    kernel segments, the batch route's rule:
+    ``TDOAProcessor._fused_eligible``) and the kernel's single-bank
+    launches of ``pairs`` on ``device`` allow it (pair-tiled where one
+    launch does not hold them: the overlapped ingest's stacked rows
+    split by block first, from 8 stations) and
     ``accumulator`` is not ``"xla"``, else the segmented geometry
     (``resolve_seg``) in f32 — for a short block the batch route's
     segmented geometry (``auto_seg_len``) unless ``"xla"`` asks for the
@@ -113,7 +116,7 @@ def _geometry(n_rows: int, n_pairs: int, block_len: int, max_lag: int,
     want = seg_len if seg_len is not None else 1 << 16
     if accumulator != "xla" and max_lag <= FFT_LEN - SEG_LEN:
         if (block_len >= TARGET_SEGS * SEG_LEN
-                and kernel_geometry(n_rows, n_pairs, SEG_LEN, FFT_LEN,
+                and kernel_geometry(n_rows, pairs, SEG_LEN, FFT_LEN,
                                     block_len, True, device)):
             return SEG_LEN, FFT_LEN, torch.bfloat16
         want = auto_seg_len(block_len, max_lag, want)
@@ -280,11 +283,10 @@ class TailIngest:
         self._pairs = np.asarray(pair_idx, np.int32).reshape(-1, 2)
         self._m = int(self._pairs.shape[0])
         self._ref_geo = np.asarray(ref_geo_tdoa)
-        # Per-block geometry: the kernel's gate sees (n_st, m), not the
-        # stacked (3·n_st, 3·m) — strictly more permissive.
+        # Per-block geometry: each block's state is over n_st rows.
         self._seg, self._fft_len, self._dtype = _geometry(
-            n_st, self._m, self.block_len, max_lag, seg_len, accumulator,
-            self.device)
+            n_st, self._pairs, self.block_len, max_lag, seg_len,
+            accumulator, self.device)
         chunk, spans = plan_chunks(self.block_len, self._seg, chunk_samples)
         if not spans:
             raise ValueError(
@@ -432,12 +434,11 @@ def accumulate_overlapped(
                          "block_len")
     pair_np = np.asarray(pair_idx, np.int32).reshape(-1, 2)
     m = int(pair_np.shape[0])
-    seg_r, fft_len, dtype = _geometry(
-        3 * n_st, 3 * m, block_len, max_lag, seg_len, accumulator, dev)
-
     # Stacked pair list over the 3 logical blocks.
     offsets = np.arange(3, dtype=np.int32)[:, None, None] * n_st
     all_pairs = (pair_np[None, :, :] + offsets).reshape(3 * m, 2)
+    seg_r, fft_len, dtype = _geometry(
+        3 * n_st, all_pairs, block_len, max_lag, seg_len, accumulator, dev)
 
     chunk, spans = plan_chunks(block_len, seg_r, chunk_samples)
     if not spans:

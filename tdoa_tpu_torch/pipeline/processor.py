@@ -441,15 +441,16 @@ def _deramp_correlate(
 @functools.lru_cache(maxsize=None)
 def _fused_fits(n_stations: int, index: int) -> bool:
     """``fits_device``'s verdict on the fused batch shape (K = 4 banks,
-    DC sums) for ``n_stations`` on card ``index``, taken once and kept:
+    DC sums, all pairs, pair-tiled where one launch does not hold them:
+    13 stations and up on the H100) for ``n_stations`` on card
+    ``index``, taken once and kept:
     ``load_files`` (bf16 or f32 decode) and ``process_captures`` (which
     accumulator) ask it at different free memory — the captures, and
     with LO compensation the derotated blocks, lie between the two — and
     must never disagree."""
     from tdoa_tpu_torch.ops.kernels.corr_accum import fits_device
 
-    n_pairs = n_stations * (n_stations - 1) // 2
-    return fits_device(n_stations, n_pairs, True, 4,
+    return fits_device(n_stations, station_pairs(n_stations), True, 4,
                        torch.device("cuda", index))
 
 

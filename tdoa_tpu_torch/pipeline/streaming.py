@@ -96,25 +96,30 @@ def acc_init(n_st: int, n_pairs: int, fft_len: int,
     )
 
 
-def kernel_geometry(n_st: int, n_pairs: int, seg_len: int, fft_len: int,
+def kernel_geometry(n_st: int, pairs, seg_len: int, fft_len: int,
                     length: int, remove_dc: bool,
                     device: torch.device) -> bool:
-    """Whether a chunk of ``length`` samples goes through kernel 1: its
-    fixed geometry, at least one segment, and on CUDA the kernel's own
-    single-bank footprint on ``device`` (decided at the first question
+    """Whether a chunk of ``length`` samples over ``n_st`` rows goes
+    through kernel 1 for ``pairs`` (host [m, 2]): its fixed geometry, at
+    least one segment, and on CUDA the kernel's own single-bank
+    launches of those pairs on ``device`` (decided at the first question
     for a shape, ``_kernel_fits``)."""
-    from tdoa_tpu_torch.ops.kernels.corr_accum import FFT_LEN, SEG_LEN
+    from tdoa_tpu_torch.ops.kernels.corr_accum import (
+        FFT_LEN,
+        SEG_LEN,
+        pairs_key,
+    )
 
     ok = fft_len == FFT_LEN and seg_len == SEG_LEN and length >= SEG_LEN
     if ok and device.type == "cuda":
         index = (torch.cuda.current_device() if device.index is None
                  else device.index)
-        ok = _kernel_fits(n_st, n_pairs, remove_dc, index)
+        ok = _kernel_fits(n_st, pairs_key(pairs), remove_dc, index)
     return ok
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fits(n_st: int, n_pairs: int, remove_dc: bool,
+def _kernel_fits(n_st: int, pairs: tuple, remove_dc: bool,
                  index: int) -> bool:
     """``fits_device``'s verdict on kernel 1 as a single bank, taken once
     per shape and card and kept: every chunk of a stream then goes the
@@ -123,7 +128,7 @@ def _kernel_fits(n_st: int, n_pairs: int, remove_dc: bool,
     that the card cannot hold raises from the kernel's wrapper."""
     from tdoa_tpu_torch.ops.kernels.corr_accum import fits_device
 
-    return fits_device(n_st, n_pairs, remove_dc, 1,
+    return fits_device(n_st, pairs, remove_dc, 1,
                        torch.device("cuda", index))
 
 
@@ -141,7 +146,8 @@ def acc_update(
     while still being counted.
 
     A chunk of the kernel geometry (``kernel_geometry``) is accumulated
-    by kernel 1 as a single bank, bf16 or f32 as it comes, with the DC
+    by kernel 1 as a single bank (pair-tiled where one launch does not
+    hold the pairs), bf16 or f32 as it comes, with the DC
     removal folded into the spectra; any other chunk by the segmented
     accumulator in f32 after a per-chunk demean — the streaming
     counterpart of the batch path's per-block DC removal."""
@@ -152,8 +158,7 @@ def acc_update(
             f"seg_len {seg_len}; pad or split the chunk"
         )
     n_st = int(chunk.shape[1])
-    m = int(state.cross.shape[0])
-    if kernel_geometry(n_st, m, seg_len, fft_len, length, remove_dc,
+    if kernel_geometry(n_st, pair_idx, seg_len, fft_len, length, remove_dc,
                        chunk.device):
         from tdoa_tpu_torch.ops.kernels.corr_accum import (
             accumulate_cross_spectra,

@@ -219,32 +219,209 @@ def test_cpu_tensors_take_the_plain_version():
     assert accumulate_banks.launches == before
 
 
+def _all_pairs(n_st):
+    return tuple((i, j) for i in range(n_st) for j in range(i + 1, n_st))
+
+
+def _stacked_pairs(n_st, blocks=3):
+    """The overlapped ingest's layout: the pairs of ``n_st`` stations in
+    each of ``blocks`` stacked blocks of rows."""
+    return tuple((n_st * b + i, n_st * b + j) for b in range(blocks)
+                 for i, j in _all_pairs(n_st))
+
+
+H100_SMEM_OPTIN = 232_448  # cudaDevAttrMaxSharedMemoryPerBlockOptin
+
+
+@pytest.mark.parametrize("layout", ["all pairs of 5", "3 stacked blocks"])
+def test_tiled_accumulation_matches_single_launch(layout):
+    """Pair tiles forced to 4 pairs (the port of
+    tests/test_fused_corr.py::test_fused_pair_tiling_matches_single_invocation)
+    give the untiled accumulators bitwise, in 2 banks with DC sums: each
+    tile runs the same sums on the same rows. The stacked layout splits
+    into its row blocks first, each block's PSD from its own tile."""
+    if layout == "all pairs of 5":
+        n_st, pairs = 5, _all_pairs(5)
+    else:
+        n_st, pairs = 12, _stacked_pairs(4)
+    x = torch.from_numpy(fm_block(n_st, 2 * SEG_LEN, np.arange(n_st) * 3.5,
+                                  seed=3, dc=(0.01, -0.02)))
+    assert len(corr_accum.plan_tiles(pairs, n_st, True, max_pairs=4)) > 1
+    one = accumulate_banks(x, pairs, 2, True)
+    tiled = accumulate_banks(x, pairs, 2, True, max_pairs=4)
+    for a, b in zip(tiled, one):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_st,stacked,max_pairs", [
+    (5, False, 4), (5, False, 1), (24, False, 46), (24, False, 7),
+    (3, True, 2), (12, True, 17), (8, True, 28)])
+def test_tile_planner_covers_every_pair_once_in_order(n_st, stacked,
+                                                      max_pairs):
+    """Tiles partition the pair list in order, each a run of consecutive
+    pairs on rows that hold all of them; within a row block the sizes
+    are q or q+1; the row blocks partition the rows."""
+    pairs = _stacked_pairs(n_st) if stacked else _all_pairs(n_st)
+    rows = 3 * n_st if stacked else n_st
+    tiles = corr_accum.plan_tiles(pairs, rows, True, max_pairs=max_pairs)
+    assert [t[2] for t in tiles] == [0] + [t[3] for t in tiles[:-1]]
+    assert tiles[-1][3] == len(pairs)
+    blocks = {}
+    for r0, r1, lo, hi in tiles:
+        assert 1 <= hi - lo <= max_pairs
+        assert all(r0 <= i < r1 and r0 <= j < r1 for i, j in pairs[lo:hi])
+        blocks.setdefault((r0, r1), []).append(hi - lo)
+    edges = sorted(blocks)
+    assert edges[0][0] == 0 and edges[-1][1] == rows
+    assert all(a[1] == b[0] for a, b in zip(edges, edges[1:]))
+    for sizes in blocks.values():
+        assert max(sizes) - min(sizes) <= 1
+    assert len(blocks) == (3 if stacked and len(tiles) > 1 else 1)
+
+
+@pytest.mark.parametrize("n_st,stacked,tiles", [
+    (3, False, 1), (8, False, 1), (12, False, 1), (13, False, 2),
+    (16, False, 2), (24, False, 6), (3, True, 1), (12, True, 3)])
+def test_tile_capacity_on_the_h100(n_st, stacked, tiles):
+    """With the H100's opt-in limit, one launch holds every pair of up
+    to 12 stations (DC sums on: 12 need 213,712 B of 232,448); 13, 16
+    and 24 stations tile; 12 stations stacked ×3 (36 rows, 198 pairs)
+    take one launch per 12-row block. Every launch fits the limit."""
+    pairs = _stacked_pairs(n_st) if stacked else _all_pairs(n_st)
+    rows = 3 * n_st if stacked else n_st
+    plan = corr_accum.plan_tiles(pairs, rows, True, H100_SMEM_OPTIN)
+    assert len(plan) == tiles
+    for r0, r1, lo, hi in plan:
+        assert corr_accum.smem_bytes(r1 - r0, hi - lo, True) \
+            <= H100_SMEM_OPTIN
+    assert corr_accum.smem_bytes(12, 66, True) == 213_712
+    assert corr_accum.smem_bytes(13, 78, True) > H100_SMEM_OPTIN
+
+
+def test_tile_planner_refuses_what_no_launch_holds():
+    """Where the per-station accumulators alone exceed the limit (300
+    stations), no tile holds a pair: the planner raises."""
+    assert corr_accum.max_tile_pairs(300, True, H100_SMEM_OPTIN) == 0
+    with pytest.raises(ValueError, match="no launch holds one pair"):
+        corr_accum.plan_tiles(_all_pairs(300), 300, True, H100_SMEM_OPTIN)
+
+
+@pytest.fixture
+def h100_gate(monkeypatch):
+    """The kernel route's gates as on an H100 with 80 GB free, without a
+    card: the opt-in limit, the free memory, and the built library's
+    launch search (``choose()`` in csrc/corr_accum.cu, checked against
+    the mirror on the card by ``fits_device``) stood in by the footprint
+    mirror. Records every launch shape the gates ask about."""
+    from tdoa_tpu_torch.pipeline import processor as tproc
+    from tdoa_tpu_torch.pipeline import streaming as ts
+
+    asked = []
+
+    def launch_shape(rows, m, track, n_banks, bf16, device):
+        asked.append((rows, m, n_banks))
+        fits = corr_accum.smem_bytes(rows, m, track) <= H100_SMEM_OPTIN
+        return (0 if fits else 9), {}
+
+    monkeypatch.setattr(corr_accum, "smem_optin", lambda d: H100_SMEM_OPTIN)
+    monkeypatch.setattr(corr_accum, "_launch_shape", launch_shape)
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda d: (80 << 30,
+                                                               80 << 30))
+    ts._kernel_fits.cache_clear()
+    tproc._fused_fits.cache_clear()
+    yield asked
+    ts._kernel_fits.cache_clear()
+    tproc._fused_fits.cache_clear()
+
+
+@pytest.mark.parametrize("n_st,tiles", [(8, 3), (12, 3), (16, 6), (24, 18)])
+def test_overlapped_geometry_takes_the_kernel_at_h100_optin(h100_gate, n_st,
+                                                            tiles):
+    """The overlapped ingest's gate (``ingest._geometry`` on the stacked
+    3·n_st rows and 3·m pairs of a 10 s block) picks kernel 1 at 8 to 24
+    stations, and asks only about the launches ``accumulate_banks``
+    makes: each 12-, 16- or 24-row block's tiles."""
+    from tdoa_tpu_torch.pipeline import ingest
+
+    pairs = np.asarray(_stacked_pairs(n_st), np.int32)
+    card = torch.device("cuda", 0)
+    geo = ingest._geometry(3 * n_st, pairs, 443 * SEG_LEN, 20000, None,
+                           "pallas", card)
+    assert geo == (SEG_LEN, FFT_LEN, torch.bfloat16)
+    plan = corr_accum.plan_tiles(pairs, 3 * n_st, True, H100_SMEM_OPTIN)
+    assert len(plan) == tiles
+    assert sorted(set(h100_gate)) == sorted(
+        {(n_st, hi - lo, 1) for _, _, lo, hi in plan})
+
+
+@pytest.mark.parametrize("n_st", [3, 12, 13, 16, 24])
+def test_batch_route_takes_the_kernel_at_h100_optin(h100_gate, n_st):
+    """The batch route's gate (``TDOAProcessor._fused_eligible``, K = 4
+    banks of all pairs) picks kernel 1 at 3 to 24 stations on a card
+    with the H100's opt-in limit, tiled from 13."""
+    from tdoa_tpu_torch.pipeline.processor import (
+        ProcessorConfig,
+        TDOAProcessor,
+    )
+
+    proc = TDOAProcessor(ProcessorConfig(162.4e6, 101.9e6), None,
+                         device="cpu")
+    proc.device = torch.device("cuda", 0)  # the card's verdict, no card
+    assert proc._fused_eligible(n_st, 443 * SEG_LEN)
+    m = n_st * (n_st - 1) // 2
+    tiles = corr_accum.plan_tiles(_all_pairs(n_st), n_st, True,
+                                  H100_SMEM_OPTIN)
+    assert (len(tiles) > 1) == (n_st > 12)
+    assert {(r, k) for r, k, _ in h100_gate} == {
+        (n_st, hi - lo) for _, _, lo, hi in tiles}
+    assert sum(hi - lo for *_, lo, hi in tiles) == m
+
+
+def test_kernel_gate_refuses_what_no_launch_holds(h100_gate):
+    """Where no launch holds one pair (100 stations: the per-station
+    accumulators alone exceed the limit), the gates give the segmented
+    route and never reach the library."""
+    from tdoa_tpu_torch.pipeline import ingest
+
+    pairs = np.asarray(_stacked_pairs(100), np.int32)
+    geo = ingest._geometry(300, pairs, 443 * SEG_LEN, 20000, None, "pallas",
+                           torch.device("cuda", 0))
+    assert geo[2] == torch.float32 and geo[:2] != (SEG_LEN, FFT_LEN)
+    assert h100_gate == []
+
+
 def _cuda_block(n_st, n_seg, device):
-    pairs = tuple((i, j) for i in range(n_st) for j in range(i + 1, n_st))
-    delays = np.linspace(-40.0, 40.0, n_st)
-    x = torch.from_numpy(fm_block(n_st, n_seg * SEG_LEN, delays, seed=5,
-                                  dc=(0.01, 0.0))).to(device)
-    return x.to(torch.bfloat16).contiguous(), pairs
+    """bf16 planar noise made on the card (a 10 s block of 24 stations
+    would take minutes of numpy FFTs): every station a delayed copy of
+    the first plus its own noise and DC; all pairs."""
+    g = torch.Generator(device=device).manual_seed(5)
+    x = torch.randn(2, n_st, n_seg * SEG_LEN, device=device, generator=g)
+    for s in range(1, n_st):
+        x[:, s] += 0.5 * torch.roll(x[:, 0], 7 * s - 40, dims=-1)
+    return (0.3 * x + 0.01).to(torch.bfloat16).contiguous(), _all_pairs(n_st)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_st,n_seg,K", [(3, 16, 4), (3, 100, 4), (12, 5, 2),
-                                          (3, 443, 4)])
+                                          (3, 443, 4), (16, 443, 4),
+                                          (24, 443, 4)])
 def test_cuda_kernel_matches_plain(cuda_sm90, n_st, n_seg, K):
     """The CUDA kernel against its plain version on the card: 3
     stations, K = 4, sums on, bf16, at 16 segments (one chunk), at 100
     and at a 10 s block's 443 segments (chunks of corr_accum.bank_run
     segments a bank, each CTA keeping its items' accumulators on chip
-    from chunk to chunk), and a 12-station network (66 pairs: one item
+    from chunk to chunk), a 12-station network (66 pairs: one item
     takes 172 KB, so the reload branch carries the accumulators from
-    chunk to chunk through the outputs); within 1e-4 of each row's peak
-    magnitude (f32 FFTs, different summation orders)."""
+    chunk to chunk through the outputs), and 16 and 24 stations over a
+    10 s block, pair-tiled (2 and 6 launches); within 1e-4 of each
+    row's peak magnitude (f32 FFTs, different summation orders)."""
     x, pairs = _cuda_block(n_st, n_seg, cuda_sm90)
-    cfg = corr_accum.kernel_config(n_st, len(pairs), True, K)
+    cfg = corr_accum.kernel_config(n_st, pairs, True, K)
     assert cfg["resident"] == (n_st == 3)
+    assert cfg["tiles"] == {3: 1, 12: 1, 16: 2, 24: 6}[n_st]
     before = accumulate_banks.launches
     got = accumulate_banks(x, pairs, K, True)
-    assert accumulate_banks.launches == before + 1
+    assert accumulate_banks.launches == before + cfg["tiles"]
     want = corr_accum.accumulate_banks_plain(x, pairs, K, True)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
@@ -253,13 +430,34 @@ def test_cuda_kernel_matches_plain(cuda_sm90, n_st, n_seg, K):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_st,n_seg,K", [(3, 100, 4), (12, 5, 2)])
+@pytest.mark.parametrize("n_st,n_seg,K", [(3, 100, 4), (12, 5, 2),
+                                          (16, 443, 4), (24, 443, 4)])
 def test_cuda_kernel_is_deterministic(cuda_sm90, n_st, n_seg, K):
     """No float atomics: two launches on the same input give bitwise-
-    equal outputs, in both branches."""
+    equal outputs, in both branches and tiled."""
     x, pairs = _cuda_block(n_st, n_seg, cuda_sm90)
     a = accumulate_banks(x, pairs, K, True)
     b = accumulate_banks(x, pairs, K, True)
     torch.cuda.synchronize()
     for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_st,stacked,max_pairs", [(12, False, 33),
+                                                    (3, True, 3)])
+def test_cuda_tiles_are_bitwise_the_single_launch(cuda_sm90, n_st, stacked,
+                                                  max_pairs):
+    """On the card, 12 stations forced into 2 tiles, and the 9 stacked
+    rows of the overlapped ingest forced into their three row blocks,
+    give the single launch's outputs bitwise."""
+    rows = 3 * n_st if stacked else n_st
+    x, _ = _cuda_block(rows, 5, cuda_sm90)
+    pairs = _stacked_pairs(n_st) if stacked else _all_pairs(n_st)
+    one = accumulate_banks(x, pairs, 1, True)
+    before = accumulate_banks.launches
+    tiled = accumulate_banks(x, pairs, 1, True, max_pairs=max_pairs)
+    torch.cuda.synchronize()
+    assert accumulate_banks.launches - before == (3 if stacked else 2)
+    for u, v in zip(tiled, one):
         assert torch.equal(u, v)

@@ -199,8 +199,9 @@ def test_batch_route_is_decided_once_per_stations_and_card(monkeypatch):
     answers = iter([True, False, False])
     asked = []
 
-    def fits(n_st, m, sums, banks, device):
-        asked.append((n_st, m, sums, banks, device))
+    def fits(n_st, pairs, sums, banks, device):
+        asked.append((n_st, [tuple(p) for p in pairs.tolist()], sums, banks,
+                      device))
         return next(answers)
 
     monkeypatch.setattr(corr_accum, "fits_device", fits)
@@ -214,7 +215,8 @@ def test_batch_route_is_decided_once_per_stations_and_card(monkeypatch):
         as_process_captures = procs[0]._fused_eligible(3, BLOCK)
         assert as_load_files is as_process_captures is True
         assert procs[1]._fused_eligible(3, BLOCK) is True
-        assert asked == [(3, 3, True, 4, torch.device("cuda", 0))]
+        assert asked == [(3, [(0, 1), (0, 2), (1, 2)], True, 4,
+                          torch.device("cuda", 0))]
         # Off the kernel's geometry no card is asked at all.
         assert procs[0]._fused_eligible(3, 1000) is False
         assert len(asked) == 1

@@ -28,6 +28,8 @@ from tdoa_tpu_torch.io import datfile as tdat
 from tdoa_tpu_torch.pipeline import streaming as ts
 
 PAIRS = np.array([[0, 1], [0, 2], [1, 2]], np.int32)
+# The overlapped ingest's 9 pairs over 3 stacked blocks of 3 rows.
+STACKED_PAIRS = np.concatenate([PAIRS + 3 * b for b in range(3)])
 SEG, MAX_LAG = 1 << 13, 128
 FFT = 1 << 14  # next_pow2(SEG + MAX_LAG)
 CHUNK = 2 * SEG
@@ -205,7 +207,7 @@ def test_kernel_geometry_matches_jax_pallas_update(monkeypatch):
         dj, stdj = np.asarray(rj.delay), np.asarray(rj.delay_std)
     finally:
         jax.clear_caches()
-    assert ts.kernel_geometry(3, 3, K_SEG, K_FFT, 2 * K_SEG, True,
+    assert ts.kernel_geometry(3, PAIRS, K_SEG, K_FFT, 2 * K_SEG, True,
                               torch.device("cpu"))
     sp = _run_port(x, 2, True, seg=K_SEG, fft=K_FFT, chunk=2 * K_SEG,
                    dtype=torch.bfloat16)
@@ -219,10 +221,11 @@ def test_kernel_geometry_gate():
     """Kernel 1 takes a chunk only at its own geometry and from one
     whole segment up; anything else goes to the segmented accumulator."""
     cpu = torch.device("cpu")
-    assert ts.kernel_geometry(9, 9, K_SEG, K_FFT, 48 * K_SEG, True, cpu)
-    assert not ts.kernel_geometry(9, 9, K_SEG, K_FFT, K_SEG - 1, True, cpu)
-    assert not ts.kernel_geometry(9, 9, SEG, FFT, 48 * SEG, True, cpu)
-    assert not ts.kernel_geometry(9, 9, K_SEG, 2 * K_FFT, 48 * K_SEG, True,
+    p9 = STACKED_PAIRS
+    assert ts.kernel_geometry(9, p9, K_SEG, K_FFT, 48 * K_SEG, True, cpu)
+    assert not ts.kernel_geometry(9, p9, K_SEG, K_FFT, K_SEG - 1, True, cpu)
+    assert not ts.kernel_geometry(9, p9, SEG, FFT, 48 * SEG, True, cpu)
+    assert not ts.kernel_geometry(9, p9, K_SEG, 2 * K_FFT, 48 * K_SEG, True,
                                   cpu)
 
 
@@ -233,8 +236,8 @@ def test_kernel_route_is_decided_once_per_shape(monkeypatch):
 
     asked = []
 
-    def fits(n_st, m, track_sums, n_banks, device):
-        asked.append((n_st, m, track_sums, n_banks, device))
+    def fits(n_st, pairs, track_sums, n_banks, device):
+        asked.append((n_st, pairs, track_sums, n_banks, device))
         return len(asked) == 1  # free memory "dips" after the first call
 
     monkeypatch.setattr(tkernel, "fits_device", fits)
@@ -242,11 +245,12 @@ def test_kernel_route_is_decided_once_per_shape(monkeypatch):
     try:
         card = torch.device("cuda", 0)
         for n_seg in (96, 59, 96):
-            assert ts.kernel_geometry(9, 9, K_SEG, K_FFT, n_seg * K_SEG, True,
-                                      card)
-        assert asked == [(9, 9, True, 1, card)]
-        assert not ts.kernel_geometry(3, 3, K_SEG, K_FFT, 96 * K_SEG, True,
-                                      card)
+            assert ts.kernel_geometry(9, STACKED_PAIRS, K_SEG, K_FFT,
+                                      n_seg * K_SEG, True, card)
+        assert asked == [(9, tkernel.pairs_key(STACKED_PAIRS), True, 1,
+                          card)]
+        assert not ts.kernel_geometry(3, PAIRS, K_SEG, K_FFT, 96 * K_SEG,
+                                      True, card)
         assert len(asked) == 2
     finally:
         ts._kernel_fits.cache_clear()
