@@ -25,13 +25,19 @@ Phases, each printing its own lines; any failure exits non-zero:
              stacked rows of 12, 16 and 24 stations (198, 360 and 828
              pairs: a launch per 12-row block, 2 tiles per 16-row
              block, 6 per 24-row block) at 96 and 59 segments, K = 1;
+             14 stations × 443 segments × K = 4 (2 tiles); the sharded
+             step's 36 stacked f32 rows of 12 stations (a launch per
+             12-row block) at a 2-rank chunk's 220 segments, one bank,
+             and at its comparator's 440 segments, K = 4;
              launches are counted
              by (rows, segments, banks, pairs) and no path may launch it
              at a shape not checked here; kernel 2: K = 4,
              m = 3, F = 65536 on the 443-segment banks, and the
              segmented path's 9 pairs of 9 channels, and m = 66, 120,
              276 (phase 11's batch banks) and 198, 360, 828 (its
-             overlapped paths'); kernel 3: 9
+             overlapped paths'), 91 and 273 (14 stations, kernel and
+             segmented routes), and (K = 2, m = 198) (the 12-station
+             sharded step's 2 rank groups); kernel 3: 9
              channels × 20 M samples, D = 8, then 3 channels × 2 M
              samples on rows that are not 16-byte aligned, its scalar
              loads, and at D = 16; and 4 channels × 20 M samples, D = 8,
@@ -159,7 +165,14 @@ Phases, each printing its own lines; any failure exits non-zero:
              on the segmented route's banks — their 2^17- and
              2^18-sample blocks hold fewer than the 8 kernel segments
              the kernel route needs — and kernel 3 on the audio-match
-             trial's 4 × 2^17) are checked in phase 3;
+             trial's 4 × 2^17) are checked in phase 3; then a reduced
+             pass of ``scripts/ghost_calibration_torch.py`` (``gather``
+             at 1 trial a ghost regime, ``validate`` on those records:
+             printed, not gated at that size) and of
+             ``scripts/multipath_tailcal_torch.py`` (``capture`` of 2
+             multipath trials, read back; ``fit`` over the repository's
+             ``calib_data/mp_base_*.npz``, which must reproduce
+             ``MULTIPATH_CAL_r05.json``);
 11. network — a 12-station 30 s scene (the 5 stations of
              ``tests/test_multistation.py`` and 7 more within ~25 km, a
              CSV in the temp directory, each station's own clock
@@ -170,8 +183,18 @@ Phases, each printing its own lines; any failure exits non-zero:
              sample of the truth, the fix within 200 m; the host's
              leave-stations-out re-solves timed) and
              ``process_files_overlapped`` (within 0.05 sample of the
-             batch result, kernel 1 on the stacked rows); then the
-             station sweep's (``scripts/station_sweep_torch.py``) 16-
+             batch result, kernel 1 on the stacked rows); a
+             ``TailIngest`` session on the same files fed in ten growth
+             steps and finished by ``process_captures(caps,
+             tail=session)`` (st4 alone excluded, within 0.05 sample of
+             ``process_files``, every chunk within the first nine tenths
+             dispatched before the last tenth lands, last byte → fix
+             timed); the sharded step on the files' first 440 kernel
+             segments in a world of 2 gloo ranks on the card, kernel
+             route, within 1e-3 sample of the unsharded path on the same
+             blocks; 14 stations (2 tiles a block) through
+             ``process_blocks`` once on each route, within 0.5 sample of
+             the planted delays; then the station sweep's (``scripts/station_sweep_torch.py``) 16-
              and 24-station ``process_blocks`` once each (kernel 1
              pair-tiled, within 0.5 sample of the planted delays), the
              route and tiles printed, and the same blocks as u8 I/Q
@@ -802,6 +825,8 @@ def _later_shapes(dev, g):
                 SHARD_K1_SHAPES + DRYRUN_K1_SHAPES]
     k1_calls += [(3 * n_st if stacked else n_st, n_seg, kb, n_st,
                   torch.bfloat16, True) for n_st, n_seg, kb, stacked in NET_K1]
+    k1_calls += [(rows, n_seg, kb, block, torch.float32, False)
+                 for rows, n_seg, kb, block in NET_SHARD_K1]
     for rows, n_seg, kb, block, dtype, sums in k1_calls:
         f32 = dtype == torch.float32
         x = _k1_block(dev, g, n_seg, rows, dtype)
@@ -846,7 +871,7 @@ def _later_shapes(dev, g):
                 x, pn, kb, sums),  # noqa: B023
             "corr_accum_kernel",
             _k1_bound(rows, len(pn), n_seg, kb, 4 if f32 else 2, sums),
-            10 if f32 else 3, launches_per_call=len(keys))
+            10 if f32 and rows <= 9 else 3, launches_per_call=len(keys))
         entry.update(launch_keys=[list(k) for k in keys], tiles=len(keys),
                      max_rel_err_row_peak=r_err, **extra)
         entries.append(entry)
@@ -855,12 +880,14 @@ def _later_shapes(dev, g):
     # Kernel 2 on banks that the segmented correlator accumulates from
     # rows with planted integer delays (2 segments a bank), the coarse
     # delays the planted ones.
-    for K, m, F in SHARD_K2_SHAPES + CAL_K2_SHAPES + NET_K2_SHAPES:
-        # m pairs: of 3, 12, 16 or 24 stations, or of 3 stacked blocks
-        # of 3, 4, 5, 12, 16 or 24.
+    for K, m, F in (SHARD_K2_SHAPES + CAL_K2_SHAPES + NET_K2_SHAPES
+                    + NET_SHARD_K2_SHAPES):
+        # m pairs: of 3, 12, 14, 16 or 24 stations, or of 3 stacked
+        # blocks of 3, 4, 5, 12, 14, 16 or 24.
         n_st, grp = {3: (3, 3), 9: (9, 3), 18: (12, 4), 30: (15, 5),
-                     66: (12, 12), 120: (16, 16), 276: (24, 24),
-                     198: (36, 12), 360: (48, 16), 828: (72, 24)}[m]
+                     66: (12, 12), 91: (14, 14), 120: (16, 16),
+                     276: (24, 24), 198: (36, 12), 273: (42, 14),
+                     360: (48, 16), 828: (72, 24)}[m]
         pn = [(grp * b + i, grp * b + j) for b in range(n_st // grp)
               for i, j in _pair_list(grp)]
         seg = (3 * F) // 4
@@ -937,11 +964,26 @@ def _later_shapes(dev, g):
 # one launch or in tiles) of 12, 16 and 24 stations at a default chunk
 # and at a block's short last chunk (K = 1); kernel 2 on the split-σ
 # banks of those pair counts: 66, 120, 276 (batch) and 198, 360, 828
-# (overlapped).
+# (overlapped). A 12-station tail session launches kernel 1 per block at
+# the stacked rows' tile shape (12 rows × 66 pairs, 96 and 59 segments,
+# one bank). 14 stations take 2 tiles a block (46 and 45 pairs); kernel
+# 2 probes their 91 pairs (kernel route, each block) and 273 (segmented
+# route, the 3 blocks stacked).
 NET_K1 = ((12, 443, 4, False), (16, 443, 4, False), (24, 443, 4, False),
+          (14, 443, 4, False),
           *((n_st, n_seg, 1, True) for n_st in (12, 16, 24)
             for n_seg in (96, 59)))
-NET_K2_SHAPES = tuple((4, m, 65536) for m in (66, 120, 276, 198, 360, 828))
+NET_K2_SHAPES = tuple((4, m, 65536)
+                      for m in (66, 120, 276, 198, 360, 828, 91, 273))
+# The 12-station sharded step on phase 11's files cut to SHARD_SEGS kernel
+# segments: kernel 1 (f32, no DC sums) on the 36 stacked rows, a launch
+# per 12-row block — one bank over a rank's 220 segments in the 2-rank
+# world, K = 4 banks over 440 for the unsharded comparator (rows,
+# segments, banks, rows a block); kernel 2 on the 2 rank groups' banks.
+NET_SHARD_WORLD = 2
+NET_SHARD_K1 = ((36, SHARD_SEGS // NET_SHARD_WORLD, 1, 12),
+                (36, SHARD_SEGS, 4, 12))
+NET_SHARD_K2_SHAPES = ((2, 198, 65536),)
 # The 12-station block's launch (rows, segments, banks) forced into tiles
 # of 33 pairs (2 tiles): bitwise the untiled launch.
 NET_FORCED = (12, 443, 4, 33)
@@ -2595,11 +2637,42 @@ def _host_blocks(paths, n_use: int):
         dim=1) for b in range(3)]
 
 
-def _shard_rank(paths, n_use, pairs, geo, max_lag, dryrun):
-    """One rank of phase 9: the sharded step on each route (a warm-up,
-    then a timed run with the launch counts set to 0 just before it and
-    read just after), the rank's peak device memory; with ``dryrun``,
-    then ``parallel.dryrun`` on the world, its launches counted apart."""
+def _unsharded(blocks, pairs, geo_d, route: str, max_lag: int):
+    """The sharded step's comparator on one card: the kernel route (the
+    3·n_st stacked rows of ``blocks``, demeaned, through the fused
+    correlator, then clock correction) or the segmented route
+    (``process_blocks``); ``process_blocks``' tuple."""
+    import numpy as np
+    import torch
+
+    from tdoa_tpu_torch.ops.corr import (
+        clock_correct_blocks,
+        correlate_pairs_fused,
+    )
+    from tdoa_tpu_torch.pipeline.processor import process_blocks
+
+    if route == "xla":
+        return process_blocks(*blocks, pairs, geo_d, max_lag=max_lag,
+                              seg_len=SHARD_SEG_LEN, weighting="ht",
+                              accumulator="xla")
+    n_st, m = int(blocks[0].shape[1]), len(pairs)
+    x = torch.cat(blocks, dim=1)
+    x -= x.mean(-1, keepdim=True)
+    all_pairs = (pairs[None] + np.arange(3)[:, None, None] * n_st
+                 ).reshape(-1, 2)
+    r = correlate_pairs_fused(x, all_pairs, max_lag=max_lag, weighting="ht")
+    return clock_correct_blocks(
+        r.delay.reshape(3, m), r.delay_std.reshape(3, m),
+        r.quality.reshape(3, m), r.peak_value.reshape(3, m),
+        r.corr.reshape(3, m, -1), r.corr_c.reshape(3, m, -1), geo_d)
+
+
+def _shard_rank(paths, n_use, pairs, geo, max_lag, dryrun,
+                routes=SHARD_ROUTES):
+    """One rank of the sharded step: each of ``routes`` (a warm-up, then
+    a timed run with the launch counts set to 0 just before it and read
+    just after), the rank's peak device memory; with ``dryrun``, then
+    ``parallel.dryrun`` on the world, its launches counted apart."""
     import torch
     import torch.distributed as dist
 
@@ -2610,7 +2683,7 @@ def _shard_rank(paths, n_use, pairs, geo, max_lag, dryrun):
     blocks = _host_blocks(paths, n_use)
     counters = _counters()
     out = {"rank": mesh.rank, "backend": dist.get_backend(mesh.group)}
-    for route in SHARD_ROUTES:
+    for route in routes:
         kw = dict(max_lag=max_lag, seg_len=SHARD_SEG_LEN, accumulator=route)
         process_blocks_sharded(*blocks, pairs, geo, mesh, **kw)
         torch.cuda.synchronize()
@@ -2659,20 +2732,15 @@ def phase_sharded(dev, files, truth):
     import numpy as np
     import torch
 
-    from tdoa_tpu_torch.ops.corr import (
-        clock_correct_blocks,
-        correlate_pairs_fused,
-    )
     from tdoa_tpu_torch.ops.kernels.corr_accum import SEG_LEN
     from tdoa_tpu_torch.parallel.launch import spawn
-    from tdoa_tpu_torch.pipeline.processor import TDOAProcessor, process_blocks
+    from tdoa_tpu_torch.pipeline.processor import TDOAProcessor
     from tdoa_tpu_torch.solve.multilateration import station_pairs
     from tdoa_tpu_torch.utils.constants import DEFAULT_MAX_LAG
 
     print("== phase 9: the sequence-parallel step (tdoa_tpu_torch/parallel)")
     names = list(truth["tau_tgt"])  # the files' order
     pairs = station_pairs(len(names))
-    m = len(pairs)
     geo = TDOAProcessor.from_csv(
         REF_FREQ, TGT_FREQ, str(ROOT / "lat-lon-table.csv"), device="cpu",
     )._ref_geo_tdoa_samples(names, pairs).astype(np.float32)
@@ -2688,30 +2756,14 @@ def phase_sharded(dev, files, truth):
     blocks = [b.to(dev) for b in _host_blocks(files, n_use)]
     geo_d = torch.as_tensor(geo, device=dev)
 
-    def unsharded(route):
-        if route == "xla":
-            return process_blocks(*blocks, pairs, geo_d, max_lag=max_lag,
-                                  seg_len=SHARD_SEG_LEN, weighting="ht",
-                                  accumulator="xla")
-        x = torch.cat(blocks, dim=1)
-        x -= x.mean(-1, keepdim=True)
-        all_pairs = (pairs[None] + np.arange(3)[:, None, None] * len(names)
-                     ).reshape(-1, 2)
-        r = correlate_pairs_fused(x, all_pairs, max_lag=max_lag,
-                                  weighting="ht")
-        return clock_correct_blocks(
-            r.delay.reshape(3, m), r.delay_std.reshape(3, m),
-            r.quality.reshape(3, m), r.peak_value.reshape(3, m),
-            r.corr.reshape(3, m, -1), r.corr_c.reshape(3, m, -1), geo_d)
-
     counters = _counters()
     single = {}
     for route in SHARD_ROUTES:
-        unsharded(route)  # warm-up
+        _unsharded(blocks, pairs, geo_d, route, max_lag)  # warm-up
         torch.cuda.synchronize()
         _reset_counts(counters)
         t0 = time.perf_counter()
-        out = unsharded(route)
+        out = _unsharded(blocks, pairs, geo_d, route, max_lag)
         single[route] = out[0].cpu().numpy()
         wall = time.perf_counter() - t0
         launches, shapes = _read_counts(counters)
@@ -2794,13 +2846,80 @@ def phase_sharded(dev, files, truth):
 # scripts' own seeds, gated as the scripts gate.
 CAL_MC_TRIALS = 2
 CAL_ELLIPSE_TRIALS = 4
+# The calibration scripts, reduced: the ghost harness's gather at 1
+# trial a regime from a base whose trial 0 of clean, noisy and moving is
+# a ghost-ambiguous geometry, and the multipath capture at 2 trials; the
+# multipath fit over the repository's bases (calib_data/README.md).
+CAL_GHOST_SEED = 42500
+CAL_MP_SEED, CAL_MP_TRIALS = 150000, 2
+CAL_MP_FIT = (tuple(f"mp_base_{s}.npz"
+                    for s in (9000, 67000, 70000, 71000, 73000)),
+              "mp_base_78000.npz")
 
 
-def phase_calibration(dev):
+def _calibration_scripts(counters, tmp: Path) -> tuple:
+    """Phase 10's reduced pass of the ghost and multipath calibration
+    scripts: (its record, the failures)."""
+    import numpy as np
+
+    import ghost_calibration_torch as gc
+    import multipath_tailcal_torch as mt
+
+    fails = []
+    _reset_counts(counters)
+    t0 = time.perf_counter()
+    art = tmp / "ghostcal.json"
+    gc.main(["gather", "--seed", str(CAL_GHOST_SEED), "--trials", "1",
+             "--out", str(art)])
+    with open(art) as fh:
+        gathered = json.load(fh)
+    code = gc.main(["validate", str(art)])
+    print(f"   (validate at 1 trial a regime: exit code {code}, printed, not "
+          f"gated at this size)")
+    base = tmp / "mp_base.npz"
+    mt.main(["capture", "--seed", str(CAL_MP_SEED), "--trials",
+             str(CAL_MP_TRIALS), "--out", str(base)])
+    rows, ind = mt._load_base(str(base))
+    wall = time.perf_counter() - t0
+    launches, shapes = _read_counts(counters)
+    print(f"-- ghost gather ({len(gc.REGIMES)} trials) and multipath capture "
+          f"({CAL_MP_TRIALS} trials): {wall:.1f} s, {gathered['n_ghosts']} "
+          f"ghost records, {len(rows)} correlated + {len(ind)} "
+          f"independent-model multipath rows; launches {launches}, kernel 2 "
+          f"{shapes['k2_shapes']}  [{_smi()}]")
+    if (gathered["n_trials"] != len(gc.REGIMES)
+            or len(rows) + len(ind) > CAL_MP_TRIALS):
+        fails.append(f"gather {gathered['n_trials']} trials, capture "
+                     f"{len(rows)} + {len(ind)} rows")
+    t0 = time.perf_counter()
+    cal = ROOT / "calib_data"
+    got = mt.fit(SimpleNamespace(bases=[str(cal / b) for b in CAL_MP_FIT[0]],
+                                 holdout=str(cal / CAL_MP_FIT[1]), json=None))
+    with open(ROOT / "MULTIPATH_CAL_r05.json") as fh:
+        want = json.load(fh)
+    same = (all(abs(got[k] - want[k]) < 1e-3 for k in ("gamma", "nu"))
+            and all(np.allclose(got[k], want[k], atol=1e-3)
+                    for k in ("thresholds", "contour_scales"))
+            and all(got[k] == want[k] for k in (
+                "bases", "pooled_coverage_pct", "pooled_n",
+                "pooled_engaged_p50_maha")))
+    print(f"-- multipath fit over the repository's bases: "
+          f"{time.perf_counter() - t0:.1f} s; reproduces "
+          f"MULTIPATH_CAL_r05.json: {same}")
+    if not same:
+        fails.append("the multipath fit does not reproduce "
+                     "MULTIPATH_CAL_r05.json")
+    return {"wall_s": wall, "launches": launches, **shapes,
+            "ghost_records": gathered["n_ghosts"], "validate_exit": code,
+            "mp_rows": len(rows) + len(ind), "fit_reproduced": same}, fails
+
+
+def phase_calibration(dev, tmp: Path):
     """Phase 10: the calibration sweeps at reduced size on the card, with
     their gates (every Monte Carlo regime at its floor and no silent
     failure; the pooled 3σ coverage of the gated ellipse regimes ≥
-    90 %) and the kernels' launches by shape."""
+    90 %), then the ghost and multipath calibration scripts reduced, and
+    the kernels' launches by shape."""
     import torch
 
     sys.path.insert(0, str(ROOT / "scripts"))
@@ -2845,10 +2964,12 @@ def phase_calibration(dev):
           f"{shapes['k1_shapes']}, kernel 2 {shapes['k2_shapes']}")
     out["calibration: ellipse"] = {"wall_s": wall, "launches": launches,
                                    **shapes}
-    if failed or silent or not covered:
+    out["calibration: ghost and multipath scripts"], fails = \
+        _calibration_scripts(counters, tmp)
+    if failed or silent or not covered or fails:
         raise RuntimeError(f"phase 10: {failed} regime(s) below the floor, "
                            f"{silent} silent failure(s), pooled 3σ gate "
-                           f"met: {covered}")
+                           f"met: {covered}; {'; '.join(fails)}")
     return out
 
 
@@ -2939,6 +3060,188 @@ def _network_overlapped(dev, blocks, n_st: int, counters, out) -> list:
     return []
 
 
+def _network_tail(proc, paths, names, batch, counters, out) -> list:
+    """Phase 11's files through a ``TailIngest`` session fed in ten growth
+    steps (views cut to k/10) and finished by ``process_captures(caps,
+    tail=session)``: a warm-up, then a run timed from the last byte.
+    Held to st4 alone excluded, every pair within 0.05 sample of
+    ``process_files`` (``batch``, by pair), every chunk within the first
+    nine tenths dispatched before the last tenth lands, one kernel-1
+    launch a chunk and kernel 2 once a block. Returns the failures."""
+    import numpy as np
+    import torch
+
+    from tdoa_tpu_torch.io.datfile import iq_bytes_as_u16
+    from tdoa_tpu_torch.ops.kernels.corr_accum import SEG_LEN
+    from tdoa_tpu_torch.pipeline import ingest
+    from tdoa_tpu_torch.pipeline.processor import HostCapture
+
+    t_names = sorted(names)
+    views = []
+    for n in t_names:
+        raw = np.memmap(next(p for p in paths if f"-{n}-" in p),
+                        dtype=np.uint8, mode="r")
+        views.append(iq_bytes_as_u16(raw[: (raw.size // 2) * 2]))
+    total = views[0].shape[0]
+    _, spans = ingest.plan_chunks(BLOCK, SEG_LEN)
+
+    def tail_run():
+        sess = proc.tail_session(t_names, BLOCK)
+        before = 0
+        for k in range(1, 10):
+            before += sess.feed([v[:total * k // 10] for v in views])
+        caps = {n: HostCapture(u16=v, block_len=BLOCK)
+                for n, v in zip(t_names, views)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()  # the last byte lands now
+        r = proc.process_captures(caps, tail=sess)
+        return r, sess, before, time.perf_counter() - t0
+
+    tail_run()  # warm-up
+    _reset_counts(counters)
+    res, sess, before, after_s = tail_run()
+    launches, shapes = _read_counts(counters)
+    ready = sum(1 for b in range(3) for start, n in spans
+                if b * BLOCK + start + n <= total * 9 // 10)
+    dev_batch = max(abs(v - batch[k]) for k, v in _by_pair(res).items())
+    print(f"-- tail session, 12 stations: {before}/{sess.total_chunks} "
+          f"chunks dispatched before the last tenth of the files ({ready} "
+          f"ready); last byte → fix {after_s:.3f} s; excluded "
+          f"{res.excluded_stations}; largest |tail - batch| {dev_batch:.2e} "
+          f"samples; copy stream "
+          f"{sess.link_diag['transfer_stream_s'] * 1e3:.1f} ms; launches "
+          f"{launches}, kernel 1 {shapes['k1_shapes']}, kernel 2 "
+          f"{shapes['k2_shapes']}  [{_smi()}]")
+    out["network: tail session, 12 stations"] = {
+        "wall_s": after_s, "launches": launches, **shapes,
+        "excluded": res.excluded_stations, "vs_batch_samples": dev_batch,
+        "chunks_before_close": before, "total_chunks": sess.total_chunks}
+    fails = []
+    if before != ready or ready < sess.total_chunks - len(spans) // 2:
+        fails.append(f"tail: {before} chunks dispatched before the last "
+                     f"tenth, {ready} were ready")
+    if res.excluded_stations != [NET_OUTLIER] or not dev_batch < 0.05:
+        fails.append(f"tail: excluded {res.excluded_stations}, "
+                     f"{dev_batch:.4f} samples from the batch path")
+    if launches["corr_accum"] != sess.total_chunks \
+            or launches["zoom_probe"] != 3:
+        fails.append(f"tail: launches {launches} for {sess.total_chunks} "
+                     f"chunks")
+    return fails
+
+
+def _network_sharded(dev, paths, names, geo, tau, counters, out) -> list:
+    """The sharded step on phase 11's files cut to their first SHARD_SEGS
+    kernel segments (f32), kernel route, in a world of NET_SHARD_WORLD
+    gloo ranks on this card, against the unsharded path on the same
+    blocks (1e-3 sample, phase 9's bound) and the clean pairs against
+    the truth (0.5 sample). Returns the failures."""
+    import numpy as np
+    import torch
+
+    from tdoa_tpu_torch.ops.kernels.corr_accum import SEG_LEN
+    from tdoa_tpu_torch.parallel.launch import spawn
+    from tdoa_tpu_torch.solve.multilateration import station_pairs
+    from tdoa_tpu_torch.utils.constants import DEFAULT_MAX_LAG
+
+    pairs = station_pairs(len(names))
+    n_use, max_lag = SHARD_SEGS * SEG_LEN, DEFAULT_MAX_LAG
+    clean = np.array([NET_OUTLIER not in (names[i], names[j])
+                      for i, j in pairs])
+    want = np.array([tau[names[j]] - tau[names[i]] for i, j in pairs])
+    blocks = [b.to(dev) for b in _host_blocks(paths, n_use)]
+    geo_d = torch.as_tensor(geo, device=dev)
+    _unsharded(blocks, pairs, geo_d, "pallas", max_lag)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts(counters)
+    t0 = time.perf_counter()
+    single = _unsharded(blocks, pairs, geo_d, "pallas",
+                        max_lag)[0].cpu().numpy()
+    wall = time.perf_counter() - t0
+    launches, shapes = _read_counts(counters)
+    out["network: unsharded kernel route (the sharded step's comparator), "
+        "12 stations"] = {"wall_s": wall, "launches": launches, **shapes}
+    print(f"-- unsharded kernel route, 12 stations x {SHARD_SEGS} segments: "
+          f"{wall:.3f} s; launches {launches}, kernel 1 "
+          f"{shapes['k1_shapes']}, kernel 2 {shapes['k2_shapes']}")
+    del blocks, geo_d
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(_shard_rank, NET_SHARD_WORLD, "cuda", paths, n_use, pairs,
+                  geo, max_lag, False, ("pallas",))
+    started = time.perf_counter() - t0
+    runs = [r["pallas"] for r in ranks]
+    counts = _sum_counts(runs)
+    dev_single = max(float(np.abs(r["corrected"] - single).max())
+                     for r in runs)
+    err = float(np.abs(runs[0]["corrected"] - want)[clean].max())
+    wall = max(r["wall_s"] for r in runs)
+    print(f"-- sharded kernel route, 12 stations, {NET_SHARD_WORLD} ranks "
+          f"(backend {ranks[0]['backend']}; world started, ran and joined "
+          f"in {started:.1f} s): wall per rank "
+          f"{[round(r['wall_s'], 4) for r in runs]} s, peak memory per rank "
+          f"{[round(r['peak_bytes'] / 2**20, 1) for r in runs]} MiB; max "
+          f"|Δ| vs unsharded {dev_single:.2e} samples, clean pairs' "
+          f"|TDOA - truth| {err:.4f}; launches {counts['launches']}, kernel "
+          f"1 {counts['k1_shapes']}, kernel 2 {counts['k2_shapes']}  "
+          f"[{_smi()}]")
+    out[f"network: sharded kernel route, {NET_SHARD_WORLD} ranks, 12 "
+        f"stations"] = {
+        "wall_s": wall, "wall_by_rank_s": [r["wall_s"] for r in runs],
+        "peak_bytes_by_rank": [r["peak_bytes"] for r in runs],
+        "max_dev_vs_unsharded": dev_single, "clean_tdoa_err_samples": err,
+        **counts}
+    fails = []
+    if not (dev_single < SHARD_TOL and err < 0.5):
+        fails.append(f"sharded at 12 stations: {dev_single:.2e} from "
+                     f"unsharded, clean-pair error {err:.3f}")
+    if counts["launches"]["corr_accum"] < NET_SHARD_WORLD:
+        fails.append(f"sharded at 12 stations: launches {counts['launches']}")
+    return fails
+
+
+def _sweep_blocks(dev, blocks, n_st: int, routes, counters, out) -> list:
+    """The sweep's blocks at ``n_st`` stations through ``process_blocks``
+    once on each of ``routes`` (first run, timed): within 0.5 sample of
+    the planted delays, kernel 1 once a tile a block on the kernel route
+    and never on the segmented one. Returns the failures."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import station_sweep_torch as sweep
+    from tdoa_tpu_torch.ops.kernels import corr_accum
+
+    tiles = corr_accum.plan_tiles(blocks[3], n_st, True,
+                                  corr_accum.smem_optin(dev))
+    fails = []
+    for route in routes:
+        _reset_counts(counters)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = sweep.run(blocks, route)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches, shapes = _read_counts(counters)
+        e = sweep.tdoa_error(r, blocks[4])
+        name = ("kernel 1" if route == "pallas" else "segmented route")
+        print(f"-- station sweep, {n_st} stations ({len(blocks[3])} pairs): "
+              f"process_blocks {wall:.3f} s (first run), {name}, "
+              f"{len(tiles)} tiles a block {[hi - lo for *_, lo, hi in tiles]}"
+              f"; largest |TDOA - planted| {e:.4f} samples; launches "
+              f"{launches}, kernel 1 {shapes['k1_shapes']}, kernel 2 "
+              f"{shapes['k2_shapes']}")
+        key = f"network: sweep process_blocks, {n_st} stations"
+        out[key if route == "pallas" else f"{key}, segmented route"] = {
+            "wall_s": wall, "launches": launches, **shapes,
+            "tiles": len(tiles), "tdoa_err_max_samples": e}
+        k1 = 3 * len(tiles) if route == "pallas" else 0
+        if launches["corr_accum"] != k1 or not e < 0.5:
+            fails.append(f"sweep at {n_st} stations, {route}: launches "
+                         f"{launches}, TDOA error {e:.3f}")
+        del r
+    return fails
+
+
 def _network_csv(out: Path) -> Path:
     """The network's station CSV (lat-lon-table.csv's format, its KEVO
     and REF transmitter rows)."""
@@ -2963,8 +3266,8 @@ def phase_network(dev, tmp: Path):
 
     sys.path.insert(0, str(ROOT / "scripts"))
     import station_sweep_torch as sweep
-    from tdoa_tpu_torch.ops.kernels import corr_accum
     from tdoa_tpu_torch.pipeline import TDOAProcessor
+    from tdoa_tpu_torch.solve.multilateration import station_pairs
 
     print("== phase 11: a 12-station network, and the station sweep")
     out, counters = {}, _counters()
@@ -3055,33 +3358,23 @@ def phase_network(dev, tmp: Path):
     print(f"   excluded {res_x.excluded_stations}; largest |segmented - "
           f"batch| {max(abs(v - batch[k]) for k, v in _by_pair(res_x).items()):.4f}"
           f" samples")
+    del proc_x, res_x
+    file_names = list(tau)  # the files' order
+    fails += _network_tail(proc, paths, file_names, batch, counters, out)
+    fails += _network_sharded(
+        dev, paths, file_names,
+        proc._ref_geo_tdoa_samples(file_names, station_pairs(
+            len(file_names))).astype(np.float32),
+        tau, counters, out)
+    # 14 stations: 2 tiles a block, on both routes.
+    blocks = sweep.make_blocks(14, 3 * BLOCK / FS, SEED + 14, dev)
+    fails += _sweep_blocks(dev, blocks, 14, ("pallas", "xla"), counters, out)
+    del blocks
+    torch.cuda.empty_cache()
 
     for n_st in NET_SWEEP:
         blocks = sweep.make_blocks(n_st, 3 * BLOCK / FS, SEED + n_st, dev)
-        tiles = corr_accum.plan_tiles(blocks[3], n_st, True,
-                                      corr_accum.smem_optin(dev))
-        _reset_counts(counters)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        r = sweep.run(blocks)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        launches, shapes = _read_counts(counters)
-        e = sweep.tdoa_error(r, blocks[4])
-        route = "kernel 1" if launches["corr_accum"] else "segmented"
-        print(f"-- station sweep, {n_st} stations ({len(blocks[3])} pairs): "
-              f"process_blocks {wall:.3f} s (first run), route {route}, "
-              f"{len(tiles)} tiles a block {[hi - lo for *_, lo, hi in tiles]}"
-              f"; largest |TDOA - planted| {e:.4f} samples; launches "
-              f"{launches}, kernel 1 {shapes['k1_shapes']}, kernel 2 "
-              f"{shapes['k2_shapes']}")
-        out[f"network: sweep process_blocks, {n_st} stations"] = {
-            "wall_s": wall, "launches": launches, **shapes,
-            "tiles": len(tiles), "tdoa_err_max_samples": e}
-        if launches["corr_accum"] != 3 * len(tiles) or not e < 0.5:
-            fails.append(f"sweep at {n_st} stations: route {route}, "
-                         f"launches {launches}, TDOA error {e:.3f}")
-        del r
+        fails += _sweep_blocks(dev, blocks, n_st, ("pallas",), counters, out)
         fails += _network_overlapped(dev, blocks, n_st, counters, out)
         del blocks
         torch.cuda.empty_cache()
@@ -3148,7 +3441,7 @@ def main() -> int:
         paths.update(phase_audio_match(dev))
         paths.update(phase_tools(dev, files, truth, tmp))
         paths.update(phase_sharded(dev, files, truth))
-        paths.update(phase_calibration(dev))
+        paths.update(phase_calibration(dev, tmp))
         paths.update(phase_network(dev, tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3160,7 +3453,8 @@ def main() -> int:
     checked = {"k1_shapes": set(map(str, (
                    BATCH_SHAPE, *STREAM_SHAPES, *later_k1))),
                "k2_shapes": set(map(str, K2_SHAPES + SHARD_K2_SHAPES
-                                    + CAL_K2_SHAPES + NET_K2_SHAPES)),
+                                    + CAL_K2_SHAPES + NET_K2_SHAPES
+                                    + NET_SHARD_K2_SHAPES)),
                "k3_shapes": set(map(str, K3_SHAPES + CAL_K3_SHAPES))}
     for p, r in paths.items():
         for key, ok in checked.items():

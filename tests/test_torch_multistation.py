@@ -19,6 +19,7 @@ from _torch_port_helpers import assert_warnings_match, fix_error_m, tables
 try:  # the card's machine has no JAX
     import jax
     import jax.numpy as jnp
+    from tdoa_tpu.pipeline.processor import HostCapture as JHostCapture
     from tdoa_tpu.pipeline.processor import ProcessorConfig as JConfig
     from tdoa_tpu.pipeline.processor import TDOAProcessor as JProcessor
     from tdoa_tpu.sim import SimScene, simulate_scene
@@ -26,7 +27,12 @@ try:  # the card's machine has no JAX
 except ModuleNotFoundError:
     pass
 from tdoa_tpu_torch.geo import lla_to_ecef, lla_to_enu
-from tdoa_tpu_torch.pipeline.processor import ProcessorConfig, TDOAProcessor
+from tdoa_tpu_torch.io.datfile import iq_bytes_as_u16, save_dat
+from tdoa_tpu_torch.pipeline.processor import (
+    HostCapture,
+    ProcessorConfig,
+    TDOAProcessor,
+)
 from tdoa_tpu_torch.solve import solve_fix, station_pairs
 from tdoa_tpu_torch.utils.constants import SPEED_OF_LIGHT
 
@@ -50,13 +56,13 @@ def _exact_tdoas(lla, tx):
     return (d[p[:, 1]] - d[p[:, 0]]) / SPEED_OF_LIGHT, p
 
 
-def _scene(n, seed, clock_offsets_s=None):
+def _scene(n, seed, clock_offsets_s=None, block_len=BLOCK):
     """The reference test's scene over the first ``n`` stations: JAX
     captures as numpy blocks (the input both packages get)."""
     kw = {} if clock_offsets_s is None else {
         "clock_offsets_s": np.asarray(clock_offsets_s)}
     sc = SimScene(station_names=NAMES[:n], station_lla=SIX_LLA[:n],
-                  ref_tx_lla=REF_TX, tgt_tx_lla=TGT_TX, block_len=BLOCK,
+                  ref_tx_lla=REF_TX, tgt_tx_lla=TGT_TX, block_len=block_len,
                   seed=seed, **kw)
     caps, _ = simulate_scene(sc)
     return sc, {s: tuple(np.asarray(b) for b in caps[s])
@@ -258,3 +264,76 @@ def test_solves_match_the_reference(case):
     _assert_fixes_agree(ft, fj)
     assert fix_error_m(ft, tx) < bound
 
+
+
+# The tail session's geometry: the segmented correlator on both sides
+# (tests/test_torch_ingest.py's), a block of 2^17 samples in chunks of a
+# quarter block.
+TAIL_BLOCK = 1 << 17
+TAIL_CFG = dict(seg_len=1 << 14, max_lag=512)
+
+
+def _tail(proc, names, views, capture_cls):
+    """A tail session of ``proc`` fed the files in ten growth steps (views
+    cut to k/10), then ``process_captures(caps, tail=session)``: (result,
+    session, chunks dispatched before the last step)."""
+    sess = proc.tail_session(names, TAIL_BLOCK,
+                             chunk_samples=TAIL_BLOCK // 4)
+    total, before = views[0].shape[0], 0
+    for k in range(1, 11):
+        d = sess.feed([v[:total * k // 10] for v in views])
+        if k < 10:
+            before += d
+    caps = {n: capture_cls(u16=v, block_len=TAIL_BLOCK)
+            for n, v in zip(sess.names, views)}
+    return proc.process_captures(caps, tail=sess), sess, before
+
+
+def test_tail_session_at_five_stations_matches_jax(tmp_path):
+    """A 5-station capture with st4's TGT 160 samples late, written as
+    ``.dat`` files and followed by a tail session in ten growth steps on
+    both packages: all but the last chunks went out before the last
+    step; corrected TDOAs within 0.05 sample (the bound between the
+    reference's own paths), st4 alone excluded on both sides, the same
+    warnings and ghost verdict; the clean pairs within 0.5 sample of the
+    truth."""
+    sc, caps = _scene(5, 53, [5e-6, -9e-6, 14e-6, -2e-6, 7e-6],
+                      block_len=TAIL_BLOCK)
+    caps = _roll_tgt(caps, "st4", 160)
+    names = sorted(sc.station_names)
+    views = []
+    for n in names:
+        path = tmp_path / f"{n}.dat"
+        save_dat(str(path), *caps[n])
+        raw = np.memmap(path, dtype=np.uint8, mode="r")
+        views.append(iq_bytes_as_u16(raw))
+    jt, tt = tables(sc.station_names, sc.station_lla, sc.ref_tx_lla)
+    freqs = dict(ref_freq=sc.ref_freq, tgt_freq=sc.tgt_freq)
+    rj, _, _ = _tail(JProcessor(JConfig(**freqs, **TAIL_CFG), jt), names,
+                     views, JHostCapture)
+    rt, sess, before = _tail(
+        TDOAProcessor(ProcessorConfig(**freqs, accumulator="xla",
+                                      **TAIL_CFG), tt, device="cpu"),
+        names, views, HostCapture)
+    assert sess.names == names and sess.total_chunks == 12
+    assert before >= sess.total_chunks - 2
+    assert rt.station_names == rj.station_names == names
+    np.testing.assert_array_equal(rt.pair_idx, rj.pair_idx)
+    np.testing.assert_allclose(rt.corrected_tdoa_samples,
+                               rj.corrected_tdoa_samples, atol=0.05)
+    assert rt.excluded_stations == rj.excluded_stations == ["st4"]
+    _assert_warnings_agree(rt.warnings, rj.warnings)
+    assert (rt.ghost is None) == (rj.ghost is None)
+    if rj.ghost is not None:
+        assert (rt.ghost.best, rt.ghost.decided) == (rj.ghost.best,
+                                                     rj.ghost.decided)
+    truth = _exact_tdoas(sc.station_lla, sc.tgt_tx_lla)[0] * sc.sample_rate
+    by_name = {tuple(sc.station_names[k] for k in p): t
+               for p, t in zip(station_pairs(5), truth)}
+    for k, (i, j) in enumerate(rt.pair_idx):
+        a, b = names[i], names[j]
+        if "st4" in (a, b):
+            continue
+        want = by_name[(a, b)] if (a, b) in by_name else -by_name[(b, a)]
+        assert abs(rt.corrected_tdoa_samples[k] - want) < 0.5, (a, b)
+    assert fix_error_m(rt.fix, sc.tgt_tx_lla) < 150.0

@@ -52,6 +52,18 @@ OMAHA_LLA = np.array([
 ])
 REF_TX = np.array([41.25703803095629, -95.95512763589404, 349.07])
 TGT_TX = np.array([41.30888549464701, -96.02619229605524, 356.0])
+# tests/test_multistation.py's six stations: the three above and three
+# more within ~15 km.
+SIX_LLA = np.vstack([OMAHA_LLA, [[41.26, -95.90, 340.0],
+                                 [41.36, -96.12, 360.0],
+                                 [41.20, -96.16, 345.0]]])
+SIX_CLOCKS_S = np.array([5e-6, -9e-6, 14e-6, -2e-6, 7e-6, -4e-6])
+# The six-station step: 4 kernel segments a block (one a rank at 4 ranks)
+# on both routes.
+SIX_LEN = 4 * SEG_LEN
+SIX_OPTS = {"xla": {"max_lag": 512, "seg_len": 1 << 13},
+            "pallas": {"max_lag": 512, "accumulator": "pallas"}}
+H100_SMEM_OPTIN = 232_448  # cudaDevAttrMaxSharedMemoryPerBlockOptin
 
 
 def _planar(sigs):
@@ -88,17 +100,19 @@ def _split_inputs():
     return xj, clean, wrecks
 
 
-def _scene_blocks():
+def _scene_blocks(lla=OMAHA_LLA, block_len=1 << 16,
+                  clocks=np.array([7e-6, -5e-6, 11e-6]), seed=5):
     """tests/test_parallel.py's end-to-end scene (omaha geometry, 2^16
-    samples a block): the reference's planar blocks, the port's numpy
-    blocks, pairs, REF geometric TDOAs and the truth."""
+    samples a block; or another network): the reference's planar
+    blocks, the port's numpy blocks, pairs, REF geometric TDOAs and the
+    truth."""
     from tdoa_tpu.geo import lla_to_ecef
     from tdoa_tpu.utils.constants import SPEED_OF_LIGHT
 
-    names = ("kx0u", "n3pay", "kf0mtl")
-    scene = SimScene(station_names=names, station_lla=OMAHA_LLA,
-                     ref_tx_lla=REF_TX, tgt_tx_lla=TGT_TX, block_len=1 << 16,
-                     clock_offsets_s=np.array([7e-6, -5e-6, 11e-6]), seed=5)
+    names = ("kx0u", "n3pay", "kf0mtl", "st4", "st5", "st6")[:len(lla)]
+    scene = SimScene(station_names=names, station_lla=lla,
+                     ref_tx_lla=REF_TX, tgt_tx_lla=TGT_TX,
+                     block_len=block_len, clock_offsets_s=clocks, seed=seed)
     captures, truth = simulate_scene(scene)
     jblocks, tblocks = [], []
     for i in range(3):
@@ -107,7 +121,7 @@ def _scene_blocks():
                          jnp.stack([b.im for b in parts])))
         tblocks.append(np.stack([np.asarray(jblocks[-1].re),
                                  np.asarray(jblocks[-1].im)]))
-    st = lla_to_ecef(OMAHA_LLA)
+    st = lla_to_ecef(lla)
     tau = np.linalg.norm(st - lla_to_ecef(REF_TX), axis=-1) \
         / SPEED_OF_LIGHT * 2e6
     p = truth.pair_idx
@@ -122,6 +136,7 @@ def world():
     xp_j, xp_np = _three(3, SEG_LEN * 8)
     split_j, split_clean, split_wrecks = _split_inputs()
     jblocks, tblocks, p, ref_geo, truth = _scene_blocks()
+    six = _scene_blocks(SIX_LLA, SIX_LEN, SIX_CLOCKS_S, seed=61)
     xla = {"max_lag": 128, "seg_len": 1 << 12, "weighting": "ht"}
     cases = []
     for n in (2, 8):
@@ -135,6 +150,11 @@ def world():
              {"blocks": tblocks, "pairs": p, "ref_geo": ref_geo,
               "opts": {"max_lag": 256, "seg_len": 1 << 13}}),
         ]
+    for n in (2, 4):
+        for route, opts in SIX_OPTS.items():
+            cases.append((f"six_{route}{n}", "blocks", n,
+                          {"blocks": six[1], "pairs": six[2],
+                           "ref_geo": six[3], "opts": opts}))
     for k, xs in enumerate([split_clean, *split_wrecks]):
         cases.append((f"split{k}", "corr", 8,
                       {"x": xs, "pairs": ((0, 1),), "opts": xla}))
@@ -163,11 +183,18 @@ def world():
             max_lag=256, seg_len=1 << 13)
     ref["split0"] = jax_corr(split_j, jnp.asarray([[0, 1]]), jax_mesh(8),
                              **xla)
+    pairs6 = tuple(map(tuple, six[2].tolist()))
+    for n in (2, 4):
+        for route, opts in SIX_OPTS.items():
+            extra = {"pairs_static": pairs6} if route == "pallas" else {}
+            ref[f"six_{route}{n}"] = jax_blocks(
+                *six[0], jnp.asarray(six[2]), jnp.asarray(six[3]),
+                jax_mesh(n), **opts, **extra)
     ranks.join(timeout=900)
     assert not ranks.is_alive(), "the spawned world did not finish"
     if "error" in box:
         raise box["error"]
-    return box["port"], ref, {"truth": truth}
+    return box["port"], ref, {"truth": truth, "six_truth": six[4]}
 
 
 def test_make_mesh_needs_a_process_group():
@@ -215,6 +242,46 @@ def test_process_blocks_sharded_matches_reference(world, n):
                                atol=TOL)
     np.testing.assert_allclose(got, inputs["truth"].tgt_tdoa_samples,
                                atol=0.6)
+
+
+@pytest.mark.parametrize("route", ["xla", "pallas"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_six_station_sharded_step_matches_reference(world, route, n):
+    """The full sharded step at 6 stations (18 stacked rows, 45 pairs) on
+    both routes at 2 and 4 ranks: corrected TDOAs within 2e-3 samples of
+    the JAX mesh's (its kernel in interpret mode on the kernel route)
+    and 0.6 of the truth, every σ > 0."""
+    port, ref, inputs = world
+    got = port[f"six_{route}{n}"]
+    np.testing.assert_allclose(got["corrected"],
+                               np.asarray(ref[f"six_{route}{n}"][0]),
+                               atol=TOL)
+    np.testing.assert_allclose(got["corrected"],
+                               inputs["six_truth"].tgt_tdoa_samples,
+                               atol=0.6)
+    assert np.all(got["corrected_std"] > 0)
+
+
+@pytest.mark.parametrize("n_st,launches", [(3, 1), (6, 1), (12, 3), (16, 6)])
+def test_sharded_rows_tile_at_h100_optin(n_st, launches):
+    """The sharded step's kernel-1 call (3 stacked blocks of n_st rows,
+    f32, one bank, no DC sums) planned at the H100's opt-in limit: one
+    launch to 6 stations (18 rows, 45 pairs), a launch per 12-row block
+    at 12 stations, tiles within each 16-row block at 16; every launch
+    within the limit, its pairs within its rows, all pairs once in
+    order."""
+    from tdoa_tpu_torch.ops.kernels import corr_accum
+
+    base = [(i, j) for i in range(n_st) for j in range(i + 1, n_st)]
+    pairs = [(i + b * n_st, j + b * n_st) for b in range(3) for i, j in base]
+    plan = corr_accum.plan_tiles(pairs, 3 * n_st, False, H100_SMEM_OPTIN)
+    assert len(plan) == launches
+    assert [t[2] for t in plan] == [0] + [t[3] for t in plan[:-1]]
+    assert plan[-1][3] == len(pairs)
+    for r0, r1, lo, hi in plan:
+        assert corr_accum.smem_bytes(r1 - r0, hi - lo, False) \
+            <= H100_SMEM_OPTIN
+        assert all(r0 <= i < r1 and r0 <= j < r1 for i, j in pairs[lo:hi])
 
 
 def test_split_sigma_clean_and_corrupted(world):
