@@ -13,14 +13,17 @@ Phases, each printing its own lines; any failure exits non-zero:
 3. kernels — each kernel against its plain torch version on the card
              (kernel 1: 3 stations, K = 4, DC sums on, bf16, at 16
              segments and at a 10 s block's 443 segments, whose banks
-             span many chunks, and 12 stations × 5 segments × K = 2, the
-             branch that reloads its accumulators, and at the streaming
+             span many chunks (the resident branch; at 443 segments
+             also forced onto the streamed branch, which must give its
+             outputs bitwise), and 12 stations × 5 segments × K = 2, the
+             streamed branch (one item's accumulators a CTA while the
+             segments stream past), and at the streaming
              shapes: one bank over 96 segments and over 59 segments (a
              capture's short last chunk), each on the overlapped
              ingest's 9 rows and on a tail session's 3; at phase 11's
              shapes: 12 stations × 443 segments × K = 4 (66 pairs in one
-             launch, the reload branch at full length; also forced into
-             2 tiles, bitwise the single launch), 16 and 24 stations
+             launch, the streamed branch at full length; also forced
+             into 2 tiles, bitwise the single launch), 16 and 24 stations
              pair-tiled (2 and 6 launches), and the overlapped ingest's
              stacked rows of 12, 16 and 24 stations (198, 360 and 828
              pairs: a launch per 12-row block, 2 tiles per 16-row
@@ -49,7 +52,8 @@ Phases, each printing its own lines; any failure exits non-zero:
              larger): CUDA events around a loop of wrapper calls
              (``ms``, the host's share included where it is the slower
              side), and the kernel's own device time per call from
-             ``torch.profiler`` (``device_ms``);
+             ``torch.profiler`` (``device_ms``); every kernel-1 entry
+             names the branch its launches took;
 4. slice   — a synthesized 3-station 30 s capture (three 10 s blocks of
              20 M samples, ``lat-lon-table.csv`` geometry, an FM-like
              source, per-station clock offsets, noise) written as u8
@@ -460,15 +464,21 @@ def phase_kernels(dev):
     # Kernel 1 at the stated check shape (16 segments: one chunk), at the
     # main path's (a 10 s block is 443 segments: chunks of bank_run
     # segments from each of the banks 111/111/111/110, every CTA keeping
-    # its items' accumulators in shared memory across the chunks), and
-    # at 12 stations (66 pairs, 172 KB of accumulators an item: the
-    # branch that reloads them from the outputs at every chunk). Each is
-    # launched twice: the outputs must be bitwise equal.
+    # its items' accumulators in shared memory across the chunks: the
+    # resident branch; forced onto the streamed branch, it must give the
+    # same outputs bitwise), and at 12 stations (66 pairs, 172 KB of
+    # accumulators an item: the streamed branch, one item a CTA while
+    # the bank's segments stream past). Each is launched twice: the
+    # outputs must be bitwise equal.
     # The streaming shapes come last: one bank (K = 1) over the stacked
     # 9 rows × 9 pairs of a default chunk and of a capture's short last
     # chunk, and the same two chunks over a tail session's 3 rows.
     k1_abs, k1_rel, k1_cfg = 0.0, 0.0, {}
     stream_x, stream_err = {}, {}
+    # Shapes that no path launches (a check shape: 12 stations × 5
+    # segments): their branch, time, bound and plain time ride in the
+    # main entry, which the launch count needs no path for.
+    also_checked, forced = [], {}
     for shape in ((3, 16, K, 3), BATCH_SHAPE, (12, 5, 2, 66),
                   *STREAM_SHAPES):
         n_st, n_seg, kb, _ = shape
@@ -501,8 +511,29 @@ def phase_kernels(dev):
         if not same:
             raise RuntimeError(f"corr_accum is not deterministic at {n_st} "
                                f"stations, {n_seg} segments")
-        if n_seg == 443:
+        if shape == BATCH_SHAPE:
             x443, got443 = x, got
+            alt = corr_accum.accumulate_banks(x, pn, kb, True,
+                                              force_streamed=True)
+            torch.cuda.synchronize()
+            forced["bitwise"] = _same(alt, got)
+            print(f"  forced onto the streamed branch: bitwise the "
+                  f"{cfg['branch']} launch: {forced['bitwise']}")
+            if cfg["branch"] != "resident" or not forced["bitwise"]:
+                raise RuntimeError("corr_accum: the streamed branch differs "
+                                   "from the resident launch at 3 stations")
+            forced["ms"] = _time_ms(lambda: corr_accum.accumulate_banks(
+                x443, pn, kb, True, force_streamed=True), 5)
+            del alt
+        elif cfg["branch"] == "streamed":
+            also_checked.append(_entry(
+                f"corr_accum[{n_st}x{n_seg},K={kb},m={len(pn)}]",
+                *K1_SRC, shape, a_err,
+                lambda: corr_accum.accumulate_banks(x, pn, kb, True),  # noqa: B023
+                lambda: corr_accum.accumulate_banks_plain(  # noqa: B023
+                    x, pn, kb, True),  # noqa: B023
+                "corr_accum_kernel", _k1_bound(n_st, len(pn), n_seg, kb), 5,
+                launches_per_call=2, branch="streamed"))
         del want, again
     del x, got
 
@@ -595,7 +626,8 @@ def phase_kernels(dev):
     b1 = _k1_bound(3, len(pairs), 443, K)
     b2 = _k2_bound(K, m, n_st, F)
     print(f"time corr_accum [3 st, 443 seg, K={K}]: kernel {k1_ms:.3f} ms "
-          f"(device time {_dev_str(k1_dev, 3)}), plain {k1_plain:.3f} ms, "
+          f"(device time {_dev_str(k1_dev, 3)}; forced onto the streamed "
+          f"branch {forced['ms']:.3f} ms), plain {k1_plain:.3f} ms, "
           f"bound {b1['bound_ms']:.4f} ms "
           f"({b1['bound_by']}: {b1['bytes'] / 1e6:.1f} MB, "
           f"{b1['ops'] / 1e9:.2f} GFLOP)")
@@ -631,6 +663,7 @@ def phase_kernels(dev):
              "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
              "bound_ms": bs["bound_ms"], "bound_by": bs["bound_by"],
              "library_ms": None, "bitwise_deterministic": True,
+             "branch": k1_cfg[f"{n_s} st, {n_seg_s} seg, K={kb}"]["branch"],
              "launch": k1_cfg[f"{n_s} st, {n_seg_s} seg, K={kb}"]})
         del xs
     k3 = _kernel3(dev, g)
@@ -643,8 +676,10 @@ def phase_kernels(dev):
          "ms": k1_ms, "device_ms": k1_dev, "plain_ms": k1_plain,
          "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
          "library_ms": None, "redesigned": True,
-         "bitwise_deterministic": True,
-         "launch": k1_cfg},
+         "bitwise_deterministic": True, "branch": "resident",
+         "forced_streamed_bitwise_equal": forced["bitwise"],
+         "forced_streamed_ms": forced["ms"],
+         "launch": k1_cfg, "also_checked": also_checked},
         {"name": "zoom_probe", "route": "cuda",
          "source": "tdoa_tpu_torch/csrc/zoom_probe.cu",
          "replaces": "tdoa_tpu/ops/pallas/zoom_probe.py:244",
@@ -774,18 +809,19 @@ def _k1_block(dev, g, n_seg: int, n_st: int, dtype):
 
 
 def _entry(name, source, replaces, shape, err, call, plain_call, kernel,
-           bound, iters, launches_per_call=1):
+           bound, iters, launches_per_call=1, branch=None):
     """A ``kernels`` entry for one kernel at one shape: its check's error,
     its time (event loop and profiler device time per call: the sum of
-    its ``launches_per_call`` launches) beside the plain version's and
-    the bound. Prints one line."""
+    its ``launches_per_call`` device launches) beside the plain
+    version's and the bound, and kernel 1's ``branch``. Prints one
+    line."""
     ms = _time_ms(call, iters)
     dev_ms = _device_ms(call, kernel, iters)
     if dev_ms is not None:
         dev_ms *= launches_per_call
     plain = _time_ms(plain_call, 2)
-    print(f"time {name}: kernel {ms:.4f} ms (device time "
-          f"{_dev_str(dev_ms, 4)}), "
+    print(f"time {name}{f' ({branch} branch)' if branch else ''}: kernel "
+          f"{ms:.4f} ms (device time {_dev_str(dev_ms, 4)}), "
           f"plain {plain:.3f} ms, bound {bound['bound_ms']:.5f} ms "
           f"({bound['bound_by']}: {bound['bytes'] / 1e6:.2f} MB, "
           f"{bound['ops'] / 1e9:.3f} GFLOP)")
@@ -793,7 +829,12 @@ def _entry(name, source, replaces, shape, err, call, plain_call, kernel,
             "replaces": replaces, "shape": list(shape), "max_abs_err": err,
             "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
-            "library_ms": None, "bitwise_deterministic": True}
+            "library_ms": None, "bitwise_deterministic": True,
+            **({"branch": branch} if branch else {})}
+
+
+K1_SRC = ("tdoa_tpu_torch/csrc/corr_accum.cu",
+          "tdoa_tpu/ops/pallas/corr_accum.py:634")
 
 
 def _later_shapes(dev, g):
@@ -809,8 +850,7 @@ def _later_shapes(dev, g):
     from tdoa_tpu_torch.ops.kernels import corr_accum, fm_demod, zoom_probe
     from tdoa_tpu_torch.ops.peaks import parabolic_peak
 
-    k1_src = ("tdoa_tpu_torch/csrc/corr_accum.cu",
-              "tdoa_tpu/ops/pallas/corr_accum.py:634")
+    k1_src = K1_SRC
     k2_src = ("tdoa_tpu_torch/csrc/zoom_probe.cu",
               "tdoa_tpu/ops/pallas/zoom_probe.py:244")
     k3_src = ("tdoa_tpu_torch/csrc/fm_demod.cu",
@@ -832,6 +872,10 @@ def _later_shapes(dev, g):
         x = _k1_block(dev, g, n_seg, rows, dtype)
         pn = _pair_list(rows, block)
         keys = _k1_launch_keys(rows, n_seg, kb, pn, sums, dev)
+        # The streamed branch launches stage 1 once a row block (its
+        # tiles share it) and stage 2 once a tile.
+        blocks = {(r0, r1) for r0, r1, _, _ in corr_accum.plan_tiles(
+            pn, rows, sums, corr_accum.smem_optin(dev))}
         got = corr_accum.accumulate_banks(x, pn, kb, sums)
         again = corr_accum.accumulate_banks(x, pn, kb, sums)
         want = corr_accum.accumulate_banks_plain(x, pn, kb, sums)
@@ -842,9 +886,10 @@ def _later_shapes(dev, g):
         del want, again
         name = (f"corr_accum[{rows}x{n_seg},K={kb},"
                 f"{'f32' if f32 else f'm={len(pn)}'}]")
+        cfg = corr_accum.kernel_config(rows, pn, sums, kb, not f32)
         print(f"corr_accum [{rows} rows, {len(pn)} pairs, {n_seg} seg, "
               f"K={kb}, {'f32' if f32 else 'bf16, sums'}]: launches {keys}"
-              f"; largest launch {corr_accum.kernel_config(rows, pn, sums, kb, not f32)}"
+              f"; largest launch {cfg}"
               f"; max |kernel - plain| = {a_err:.3e}, / row peak = "
               f"{r_err:.3e} (tol {K1_TOL:g}); two calls bitwise equal: "
               f"{same}")
@@ -857,8 +902,9 @@ def _later_shapes(dev, g):
                                                  max_pairs=NET_FORCED[3])
             torch.cuda.synchronize()
             equal = _same(forced, got)
-            print(f"  forced into tiles of {NET_FORCED[3]} pairs: "
-                  f"bitwise the untiled launch: {equal}")
+            print(f"  forced into tiles of {NET_FORCED[3]} pairs "
+                  f"({cfg['branch']} branch): bitwise the untiled launch: "
+                  f"{equal}")
             if not equal:
                 raise RuntimeError(f"{name}: 2 tiles differ from one launch")
             extra["forced_2_tiles_bitwise_equal"] = True
@@ -871,7 +917,10 @@ def _later_shapes(dev, g):
                 x, pn, kb, sums),  # noqa: B023
             "corr_accum_kernel",
             _k1_bound(rows, len(pn), n_seg, kb, 4 if f32 else 2, sums),
-            10 if f32 and rows <= 9 else 3, launches_per_call=len(keys))
+            10 if f32 and rows <= 9 else 3,
+            launches_per_call=len(keys) + (
+                len(blocks) if cfg["branch"] == "streamed" else 0),
+            branch=cfg["branch"])
         entry.update(launch_keys=[list(k) for k in keys], tiles=len(keys),
                      max_rel_err_row_peak=r_err, **extra)
         entries.append(entry)
@@ -958,7 +1007,7 @@ def _later_shapes(dev, g):
 
 # The network phase's kernel shapes, checked in phase 3 by
 # ``_later_shapes``: kernel 1 over a 10 s block (443 segments, K = 4) of
-# 12 stations (66 pairs in one launch: the reload branch at full
+# 12 stations (66 pairs in one launch: the streamed branch at full
 # length), 16 and 24 stations (pair-tiled), and over the overlapped
 # ingest's stacked rows (3 blocks of n_st rows, each block's pairs in
 # one launch or in tiles) of 12, 16 and 24 stations at a default chunk

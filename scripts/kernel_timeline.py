@@ -1,19 +1,28 @@
 #!/usr/bin/env python3
 """Per-phase timelines of the port's kernels on the card.
 
-    python3 scripts/kernel_timeline.py [--kernels 1 2 3]
+    python3 scripts/kernel_timeline.py [--kernels 1 2 3] [--stations 3 12]
 
 Each kernel is one launch whose phases a profiler cannot tell apart
-(kernels 1, ``csrc/corr_accum.cu``, and 2, ``csrc/zoom_probe.cu``, are
-cooperative launches with grid-wide barriers between the phases; kernel
-3, ``csrc/fm_demod.cu``, has a CTA-wide barrier between its two). This
+(kernel 1's resident branch, ``csrc/corr_accum.cu``, and kernel 2,
+``csrc/zoom_probe.cu``, are cooperative launches with grid-wide barriers
+between the phases; kernel 1's streamed branch is two launches, the
+second interleaving row fetches, transforms and sums; kernel 3,
+``csrc/fm_demod.cu``, has a CTA-wide barrier between its two). This
 script builds the kernels with ``-DTDOA_TIMELINE``, which compiles their
 ``%globaltimer`` stamps (``TDOA_TL`` in the sources), and runs them
 through their wrappers at the main path's shapes:
 
-- kernel 1 (3 stations, 443 segments, K = 4, bf16, DC sums): for the
-  first and the last CTA, the median stage-1 time, stage-2 time and
-  barrier wait of a phase, the prologue and the final store;
+- kernel 1 (443 segments, K = 4, bf16, DC sums, all pairs of each
+  ``--stations`` count, or where one launch does not hold them the
+  first tile of ``plan_tiles``, launched alone): at 3 stations (the
+  resident
+  branch), for the first and the last CTA, the median stage-1 time,
+  stage-2 time and barrier wait of a phase, the prologue and the final
+  store; from 4 stations (the streamed branch), the spans of its two
+  launches (first CTA's start to last CTA's end) and, for stage 2's CTA
+  0, the time it spends fetching and transforming rows, accumulating
+  and storing items, over its rounds;
 - kernel 2 (K = 4, m = 3, F = 65536): its three phases and two barriers
   as CTA 0 sees them;
 - kernel 3 (9 channels × 20 M samples, D = 8): over all CTAs of a
@@ -38,6 +47,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 TL_PH = 128  # phases kernel 1 stamps (csrc/corr_accum.cu)
+TL_S = 8  # the streamed branch's stamps (csrc/corr_accum.cu)
 PAIRS = ((0, 1), (0, 2), (1, 2))
 
 
@@ -91,26 +101,50 @@ def _kernel3(lib, dev, g) -> None:
           f"{(load + fir) / span / sms:.2f}")
 
 
-def _kernel1(lib, dev, g) -> None:
+def _kernel1(lib, dev, g, n_st: int = 3) -> None:
     import torch
 
     from tdoa_tpu_torch.ops.kernels import corr_accum
     from tdoa_tpu_torch.ops.kernels.corr_accum import SEG_LEN
 
     lib.tdoa_corr_accum_timeline.argtypes = [ctypes.c_void_p]
-    x = (0.3 * torch.randn(2, 3, 443 * SEG_LEN, device=dev, generator=g)
+    x = (0.3 * torch.randn(2, n_st, 443 * SEG_LEN, device=dev, generator=g)
          + 0.01).to(torch.bfloat16)
-    run = corr_accum.bank_run(3, 4, 443)
-    n_ph = corr_accum.chunk_plan(443, 4, run).shape[0] + 1
+    pairs = [(i, j) for i in range(n_st) for j in range(i + 1, n_st)]
+    tiles = corr_accum.plan_tiles(pairs, n_st, True,
+                                  corr_accum.smem_optin(dev))
+    r0, r1, lo, hi = tiles[0]
+    x = x[:, r0:r1]
+    pairs = [(i - r0, j - r0) for i, j in pairs[lo:hi]]
+    cfg = corr_accum.kernel_config(r1 - r0, pairs, True, 4)
+    buf = (ctypes.c_ulonglong * (2 * (TL_PH + 1) * 4 + TL_S))()
     for _ in range(2):
-        corr_accum.accumulate_banks(x, PAIRS, 4, True)
-    torch.cuda.synchronize()
-    buf = (ctypes.c_ulonglong * (2 * (TL_PH + 1) * 4))()
-    if lib.tdoa_corr_accum_timeline(ctypes.addressof(buf)) != 0:
-        raise RuntimeError("could not read kernel 1's stamps")
-    a = np.array(buf, np.int64).reshape(2, TL_PH + 1, 4)
+        corr_accum.accumulate_banks(x, pairs, 4, True)
+        torch.cuda.synchronize()
+        # Each read resets the streamed stamps: the second run's remain.
+        if lib.tdoa_corr_accum_timeline(ctypes.addressof(buf)) != 0:
+            raise RuntimeError("could not read kernel 1's stamps")
+    if cfg["branch"] == "streamed":
+        s = np.array(buf, np.int64)[2 * (TL_PH + 1) * 4:]
+        rounds = max(int(s[7]), 1)
+        print(f"corr_accum [{n_st} st, 443 seg, K=4, streamed branch; "
+              f"tile 1 of {len(tiles)}: {r1 - r0} rows x {len(pairs)} "
+              f"pairs, stage-1 grid "
+              f"{cfg['stage1_grid']}, stage-2 grid {cfg['grid']}]: stage 1 "
+              f"span {_us(s[1] - s[0]):.1f} us, stage 2 span "
+              f"{_us(s[3] - s[2]):.1f} us, gap {_us(s[2] - s[1]):.1f} us; "
+              f"stage-2 CTA 0 over {int(s[7])} rounds: fetch+transform "
+              f"{_us(s[4]):.1f} us ({_us(s[4] / rounds):.2f} a round), "
+              f"accumulate {_us(s[5]):.1f} us ({_us(s[5] / rounds):.2f} a "
+              f"round), store {_us(s[6]):.1f} us")
+        return
+    run = corr_accum.bank_run(n_st, 4, 443)
+    n_ph = corr_accum.chunk_plan(443, 4, run).shape[0] + 1
+    a = np.array(buf, np.int64)[:2 * (TL_PH + 1) * 4].reshape(
+        2, TL_PH + 1, 4)
     for row in _k1_rows(a, n_ph):
-        print(f"corr_accum [3 st, 443 seg, K=4, run {run}, {n_ph} phases] "
+        print(f"corr_accum [{n_st} st, 443 seg, K=4, run {run}, {n_ph} "
+              f"phases, resident branch] "
               f"{row['cta']}: kernel {row['kernel_us']:.1f} us (prologue "
               f"{row['prologue_us']:.1f}, store {row['store_us']:.1f}); "
               f"median a phase: stage 1 {row['stage1_us']:.2f} us, stage 2 "
@@ -148,6 +182,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", type=int, nargs="+", default=[1, 2, 3],
                     choices=[1, 2, 3], help="which kernels to run")
+    ap.add_argument("--stations", type=int, nargs="+", default=[3],
+                    help="kernel 1's station counts")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
@@ -164,9 +200,13 @@ def main() -> int:
     lib = _build.load(("TDOA_TIMELINE",))
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1234)
-    sections = {1: _kernel1, 2: _kernel2, 3: _kernel3}
+    sections = {2: _kernel2, 3: _kernel3}
     for k in sorted(set(args.kernels)):
-        sections[k](lib, dev, g)
+        if k == 1:
+            for n_st in args.stations:
+                _kernel1(lib, dev, g, n_st)
+        else:
+            sections[k](lib, dev, g)
     return 0
 
 

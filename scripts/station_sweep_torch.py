@@ -14,10 +14,10 @@ split σ). Beside it, the same blocks through the segmented route
 
 Each station count prints one JSON line: steady latency (median of 5
 runs, each ended by a device sync), sustained latency (5 runs queued,
-one sync, per run), kernel 1's tiles, launches and device time per run,
-kernel 2's device time per run (``torch.profiler``), peak device memory
-of a run, the segmented route's steady latency, and each route's largest
-corrected-TDOA error against the planted delays. The card's name and
+one sync, per run), kernel 1's tiles, branch, launches and device time
+per run, kernel 2's device time per run (``torch.profiler``), peak
+device memory of a run, the segmented route's steady latency, and each
+route's largest corrected-TDOA error against the planted delays. The card's name and
 power limit (``nvidia-smi``) come first. The TPU sweep's dispatch
 floor, MFU and FLOP-model fields have no counterpart here.
 
@@ -156,6 +156,8 @@ def sweep_one(n_st: int, seconds: float, seed: int, device) -> dict:
         "segments_per_block": n_seg,
         "k1_tiles": len(tiles), "k1_tile_pairs": [hi - lo for *_, lo, hi
                                                   in tiles],
+        "k1_branch": corr_accum.kernel_config(n_st, pairs, True, 4,
+                                              device=device)["branch"],
         "k1_launches_per_run": launches,
         "steady_latency_s": steady, "sustained_latency_s": sustained,
         "k1_device_ms_per_run": dev["corr_accum"],

@@ -27,7 +27,8 @@
 // its bank's segments one at a time: 3.2 ms, barrier- and latency-bound.
 // Keeping the accumulators on chip caps the CTAs at two per SM (16
 // warps), so what is left is latency: every load is issued one step
-// ahead of its use.
+// ahead of its use. From 4 stations at K = 4 a CTA cannot hold its
+// items' accumulators for the whole launch: the streamed branch below.
 //
 // What this design does about it.
 //  * Every 256-point transform is 16 x 16: a radix-16 pass in one
@@ -36,39 +37,66 @@
 //    row transform belongs to 16 lanes of one warp, so its exchange
 //    needs only __syncwarp; stage 1 transforms 16 columns per CTA with
 //    two barriers.
-//  * ONE cooperative launch per block; every CTA is resident. The
-//    segments go in chunks given by a plan from the host (chunk_plan in
+//  * The hand-off keeps each row k1's 256 columns in order, 2 KB: the
+//    16 lanes of a stage-1 store write 128 contiguous bytes, and the 16
+//    lanes that transform the row in stage 2 read it as 16 runs of 128
+//    contiguous bytes. (Columns stored in pairs, so that stage 2 reads
+//    16 bytes a lane, measured slower in the streamed branch: a
+//    stage-1 store then fills half of each sector.)
+//  * An item is one (bank, row k1): its accumulators are n_slots rows
+//    of 256 f32 (bins k1 + 256*k2). One footprint formula, smem_bytes,
+//    picks one of two branches and, where not even one item fits a CTA
+//    (the pair list is then tiled by the host), tells the routing gate
+//    (fits_device) that the kernel cannot run the shape.
+//  * The resident branch, where every CTA holds all of its items (3
+//    stations: 15 KB an item; 8 items a CTA at K = 4). ONE cooperative
+//    launch per block; every CTA is resident. The segments go in chunks
+//    given by a plan from the host (chunk_plan in
 //    ops/kernels/corr_accum.py: chunk c takes the same run of segments
 //    from every bank). Phase p runs stage 1 of chunk p into one of two
 //    L2-sized scratch buffers and stage 2 of chunk p - 1 from the
 //    other; one grid-wide barrier separates the phases, so the hand-off
-//    stays in L2 instead of HBM.
-//  * Each CTA owns a fixed run of (bank, row) items for the whole
-//    launch. Stage 2 transforms a round of (item, segment) tuples, all
+//    stays in L2 instead of HBM. Each CTA owns a fixed run of items;
+//    stage 2 transforms a round of (item, segment) tuples, all
 //    stations, spread over 16 lane groups, then thread t adds bin t into
-//    the items' accumulators. Where every CTA's items fit in shared
-//    memory (3 stations: 15 KB an item), the accumulators stay there
-//    from the first segment to the last and reach the outputs once.
-//    Where they do not (12 stations: 172 KB an item), the same kernel
-//    keeps one item's accumulators at a time and reloads them from the
-//    outputs at every chunk (the reload branch). One footprint formula,
-//    smem_bytes, chooses the branch and, where not even one item fits
-//    a CTA, tells the routing gate (fits_device) that the kernel cannot
-//    run the shape.
+//    the items' accumulators, which stay in shared memory from the
+//    first segment to the last and reach the outputs once.
+//  * The streamed branch, where they do not (from 4 stations at K = 4;
+//    12 stations with DC sums: 172 KB an item, one item a CTA). Here
+//    the hand-off streams and the accumulators stay: one launch runs
+//    stage 1 of the whole block (the plan's one chunk) into one scratch
+//    in HBM, n_st x 512 KB a segment (2.7 GB at 12 stations and 443
+//    segments, 5.6 GB at 24); a second gives each CTA one item at a
+//    time (items cta, cta + grid, ...: CTAs that run together hold
+//    neighbouring rows, so their stores to the true-frequency outputs
+//    meet in the same sectors), zeroes its accumulators in shared
+//    memory, streams its bank's segments past them in rounds as above,
+//    and writes them to the outputs once. Stage 1 depends on the rows
+//    alone, so the host launches it once for all pair tiles of a row
+//    block (13 stations and up). Its bound on the H100 is the
+//    hand-off's round trip (2 x 2.7 GB at 12 stations, 1.6 ms at 3.35
+//    TB/s, against 0.68 ms of f32 operations), and 213,712 B of shared
+//    memory a CTA at 12 stations: one CTA (8 warps) per SM in stage 2,
+//    whose sums are then paced by shared-memory traffic (two rows and
+//    two accumulators a pair and a segment).
 //  * Loads run one step ahead: a stage-1 unit's input is fetched while
-//    the previous unit computes (the first of a phase before the grid
-//    barrier), a stage-2 round's rows while the previous round
-//    accumulates (the first of a phase while stage 1 runs).
+//    the previous unit computes (in the resident branch, the first of a
+//    phase before the grid barrier), a stage-2 round's rows while the
+//    previous round accumulates.
 //  * No atomics on data: every sum runs in segment order, so two
-//    launches give bitwise-equal outputs. All arithmetic is f32 (input
-//    bf16 or f32). The twiddles come from 256-entry tables of sincospif
-//    on exactly representable arguments; the stage-1 twiddle of
-//    exponent e = k1*c is the product of the entries for e >> 8 and
-//    e & 255 (one rounding more than a direct sincospif).
+//    launches give bitwise-equal outputs, and both branches run the
+//    same transforms and the same sums: a shape forced onto the
+//    streamed branch gives the resident launch's outputs bitwise. All
+//    arithmetic is f32 (input bf16 or f32). The twiddles come from
+//    256-entry tables of sincospif on exactly representable arguments;
+//    the stage-1 twiddle of exponent e = k1*c is the product of the
+//    entries for e >> 8 and e & 255 (one rounding more than a direct
+//    sincospif).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
 #include <mutex>
 #include <vector>
 
@@ -88,11 +116,19 @@ constexpr int SLOT = 16 * 17 + 1;  // float2 per transform buffer (padded)
 // BLOCKS_PER_SM) holds a thread to 128 of them, 2 x 256 x 128 = the
 // SM's 64K.
 constexpr int BLOCKS_PER_SM = 2;
+// The streamed branch's most tuples a round (4 stations: 4, 3
+// stations forced onto it: 5); s2_sum is unrolled for each count.
+constexpr int S2_MAX_NT = 5;
 
 #ifdef TDOA_TIMELINE
 constexpr int TL_PH = 128;  // phases stamped; row TL_PH: start, store, end
 // [first CTA, last CTA][phase][start, stage-1 ns, stage-2 ns, end]
 __device__ unsigned long long tl_k1[2][TL_PH + 1][4];
+// The streamed branch's last launch: stage 1's first CTA start and last
+// CTA end, stage 2's the same (over all CTAs), then CTA 0 of stage 2:
+// ns fetching and transforming, ns accumulating, ns storing, rounds.
+constexpr int TL_S = 8;
+__device__ unsigned long long tl_k1s[TL_S] = {~0ull, 0, ~0ull, 0, 0, 0, 0, 0};
 #endif
 
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
@@ -217,6 +253,12 @@ __host__ __device__ inline int smem_bytes(int n_st, int m, int track,
          4 * pad4(2 * m) + n_res * n_slots(n_st, m, track) * R * 4;
 }
 
+// Shared memory of a streamed-branch stage-1 CTA: the twiddle tables
+// and the 16 column slots.
+__host__ __device__ inline int smem_s1_bytes() {
+  return 3 * R * 8 + GROUPS * SLOT * 8;
+}
+
 struct Params {
   const void* xr;
   const void* xi;
@@ -225,10 +267,10 @@ struct Params {
   const int* pairs;     // [m, 2]
   const int* plan;      // [n_chunks, n_banks * run]: segment or -1
   int n_chunks, run;
-  float2* scratch;      // 2 buffers of [n_st][n_banks * run][F]
-  unsigned* bar;        // grid-barrier counter, 0 at launch
-  int resident;         // 1: accumulators stay in shared memory
-  int ipc;              // items per CTA
+  float2* scratch;      // [n_st][n_banks * run][F]: 2 buffers (resident),
+                        // 1 holding the whole block (streamed, 1 chunk)
+  unsigned* bar;        // grid-barrier counter, 0 at launch (resident)
+  int ipc;              // items per CTA (resident)
   float2* cross;        // [n_banks, m, F]
   float* psd;           // [n_banks, n_st, F]
   float2* sums;         // [n_banks, n_st, F] when track
@@ -328,12 +370,11 @@ __device__ __forceinline__ void s1_compute(const Params& P, int u,
   __syncthreads();  // xbuf is reused by the next unit
 }
 
-// Stage-2 rounds of a CTA. A tuple tau (counted from the CTA's first
-// item) is (item j = tau / run, segment slot l = tau % run). A round
-// takes at most tpr tuples: whole items, ipr of them, where an item's
-// run fits a round (the resident branch), else one item's tuples in
-// rpi rounds (every item of the reload branch, whose single
-// accumulator block holds one item at a time).
+// Stage-2 rounds of a resident-branch CTA. A tuple tau (counted from
+// the CTA's first item) is (item j = tau / run, segment slot l = tau %
+// run). A round takes at most tpr tuples: whole items, ipr of them,
+// where an item's run fits a round, else one item's tuples in rpi
+// rounds.
 struct Rounds {
   int ipr, rpi, n;
 };
@@ -341,7 +382,7 @@ struct Rounds {
 __device__ __forceinline__ Rounds rounds_of(const Params& P, int n_mine,
                                             int tpr) {
   Rounds rs;
-  rs.ipr = P.resident ? max(1, tpr / P.run) : 1;
+  rs.ipr = max(1, tpr / P.run);
   rs.rpi = (P.run + tpr - 1) / tpr;
   rs.n = (n_mine + rs.ipr - 1) / rs.ipr * rs.rpi;
   return rs;
@@ -381,14 +422,14 @@ __device__ __forceinline__ bool s2_fetch(const Params& P, const float2* src,
 // Thread t adds bin t of a round's transformed tuples (xbuf, flags) into
 // the accumulators of their items, in tuple order (a round holds at
 // most 32 tuples: tpr <= x_slots / n_st). Item j's block is
-// acc + j * jstride (jstride 0: the reload branch's single block).
+// acc + j * n_slots * R.
 __device__ __forceinline__ void s2_accumulate(const Params& P, int tau0,
                                               int nt, float* acc,
-                                              int jstride,
                                               const float2* xbuf,
                                               const int* flags,
                                               const int* pr) {
   const int n_st = P.n_st, m = P.m, run = P.run, t = threadIdx.x;
+  const int jstride = n_slots(n_st, m, P.track) * R;
   const int pos = (t & 15) + 17 * (t >> 4);
   unsigned fm = 0;  // bit q: tuple q holds a segment
   for (int q = 0; q < nt; ++q) fm |= (unsigned)flags[q] << q;
@@ -436,48 +477,102 @@ __device__ __forceinline__ void s2_accumulate(const Params& P, int tau0,
   }
 }
 
-// Moves one item's accumulators between shared memory and the outputs
-// (bin t of row `row` of bank b is true frequency row + 256*t): load
-// (the reload branch, after chunk 0) or store. Thread t moves bin t.
-__device__ __forceinline__ void item_io(const Params& P, float* a, int item,
-                                        bool load) {
+// The streamed branch's sums of a round whose first NT tuples hold a
+// segment (a bank's slots past its end come last in its run, so the
+// others are never summed): s2_accumulate's sums in the same order and
+// the same arithmetic, unrolled over the tuples and four pairs at a
+// time, with no aliasing between the accumulators, the transformed rows
+// and the pair list, so the loads of several pairs are in flight at
+// once.
+template <int NT>
+__device__ __forceinline__ void s2_sum(const Params& P,
+                                       float* __restrict__ acc,
+                                       const float2* __restrict__ xbuf,
+                                       const int* __restrict__ pr) {
+  const int n_st = P.n_st, m = P.m, t = threadIdx.x;
+  const int pos = (t & 15) + 17 * (t >> 4);
+  float* __restrict__ a_cr = acc;
+  float* __restrict__ a_ci = a_cr + m * R;
+  float* __restrict__ a_psd = a_ci + m * R;
+  float* __restrict__ a_sr = a_psd + n_st * R;
+  float* __restrict__ a_si = a_sr + n_st * R;
+#pragma unroll 4
+  for (int st = 0; st < n_st; ++st) {
+    float ps = a_psd[st * R + t];
+    float sr = P.track ? a_sr[st * R + t] : 0.f;
+    float si = P.track ? a_si[st * R + t] : 0.f;
+#pragma unroll
+    for (int q = 0; q < NT; ++q) {
+      const float2 x = xbuf[(q * n_st + st) * SLOT + pos];
+      ps += x.x * x.x + x.y * x.y;
+      sr += x.x;
+      si += x.y;
+    }
+    a_psd[st * R + t] = ps;
+    if (P.track) {
+      a_sr[st * R + t] = sr;
+      a_si[st * R + t] = si;
+    }
+  }
+  const int2* __restrict__ pr2 = reinterpret_cast<const int2*>(pr);
+#pragma unroll 4
+  for (int p = 0; p < m; ++p) {
+    const int2 ij = pr2[p];
+    float cr = a_cr[p * R + t], ci = a_ci[p * R + t];
+#pragma unroll
+    for (int q = 0; q < NT; ++q) {
+      const float2 xi = xbuf[(q * n_st + ij.x) * SLOT + pos];
+      const float2 xj = xbuf[(q * n_st + ij.y) * SLOT + pos];
+      cr += xj.x * xi.x + xj.y * xi.y;
+      ci += xj.y * xi.x - xj.x * xi.y;
+    }
+    a_cr[p * R + t] = cr;
+    a_ci[p * R + t] = ci;
+  }
+}
+
+// The streamed branch's last step for an item: its accumulators to the
+// outputs (bin t of row `row` of bank b is true frequency row + 256*t).
+// Thread t stores bin t: the CTAs that run beside this one store the
+// neighbouring rows' bins, so the sectors of the outputs fill together.
+__device__ __forceinline__ void store_item(const Params& P, const float* a,
+                                           int item) {
   const int n_st = P.n_st, m = P.m, t = threadIdx.x;
   const long long F = FFT_LEN;
   const int b = item / R;
   const long long bin = item % R + (long long)R * t;
-  float* a_cr = a;
-  float* a_ci = a + m * R;
-  float* a_psd = a + 2 * m * R;
-  float* a_sr = a_psd + n_st * R;
-  float* a_si = a_sr + n_st * R;
+  const float* a_cr = a;
+  const float* a_ci = a + m * R;
+  const float* a_psd = a + 2 * m * R;
+  const float* a_sr = a_psd + n_st * R;
+  const float* a_si = a_sr + n_st * R;
   for (int p = 0; p < m; ++p) {
-    float2* o = P.cross + ((long long)b * m + p) * F + bin;
-    if (load) {
-      const float2 v = __ldcg(o);
-      a_cr[p * R + t] = v.x;
-      a_ci[p * R + t] = v.y;
-    } else {
-      *o = make_float2(a_cr[p * R + t], a_ci[p * R + t]);
-    }
+    P.cross[((long long)b * m + p) * F + bin] =
+        make_float2(a_cr[p * R + t], a_ci[p * R + t]);
   }
   for (int st = 0; st < n_st; ++st) {
-    float* o = P.psd + ((long long)b * n_st + st) * F + bin;
-    if (load) {
-      a_psd[st * R + t] = __ldcg(o);
-    } else {
-      *o = a_psd[st * R + t];
-    }
+    P.psd[((long long)b * n_st + st) * F + bin] = a_psd[st * R + t];
     if (P.track) {
-      float2* s = P.sums + ((long long)b * n_st + st) * F + bin;
-      if (load) {
-        const float2 v = __ldcg(s);
-        a_sr[st * R + t] = v.x;
-        a_si[st * R + t] = v.y;
-      } else {
-        *s = make_float2(a_sr[st * R + t], a_si[st * R + t]);
-      }
+      P.sums[((long long)b * n_st + st) * F + bin] =
+          make_float2(a_sr[st * R + t], a_si[st * R + t]);
     }
   }
+}
+
+// The twiddle tables in shared memory: tw[e] = exp(-2 pi i e/256),
+// tw2[16*k1 + n2] = exp(-2 pi i n2 k1/256), twl[swz(e)] = exp(-2 pi i
+// e/65536), e < 256. Ends with a CTA barrier.
+__device__ __forceinline__ void init_tables(float2* tw, float2* tw2,
+                                            float2* twl) {
+  const int t = threadIdx.x;
+  float s, c;
+  sincospif(-(float)t / 128.0f, &s, &c);
+  tw[t] = make_float2(c, s);
+  sincospif(-(float)t / 32768.0f, &s, &c);
+  twl[swz(t)] = make_float2(c, s);
+  __syncthreads();
+  tw2[t] = tw[(t & 15) * (t >> 4)];
+  __syncthreads();
 }
 
 // The resident branch's last step: every item's accumulators to the
@@ -508,9 +603,10 @@ __device__ __forceinline__ void store_items(const Params& P, const float* acc,
   }
 }
 
-// The whole block in one cooperative launch: phase p = 0 .. n_chunks
-// runs stage 1 of chunk p into scratch buffer p & 1 and stage 2 of chunk
-// p - 1 from buffer (p - 1) & 1, then a grid-wide barrier.
+// The resident branch: the whole block in one cooperative launch; phase
+// p = 0 .. n_chunks runs stage 1 of chunk p into scratch buffer p & 1
+// and stage 2 of chunk p - 1 from buffer (p - 1) & 1, then a grid-wide
+// barrier.
 template <typename T>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 corr_accum_kernel(Params P) {
@@ -536,27 +632,15 @@ corr_accum_kernel(Params P) {
   const Rounds rs = rounds_of(P, n_mine, tpr);
   const int nr = rs.n;
   const int slot0 = 2 * (t >> 5) + ((t >> 4) & 1);  // this group's
-  const int jstride = P.resident ? nsl * R : 0;
   const long long buf_len = (long long)n_st * S * FFT_LEN;
   const int n_units = n_st * S * 16;
   TDOA_TL(const int tl = t != 0 ? -1 : cta == 0 ? 0 : cta == G - 1 ? 1 : -1;
           if (tl >= 0) tl_k1[tl][TL_PH][0] = tdoa::now_ns();
           unsigned long long T0 = 0, D1 = 0, D2 = 0;)
 
-  {
-    float s, c;
-    sincospif(-(float)t / 128.0f, &s, &c);
-    tw[t] = make_float2(c, s);
-    sincospif(-(float)t / 32768.0f, &s, &c);
-    twl[swz(t)] = make_float2(c, s);
-  }
   for (int e = t; e < 2 * P.m; e += THREADS) pr[e] = P.pairs[e];
-  if (P.resident) {
-    for (int e = t; e < n_mine * nsl * R; e += THREADS) acc[e] = 0.f;
-  }
-  __syncthreads();
-  tw2[t] = tw[(t & 15) * (t >> 4)];
-  __syncthreads();
+  for (int e = t; e < n_mine * nsl * R; e += THREADS) acc[e] = 0.f;
+  init_tables(tw, tw2, twl);
 
   Raw1<T> raw;
   s1_fetch<T>(P, 0, cta, raw);
@@ -598,18 +682,7 @@ corr_accum_kernel(Params P) {
           ok = s2_fetch(P, src, plan_c, item0, tau0, nt, slot0, v);
         }
         __syncthreads();
-        const int j = cur_tau0 / run, l0 = cur_tau0 - j * run;
-        if (!P.resident && l0 == 0) {  // the reload branch's next item
-          if (c > 0) {
-            item_io(P, acc, item0 + j, true);
-          } else {
-            for (int s = 0; s < nsl; ++s) acc[s * R + t] = 0.f;
-          }
-        }
-        s2_accumulate(P, cur_tau0, cur_nt, acc, jstride, xbuf, flags, pr);
-        if (!P.resident && l0 + cur_nt == run) {
-          item_io(P, acc, item0 + j, false);
-        }
+        s2_accumulate(P, cur_tau0, cur_nt, acc, xbuf, flags, pr);
         __syncthreads();  // xbuf and flags are refilled by the next round
       }
     }
@@ -626,31 +699,161 @@ corr_accum_kernel(Params P) {
     })
   }
   TDOA_TL(if (tl >= 0) tl_k1[tl][TL_PH][1] = tdoa::now_ns();)
-  if (P.resident) store_items(P, acc, item0, n_mine);
+  store_items(P, acc, item0, n_mine);
   TDOA_TL(__syncthreads();
           if (tl >= 0) tl_k1[tl][TL_PH][2] = tdoa::now_ns();)
+}
+
+// The streamed branch, stage 1: every (station, segment slot, 16-column
+// tile) unit of the plan's one chunk into the one scratch buffer, each
+// unit's input fetched while the previous unit computes.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
+corr_accum_kernel_s1(Params P) {
+  extern __shared__ float4 smem_raw[];
+  float2* tw = reinterpret_cast<float2*>(smem_raw);
+  float2* tw2 = tw + R;
+  float2* twl = tw2 + R;
+  float2* xbuf = twl + R;
+  const int G = gridDim.x;
+  const int n_units = P.n_st * P.n_banks * P.run * 16;
+  TDOA_TL(if (threadIdx.x == 0) atomicMin(&tl_k1s[0], tdoa::now_ns());)
+  init_tables(tw, tw2, twl);
+  Raw1<T> raw;
+  s1_fetch<T>(P, 0, blockIdx.x, raw);
+  for (int u = blockIdx.x; u < n_units; u += G) {
+    const Raw1<T> cur = raw;
+    s1_fetch<T>(P, 0, u + G, raw);
+    if (cur.ok) s1_compute<T>(P, u, cur, P.scratch, tw, tw2, twl, xbuf);
+  }
+  TDOA_TL(if (threadIdx.x == 0) atomicMax(&tl_k1s[1], tdoa::now_ns());)
+}
+
+// The streamed branch, stage 2: CTA cta owns the items cta, cta + G, ...
+// one at a time. An item's accumulators are zeroed in shared memory,
+// its bank's segment slots (the plan's one chunk, P.run of them) stream
+// past in rounds of tpr tuples — the next round's rows fetched while
+// this one accumulates, across the items' boundaries too — and reach
+// the outputs once.
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
+corr_accum_kernel_s2(Params P) {
+  extern __shared__ float4 smem_raw[];
+  const int n_st = P.n_st, run = P.run;
+  const int xs = x_slots(n_st);
+  float2* tw = reinterpret_cast<float2*>(smem_raw);
+  float2* tw2 = tw + R;
+  float2* twl = tw2 + R;
+  float2* xbuf = twl + R;
+  int* flags = reinterpret_cast<int*>(xbuf + xs * SLOT);
+  int* pr = flags + pad4(xs);
+  float* acc = reinterpret_cast<float*>(pr + pad4(2 * P.m));
+
+  const int t = threadIdx.x, G = gridDim.x, cta = blockIdx.x;
+  const int l16 = t & 15;
+  const int nsl = n_slots(n_st, P.m, P.track);
+  const int n_items = R * P.n_banks;
+  const int n_mine = cta < n_items ? (n_items - 1 - cta) / G + 1 : 0;
+  const int tpr = min(xs / n_st, S2_MAX_NT);      // tuples per round
+  const int rpi = (run + tpr - 1) / tpr;          // rounds per item
+  const int nr = n_mine * rpi;
+  const int n_iter = (xs + GROUPS - 1) / GROUPS;  // transforms per group
+  const int slot0 = 2 * (t >> 5) + ((t >> 4) & 1);  // this group's
+  TDOA_TL(const bool tl = t == 0;
+          if (tl) atomicMin(&tl_k1s[2], tdoa::now_ns());
+          unsigned long long T0 = 0, D1 = 0, D2 = 0, D3 = 0;)
+
+  for (int e = t; e < 2 * P.m; e += THREADS) pr[e] = P.pairs[e];
+  init_tables(tw, tw2, twl);
+
+  // Round r: item cta + G * (r / rpi), tuples l0 .. l0 + nt - 1 of it.
+  int item = cta, l0 = 0, nt = min(tpr, run);
+  float2 v[16];
+  bool ok = false;
+  if (nr > 0)
+    ok = s2_fetch(P, P.scratch, P.plan, item, l0, nt, slot0, v);
+  for (int r = 0; r < nr; ++r) {
+    TDOA_TL(T0 = tdoa::now_ns();)
+    const int n_tr = nt * n_st;
+    for (int i = 0; i < n_iter; ++i) {
+      const int tr = slot0 + GROUPS * i;
+      if (i > 0)
+        ok = s2_fetch(P, P.scratch, P.plan, item, l0, nt, tr, v);
+      fft256_row(v, xbuf + tr * SLOT, tw2, l16, tr < n_tr);
+      if (l16 == 0 && tr < n_tr && tr % n_st == 0) flags[tr / n_st] = ok;
+    }
+    const int cur_item = item, cur_l0 = l0, cur_nt = nt;
+    if (r + 1 < nr) {
+      l0 += tpr;
+      if (l0 >= run) {
+        l0 = 0;
+        item += G;
+      }
+      nt = min(tpr, run - l0);
+      ok = s2_fetch(P, P.scratch, P.plan, item, l0, nt, slot0, v);
+    }
+    __syncthreads();
+    TDOA_TL(const unsigned long long T1 = tdoa::now_ns(); D1 += T1 - T0;)
+    if (cur_l0 == 0) {
+      for (int s = 0; s < nsl; ++s) acc[s * R + t] = 0.f;
+    }
+    int nv = 0;  // the round's tuples that hold a segment: a prefix
+    while (nv < cur_nt && flags[nv]) ++nv;
+    switch (nv) {  // 0 <= nv <= tpr <= S2_MAX_NT
+      case 1: s2_sum<1>(P, acc, xbuf, pr); break;
+      case 2: s2_sum<2>(P, acc, xbuf, pr); break;
+      case 3: s2_sum<3>(P, acc, xbuf, pr); break;
+      case 4: s2_sum<4>(P, acc, xbuf, pr); break;
+      case 5: s2_sum<5>(P, acc, xbuf, pr); break;
+      default: break;
+    }
+    TDOA_TL(const unsigned long long T2 = tdoa::now_ns(); D2 += T2 - T1;)
+    if (cur_l0 + cur_nt == run) store_item(P, acc, cur_item);
+    TDOA_TL(D3 += tdoa::now_ns() - T2;)
+    __syncthreads();  // xbuf and flags are refilled by the next round
+  }
+  TDOA_TL(if (tl) {
+    atomicMax(&tl_k1s[3], tdoa::now_ns());
+    if (cta == 0) {
+      tl_k1s[4] = D1;
+      tl_k1s[5] = D2;
+      tl_k1s[6] = D3;
+      tl_k1s[7] = nr;
+    }
+  })
 }
 
 template <typename T>
 const void* kernel_fn() {
   return reinterpret_cast<const void*>(&corr_accum_kernel<T>);
 }
+template <typename T>
+const void* s1_fn() {
+  return reinterpret_cast<const void*>(&corr_accum_kernel_s1<T>);
+}
+const void* s2_fn() {
+  return reinterpret_cast<const void*>(&corr_accum_kernel_s2);
+}
 
-// A launch shape: whether each CTA keeps its items' accumulators in
-// shared memory (resident) or reloads one item's per chunk, the grid,
-// CTAs per SM, items per CTA and dynamic shared memory bytes.
+// A launch shape: the branch (0 resident, 1 streamed), the grid (the
+// resident launch's, or the streamed branch's stage 2), CTAs per SM,
+// items per CTA, dynamic shared memory bytes, and the streamed branch's
+// stage-1 grid (0 in the resident branch).
 struct Shape {
-  int resident, grid, bps, ipc, smem;
+  int streamed, grid, bps, ipc, smem, grid1;
 };
 
-// The launch shape on the current device: the most CTAs per SM (up to
-// BLOCKS_PER_SM) at which every CTA holds its items' accumulators,
-// else the reload branch with one item's. Opts the kernel into the
-// shared memory it needs. Returns 0 or a cudaError_t
+// The launch shape on the current device: the resident branch at the
+// most CTAs per SM (up to BLOCKS_PER_SM) at which every CTA holds its
+// items' accumulators, else (or with force_streamed) the streamed
+// branch, one item's accumulators a CTA. Opts the kernels into the
+// shared memory they need. Returns 0 or a cudaError_t
 // (cudaErrorInvalidConfiguration when not even one item fits a CTA:
 // the kernel cannot run this shape on this device).
-int choose(int n_st, int m, int track, int n_banks, int is_bf16, Shape* out) {
-  const void* fn = is_bf16 ? kernel_fn<unsigned short>() : kernel_fn<float>();
+int choose(int n_st, int m, int track, int n_banks, int is_bf16,
+           int force_streamed, Shape* out) {
+  const void* res = is_bf16 ? kernel_fn<unsigned short>() : kernel_fn<float>();
+  const void* s1 = is_bf16 ? s1_fn<unsigned short>() : s1_fn<float>();
+  const void* s2 = s2_fn();
   int dev, n_sm, optin;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -658,26 +861,37 @@ int choose(int n_st, int m, int track, int n_banks, int is_bf16, Shape* out) {
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             optin);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
+  for (const void* fn : {res, s1, s2}) {
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(fn,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  }
   if (e != cudaSuccess) return (int)e;
   const int n_items = R * n_banks;
-  for (int resident = 1; resident >= 0; --resident) {
+  for (int streamed = force_streamed ? 1 : 0; streamed <= 1; ++streamed) {
+    int grid1 = 0;
+    if (streamed) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&grid1, s1, THREADS,
+                                                        smem_s1_bytes());
+      if (e != cudaSuccess) return (int)e;
+      grid1 *= n_sm;
+      if (grid1 < 1) return (int)cudaErrorInvalidConfiguration;
+    }
     for (int bps = BLOCKS_PER_SM; bps >= 1; --bps) {
       const int grid = bps * n_sm;
       const int ipc = (n_items + grid - 1) / grid;
-      const int smem = smem_bytes(n_st, m, track, resident ? ipc : 1);
+      const int smem = smem_bytes(n_st, m, track, streamed ? 1 : ipc);
       if (smem > optin) continue;
       int fit = 0;
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, fn, THREADS,
-                                                        smem);
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &fit, streamed ? s2 : res, THREADS, smem);
       if (e != cudaSuccess) return (int)e;
       if (fit >= bps) {
-        *out = Shape{resident, grid, bps, ipc, smem};
+        *out = Shape{streamed, grid, bps, ipc, smem, grid1};
         return 0;
       }
     }
@@ -687,9 +901,10 @@ int choose(int n_st, int m, int track, int n_banks, int is_bf16, Shape* out) {
 
 // choose, computed once per device and shape.
 int shape_for(int n_st, int m, int track, int n_banks, int is_bf16,
-              Shape* out) {
+              int force_streamed, Shape* out) {
+  constexpr int NK = 7;
   struct Entry {
-    int key[6];
+    int key[NK];
     Shape shape;
   };
   static std::mutex mu;
@@ -697,20 +912,20 @@ int shape_for(int n_st, int m, int track, int n_banks, int is_bf16,
   int dev;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  const int key[6] = {dev, n_st, m, track, n_banks, is_bf16};
+  const int key[NK] = {dev, n_st, m, track, n_banks, is_bf16, force_streamed};
   std::lock_guard<std::mutex> lock(mu);
   for (const Entry& c : cache) {
     bool hit = true;
-    for (int i = 0; i < 6; ++i) hit = hit && c.key[i] == key[i];
+    for (int i = 0; i < NK; ++i) hit = hit && c.key[i] == key[i];
     if (hit) {
       *out = c.shape;
       return 0;
     }
   }
-  const int err = choose(n_st, m, track, n_banks, is_bf16, out);
+  const int err = choose(n_st, m, track, n_banks, is_bf16, force_streamed, out);
   if (err != 0) return err;
   Entry c;
-  for (int i = 0; i < 6; ++i) c.key[i] = key[i];
+  for (int i = 0; i < NK; ++i) c.key[i] = key[i];
   c.shape = *out;
   cache.push_back(c);
   return 0;
@@ -719,40 +934,50 @@ int shape_for(int n_st, int m, int track, int n_banks, int is_bf16,
 }  // namespace
 
 // The launch shape tdoa_corr_accum takes on the current device: out =
-// {resident, grid, CTAs per SM, items per CTA, shared memory bytes}.
-// Returns 0, cudaErrorInvalidConfiguration where the kernel cannot run
-// the shape on this device (the routing gate fits_device), or another
-// cudaError_t.
+// {streamed, grid, CTAs per SM, items per CTA, shared memory bytes,
+// stage-1 grid}. force_streamed (tests) takes the streamed branch where
+// the resident one would run. Returns 0, cudaErrorInvalidConfiguration
+// where the kernel cannot run the shape on this device (the routing
+// gate fits_device), or another cudaError_t.
 extern "C" int tdoa_corr_accum_config(int n_st, int m, int track, int n_banks,
-                                      int is_bf16, int* out) {
+                                      int is_bf16, int force_streamed,
+                                      int* out) {
   Shape sh;
-  const int e = shape_for(n_st, m, track, n_banks, is_bf16, &sh);
+  const int e =
+      shape_for(n_st, m, track, n_banks, is_bf16, force_streamed, &sh);
   if (e != 0) return e;
-  out[0] = sh.resident;
+  out[0] = sh.streamed;
   out[1] = sh.grid;
   out[2] = sh.bps;
   out[3] = sh.ipc;
   out[4] = sh.smem;
+  out[5] = sh.grid1;
   return 0;
 }
 
-// Accumulate one capture on `stream` in one cooperative launch of the
-// shape tdoa_corr_accum_config gives. Returns 0 or the cudaError_t of
-// the refused launch (a grid that cannot be resident is refused, never
-// shrunk).
+// Accumulate one capture on `stream` in the shape tdoa_corr_accum_config
+// gives: the resident branch in one cooperative launch (plan of
+// n_chunks chunks, two scratch buffers), the streamed branch in two
+// launches (the plan's one chunk holds every segment: n_chunks must be
+// 1; one scratch buffer). With reuse_stage1 the streamed branch skips
+// its stage 1: `scratch` already holds the hand-off of these rows and
+// this plan (another pair tile's launch over the same rows wrote it).
+// Returns 0 or the cudaError_t of the refused launch (a grid that
+// cannot be resident is refused, never shrunk).
 extern "C" int tdoa_corr_accum(const void* xr, const void* xi, int is_bf16,
                                long long st_stride, int n_st,
                                const int* pairs, int m, int n_banks,
                                int track, const int* plan, int n_chunks,
-                               int run, void* scratch, void* bar,
-                               void* cross, void* psd, void* sums,
-                               void* stream) {
+                               int run, int force_streamed, int reuse_stage1,
+                               void* scratch, void* bar, void* cross,
+                               void* psd, void* sums, void* stream) {
   Shape sh;
-  const int err = shape_for(n_st, m, track, n_banks, is_bf16, &sh);
+  const int err =
+      shape_for(n_st, m, track, n_banks, is_bf16, force_streamed, &sh);
   if (err != 0) return err;
+  if (sh.streamed ? n_chunks != 1 : reuse_stage1 != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemsetAsync(bar, 0, sizeof(unsigned), s);
-  if (e != cudaSuccess) return (int)e;
   Params P;
   P.xr = xr;
   P.xi = xi;
@@ -767,12 +992,26 @@ extern "C" int tdoa_corr_accum(const void* xr, const void* xi, int is_bf16,
   P.run = run;
   P.scratch = static_cast<float2*>(scratch);
   P.bar = static_cast<unsigned*>(bar);
-  P.resident = sh.resident;
   P.ipc = sh.ipc;
   P.cross = static_cast<float2*>(cross);
   P.psd = static_cast<float*>(psd);
   P.sums = static_cast<float2*>(sums);
   void* args[] = {&P};
+  cudaError_t e;
+  if (sh.streamed) {
+    if (!reuse_stage1) {
+      e = cudaLaunchKernel(is_bf16 ? s1_fn<unsigned short>() : s1_fn<float>(),
+                           dim3(sh.grid1), dim3(THREADS), args,
+                           (size_t)smem_s1_bytes(), s);
+      if (e != cudaSuccess) return (int)e;
+    }
+    e = cudaLaunchKernel(s2_fn(), dim3(sh.grid), dim3(THREADS), args,
+                         (size_t)sh.smem, s);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+  }
+  e = cudaMemsetAsync(bar, 0, sizeof(unsigned), s);
+  if (e != cudaSuccess) return (int)e;
   const void* fn = is_bf16 ? kernel_fn<unsigned short>() : kernel_fn<float>();
   e = cudaLaunchCooperativeKernel(fn, dim3(sh.grid), dim3(THREADS), args,
                                   (size_t)sh.smem, s);
@@ -781,8 +1020,15 @@ extern "C" int tdoa_corr_accum(const void* xr, const void* xi, int is_bf16,
 }
 
 #ifdef TDOA_TIMELINE
-// The last launch's stamps, tl_k1 as laid out above.
+// The last launches' stamps: tl_k1 (the resident branch) then tl_k1s
+// (the streamed branch), as laid out above; tl_k1s is reset for the
+// next streamed launch.
 extern "C" int tdoa_corr_accum_timeline(unsigned long long* out) {
-  return (int)cudaMemcpyFromSymbol(out, tl_k1, sizeof(tl_k1));
+  cudaError_t e = cudaMemcpyFromSymbol(out, tl_k1, sizeof(tl_k1));
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbol(out + sizeof(tl_k1) / 8, tl_k1s, sizeof(tl_k1s));
+  const unsigned long long init[TL_S] = {~0ull, 0, ~0ull, 0, 0, 0, 0, 0};
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(tl_k1s, init, sizeof(init));
+  return (int)e;
 }
 #endif

@@ -442,8 +442,9 @@ def _deramp_correlate(
 def _fused_fits(n_stations: int, index: int) -> bool:
     """``fits_device``'s verdict on the fused batch shape (K = 4 banks,
     DC sums, all pairs, pair-tiled where one launch does not hold them:
-    13 stations and up on the H100) for ``n_stations`` on card
-    ``index``, taken once and kept:
+    13 stations and up on the H100; from 4 stations kernel 1's streamed
+    branch, whose scratch is counted at the longest block a capture
+    holds) for ``n_stations`` on card ``index``, taken once and kept:
     ``load_files`` (bf16 or f32 decode) and ``process_captures`` (which
     accumulator) ask it at different free memory — the captures, and
     with LO compensation the derotated blocks, lie between the two — and

@@ -140,6 +140,31 @@ def test_chunk_plan_covers_every_segment_once(n_seg, K):
         np.testing.assert_array_equal(got, np.arange(n_seg))
 
 
+@pytest.mark.parametrize("n_seg", [5, 96, 443, 1480])
+@pytest.mark.parametrize("K", [1, 2, 4])
+def test_streamed_plan_is_one_chunk_of_every_segment(n_seg, K):
+    """The streamed branch's schedule (``scratch_plan``'s run, the
+    longest bank): ONE chunk in which every bank lists all of its
+    segments once, in order, −1 only past its end; its one scratch
+    buffer holds every segment of every station. The resident branch
+    keeps its two chunk buffers at ``bank_run``."""
+    run, bufs = corr_accum.scratch_plan("streamed", 12, K, n_seg)
+    assert bufs == 1 and run == -(-n_seg // K)
+    plan = chunk_plan(n_seg, K, run)
+    assert plan.shape == (1, K * run)
+    b = bank_bounds(n_seg, K)
+    per_bank = plan.reshape(K, run)
+    for k in range(K):
+        n = b[k + 1] - b[k]
+        np.testing.assert_array_equal(per_bank[k, :n],
+                                      np.arange(b[k], b[k + 1]))
+        assert (per_bank[k, n:] == -1).all()
+    assert corr_accum.scratch_bytes("streamed", 12, K, n_seg) \
+        == 12 * K * run * FFT_LEN * 8
+    assert corr_accum.scratch_plan("resident", 3, K, n_seg) == (
+        bank_run(3, K, n_seg), 2)
+
+
 @pytest.mark.parametrize("n_st,K", [(3, 4), (3, 1), (12, 2)])
 def test_bank_run_keeps_a_scratch_buffer_in_its_bound(n_st, K):
     """A chunk's stage-1 spectra (all stations of n_banks·run segments)
@@ -219,6 +244,18 @@ def test_cpu_tensors_take_the_plain_version():
     assert accumulate_banks.launches == before
 
 
+def test_forcing_the_streamed_branch_on_the_cpu_is_the_plain_version():
+    """``force_streamed`` picks a branch of the CUDA kernel: a CPU tensor
+    still takes the plain version, bitwise, and launches nothing."""
+    x = torch.from_numpy(fm_block(3, 2 * SEG_LEN, [0, 3, -2], seed=4))
+    before = accumulate_banks.launches
+    forced = accumulate_banks(x, PAIRS, 2, True, force_streamed=True)
+    plain = corr_accum.accumulate_banks_plain(x, PAIRS, 2, True)
+    assert accumulate_banks.launches == before
+    for a, b in zip(forced, plain):
+        assert torch.equal(a, b)
+
+
 def _all_pairs(n_st):
     return tuple((i, j) for i in range(n_st) for j in range(i + 1, n_st))
 
@@ -231,6 +268,7 @@ def _stacked_pairs(n_st, blocks=3):
 
 
 H100_SMEM_OPTIN = 232_448  # cudaDevAttrMaxSharedMemoryPerBlockOptin
+H100_SMS = 132
 
 
 @pytest.mark.parametrize("layout", ["all pairs of 5", "3 stacked blocks"])
@@ -298,6 +336,37 @@ def test_tile_capacity_on_the_h100(n_st, stacked, tiles):
     assert corr_accum.smem_bytes(13, 78, True) > H100_SMEM_OPTIN
 
 
+@pytest.mark.parametrize("n_st,rows,K,sums,branch", [
+    (3, 3, 4, True, "resident"), (4, 4, 4, True, "streamed"),
+    (5, 5, 4, True, "streamed"), (8, 8, 4, True, "streamed"),
+    (12, 12, 4, True, "streamed"), (13, 13, 4, True, "streamed"),
+    (16, 16, 4, True, "streamed"), (24, 24, 4, True, "streamed"),
+    (3, 9, 1, True, "resident"), (12, 36, 1, True, "streamed"),
+    (16, 48, 1, True, "streamed"), (24, 72, 1, True, "streamed"),
+    (12, 36, 1, False, "streamed"), (12, 36, 4, False, "streamed")])
+def test_branch_on_the_h100(n_st, rows, K, sums, branch):
+    """At the H100's opt-in limit and 132 SMs, the footprint mirror
+    gives every launch of the tile plan its branch: the resident one at
+    3 stations (K = 4, and the overlapped ingest's 9 stacked rows at
+    K = 1), the streamed one from 4 stations at K = 4 — each tile of 13,
+    16 and 24 stations too — and on the stacked rows (K = 1) and the
+    sharded step's 12-row blocks (f32, no DC sums; K = 1 and 4) of 12 to
+    24 stations. A streamed launch holds one item a CTA, so its tiles
+    are the planner's: every launch fits the limit with ``n_res`` = 1."""
+    pairs = _all_pairs(n_st) if rows == n_st else _stacked_pairs(n_st)
+    plan = corr_accum.plan_tiles(pairs, rows, sums, H100_SMEM_OPTIN)
+    for r0, r1, lo, hi in plan:
+        assert corr_accum.branch_of(r1 - r0, hi - lo, sums, K,
+                                    H100_SMEM_OPTIN, H100_SMS) == branch
+        assert corr_accum.smem_bytes(r1 - r0, hi - lo, sums, 1) \
+            <= H100_SMEM_OPTIN
+    # One CTA a SM would need ceil(256·K / 132) items: 8 at K = 4.
+    items = -(-256 * K // H100_SMS)
+    rows_tile, m_tile = max((r1 - r0, hi - lo) for r0, r1, lo, hi in plan)
+    resident = corr_accum.smem_bytes(rows_tile, m_tile, sums, items)
+    assert (resident <= H100_SMEM_OPTIN) == (branch == "resident")
+
+
 def test_tile_planner_refuses_what_no_launch_holds():
     """Where the per-station accumulators alone exceed the limit (300
     stations), no tile holds a pair: the planner raises."""
@@ -321,9 +390,11 @@ def h100_gate(monkeypatch):
     def launch_shape(rows, m, track, n_banks, bf16, device):
         asked.append((rows, m, n_banks))
         fits = corr_accum.smem_bytes(rows, m, track) <= H100_SMEM_OPTIN
-        return (0 if fits else 9), {}
+        return (0 if fits else 9), {"branch": corr_accum.branch_of(
+            rows, m, track, n_banks, H100_SMEM_OPTIN, H100_SMS)}
 
     monkeypatch.setattr(corr_accum, "smem_optin", lambda d: H100_SMEM_OPTIN)
+    monkeypatch.setattr(corr_accum, "sm_count", lambda d: H100_SMS)
     monkeypatch.setattr(corr_accum, "_launch_shape", launch_shape)
     monkeypatch.setattr(torch.cuda, "mem_get_info", lambda d: (80 << 30,
                                                                80 << 30))
@@ -390,6 +461,49 @@ def test_kernel_gate_refuses_what_no_launch_holds(h100_gate):
     assert h100_gate == []
 
 
+@pytest.mark.parametrize("n_st,K", [(3, 4), (12, 4), (24, 4), (36, 1)])
+def test_kernel_gate_counts_the_streamed_scratch(h100_gate, monkeypatch,
+                                                 n_st, K):
+    """``fits_device`` counts the largest launch's scratch at the longest
+    block a capture holds (1480 segments): the resident branch's two
+    L2-sized chunk buffers at 3 stations, the streamed branch's whole
+    block from 4 (18.6 GB a tile at 24 stations, K = 4; 9.3 GB for a
+    12-row block of the stacked rows at K = 1), beside the bank
+    accumulators and the tiles' outputs. A card with one byte less free
+    than that is refused."""
+    card = torch.device("cuda", 0)
+    pairs = _all_pairs(n_st) if n_st <= 24 else _stacked_pairs(n_st // 3)
+    tiles = corr_accum.plan_tiles(pairs, n_st, True, H100_SMEM_OPTIN)
+    rows = max(r1 - r0 for r0, r1, _, _ in tiles)
+    branch = "resident" if n_st == 3 else "streamed"
+    scratch = corr_accum.scratch_bytes(branch, rows, K,
+                                       corr_accum.MAX_BLOCK_SEGS)
+    if branch == "streamed":
+        assert scratch == rows * K * (-(-1480 // K)) * FFT_LEN * 8
+    else:
+        assert scratch <= 2 * SCRATCH_BUF_BYTES
+    acc = K * FFT_LEN * (8 * len(pairs) + 12 * n_st)
+    need = scratch + acc + (acc if len(tiles) > 1 else 0)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda d: (need + 1, 80 << 30))
+    assert corr_accum.fits_device(n_st, pairs, True, K, card)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda d: (need, 80 << 30))
+    assert not corr_accum.fits_device(n_st, pairs, True, K, card)
+
+
+def test_kernel_gate_raises_where_the_library_takes_another_branch(
+        h100_gate, monkeypatch):
+    """One formula decides the branch: where the built library's choice
+    differs from the footprint mirror's, the gate raises instead of
+    sizing the scratch for the wrong branch."""
+    monkeypatch.setattr(corr_accum, "_launch_shape",
+                        lambda *a: (0, {"branch": "resident"}))
+    with pytest.raises(RuntimeError, match="branch resident"):
+        corr_accum.fits_device(12, _all_pairs(12), True, 4,
+                               torch.device("cuda", 0))
+
+
 def _cuda_block(n_st, n_seg, device):
     """bf16 planar noise made on the card (a 10 s block of 24 stations
     would take minutes of numpy FFTs): every station a delayed copy of
@@ -401,24 +515,38 @@ def _cuda_block(n_st, n_seg, device):
     return (0.3 * x + 0.01).to(torch.bfloat16).contiguous(), _all_pairs(n_st)
 
 
+def _cuda_case(n_st, n_seg, stacked, device):
+    """The block and pair list of a card test: all pairs of ``n_st``
+    stations, or (``stacked``) the overlapped ingest's 3·n_st rows."""
+    if not stacked:
+        return _cuda_block(n_st, n_seg, device)
+    x, _ = _cuda_block(3 * n_st, n_seg, device)
+    return x, _stacked_pairs(n_st)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_st,n_seg,K", [(3, 16, 4), (3, 100, 4), (12, 5, 2),
-                                          (3, 443, 4), (16, 443, 4),
-                                          (24, 443, 4)])
-def test_cuda_kernel_matches_plain(cuda_sm90, n_st, n_seg, K):
+@pytest.mark.parametrize("n_st,n_seg,K,stacked", [
+    (3, 16, 4, False), (3, 100, 4, False), (12, 5, 2, False),
+    (3, 443, 4, False), (5, 443, 4, False), (16, 443, 4, False),
+    (24, 443, 4, False), (12, 96, 1, True)])
+def test_cuda_kernel_matches_plain(cuda_sm90, n_st, n_seg, K, stacked):
     """The CUDA kernel against its plain version on the card: 3
     stations, K = 4, sums on, bf16, at 16 segments (one chunk), at 100
-    and at a 10 s block's 443 segments (chunks of corr_accum.bank_run
-    segments a bank, each CTA keeping its items' accumulators on chip
-    from chunk to chunk), a 12-station network (66 pairs: one item
-    takes 172 KB, so the reload branch carries the accumulators from
-    chunk to chunk through the outputs), and 16 and 24 stations over a
-    10 s block, pair-tiled (2 and 6 launches); within 1e-4 of each
-    row's peak magnitude (f32 FFTs, different summation orders)."""
-    x, pairs = _cuda_block(n_st, n_seg, cuda_sm90)
-    cfg = corr_accum.kernel_config(n_st, pairs, True, K)
-    assert cfg["resident"] == (n_st == 3)
-    assert cfg["tiles"] == {3: 1, 12: 1, 16: 2, 24: 6}[n_st]
+    and at a 10 s block's 443 segments (the resident branch: chunks of
+    corr_accum.bank_run segments a bank, each CTA keeping its items'
+    accumulators on chip from chunk to chunk); the streamed branch (one
+    item's accumulators a CTA while the bank's segments stream past) at
+    12 stations (66 pairs: 172 KB an item), at 5 stations over a 10 s
+    block, at 16 and 24 stations over a 10 s block, pair-tiled (2 and 6
+    launches), and on the overlapped ingest's 36 stacked rows of 12
+    stations (K = 1, 3 launches of 12 rows × 66 pairs); within 1e-4 of
+    each row's peak magnitude (f32 FFTs, different summation orders)."""
+    x, pairs = _cuda_case(n_st, n_seg, stacked, cuda_sm90)
+    rows = 3 * n_st if stacked else n_st
+    cfg = corr_accum.kernel_config(rows, pairs, True, K)
+    assert cfg["branch"] == ("resident" if n_st == 3 else "streamed")
+    assert cfg["tiles"] == (3 if stacked else
+                            {3: 1, 5: 1, 12: 1, 16: 2, 24: 6}[n_st])
     before = accumulate_banks.launches
     got = accumulate_banks(x, pairs, K, True)
     assert accumulate_banks.launches == before + cfg["tiles"]
@@ -430,12 +558,13 @@ def test_cuda_kernel_matches_plain(cuda_sm90, n_st, n_seg, K):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_st,n_seg,K", [(3, 100, 4), (12, 5, 2),
-                                          (16, 443, 4), (24, 443, 4)])
-def test_cuda_kernel_is_deterministic(cuda_sm90, n_st, n_seg, K):
+@pytest.mark.parametrize("n_st,n_seg,K,stacked", [
+    (3, 100, 4, False), (12, 5, 2, False), (5, 443, 4, False),
+    (16, 443, 4, False), (24, 443, 4, False), (12, 96, 1, True)])
+def test_cuda_kernel_is_deterministic(cuda_sm90, n_st, n_seg, K, stacked):
     """No float atomics: two launches on the same input give bitwise-
     equal outputs, in both branches and tiled."""
-    x, pairs = _cuda_block(n_st, n_seg, cuda_sm90)
+    x, pairs = _cuda_case(n_st, n_seg, stacked, cuda_sm90)
     a = accumulate_banks(x, pairs, K, True)
     b = accumulate_banks(x, pairs, K, True)
     torch.cuda.synchronize()
@@ -461,3 +590,29 @@ def test_cuda_tiles_are_bitwise_the_single_launch(cuda_sm90, n_st, stacked,
     assert accumulate_banks.launches - before == (3 if stacked else 2)
     for u, v in zip(tiled, one):
         assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n_seg,K,stacked,f32", [
+    (3, 443, 4, False, False), (3, 100, 2, False, True),
+    (9, 96, 1, True, False)])
+def test_cuda_streamed_branch_is_bitwise_the_resident_launch(
+        cuda_sm90, rows, n_seg, K, stacked, f32):
+    """Both branches run the same transforms and the same sums in
+    segment order: 3 stations (and the overlapped ingest's 9 stacked
+    rows) forced onto the streamed branch give the resident launch's
+    outputs bitwise, bf16 with DC sums and f32 without."""
+    x, pairs = _cuda_case(rows // 3 if stacked else rows, n_seg, stacked,
+                          cuda_sm90)
+    if f32:
+        x = x.float()
+    sums = not f32
+    assert corr_accum.kernel_config(rows, pairs, sums, K,
+                                    not f32)["branch"] == "resident"
+    resident = accumulate_banks(x, pairs, K, sums)
+    before = accumulate_banks.launches
+    streamed = accumulate_banks(x, pairs, K, sums, force_streamed=True)
+    torch.cuda.synchronize()
+    assert accumulate_banks.launches == before + 1
+    for u, v in zip(streamed, resident):
+        assert (u is None and v is None) or torch.equal(u, v)
