@@ -31,7 +31,12 @@ Phases, each printing its own lines; any failure exits non-zero:
              14 stations × 443 segments × K = 4 (2 tiles); the sharded
              step's 36 stacked f32 rows of 12 stations (a launch per
              12-row block) at a 2-rank chunk's 220 segments, one bank,
-             and at its comparator's 440 segments, K = 4;
+             and at its comparator's 440 segments, K = 4; at phase 12's
+             (a 100 s block: 1479 segments): 3 stations × K = 4 (the
+             resident branch; forced onto the streamed branch, bitwise
+             the same), 12 stations × K = 4 (streamed), and the block's
+             short last chunk of 39 segments on 9 and 3 rows and on 12
+             stations' 36 stacked rows;
              launches are counted
              by (rows, segments, banks, pairs) and no path may launch it
              at a shape not checked here; kernel 2: K = 4,
@@ -44,7 +49,9 @@ Phases, each printing its own lines; any failure exits non-zero:
              channels × 20 M samples, D = 8, then 3 channels × 2 M
              samples on rows that are not 16-byte aligned, its scalar
              loads, and at D = 16; and 4 channels × 20 M samples, D = 8,
-             the audio match's stations and template; no path may
+             the audio match's stations and template; 9 channels ×
+             66,666,666 samples, D = 8, the FM path's 100 s blocks (rows
+             off the 16-byte grid); no path may
              launch it at a shape not checked here), each launched twice
              on the same input (the outputs must be bitwise equal), then
              each timed at the main path's shapes beside its bound (bytes
@@ -204,7 +211,29 @@ Phases, each printing its own lines; any failure exits non-zero:
              route and tiles printed, and the same blocks as u8 I/Q
              through ``ingest_overlapped`` (warm-up, then timed; kernel
              1 on every block's tiles of the stacked rows, within 0.05
-             sample of ``process_blocks`` on the same bytes).
+             sample of ``process_blocks`` on the same bytes);
+12. window — the collector's longest window, 100 s (``cli/collector.py``'s
+             MAX_DURATION_S: three blocks of 66,666,666 samples, 1479
+             whole kernel segments each): ``dsp.fm.running_sum`` over a
+             block (two calls bitwise equal, within float32 rounding of
+             float64); a synthesized 3-station capture written as
+             ``.dat`` files through phase 4's three paths (the same
+             bounds), the processor CLI in this process (0.5 sample, 200
+             m), ``process_files_overlapped`` (16 chunks: 15 of 96
+             segments and one of 39; 0.05 sample of the fused result)
+             and a tail session in ten growth steps (last byte → fix);
+             the collector CLI at ``--duration 100`` (``--backend sim``,
+             one call a station) and ``process_files`` on its three
+             files (0.5 sample, 200 m of the simulator's truth), and the
+             stream service over their directory with ``--watch
+             --overlap-ingest 100`` (a tail session; fix 200 m); phase
+             11's 12-station scene over 100 s, its bytes in host memory:
+             the batch kernel route (decoded on the card as
+             ``load_files`` decodes) and the overlapped ingest (st4
+             alone excluded, clean pairs 0.5 sample, fix 200 m, the
+             overlapped result within 0.05 sample of the batch one).
+             Each path a warm-up and a timed run; capture→fix, last
+             byte → fix and peak device memory per route printed.
 
 The last two lines are the card's ``nvidia-smi`` name and power limit,
 then ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -867,6 +896,8 @@ def _later_shapes(dev, g):
                   torch.bfloat16, True) for n_st, n_seg, kb, stacked in NET_K1]
     k1_calls += [(rows, n_seg, kb, block, torch.float32, False)
                  for rows, n_seg, kb, block in NET_SHARD_K1]
+    k1_calls += [(rows, n_seg, kb, block, torch.bfloat16, True)
+                 for rows, n_seg, kb, block in WINDOW_K1]
     for rows, n_seg, kb, block, dtype, sums in k1_calls:
         f32 = dtype == torch.float32
         x = _k1_block(dev, g, n_seg, rows, dtype)
@@ -909,6 +940,22 @@ def _later_shapes(dev, g):
                 raise RuntimeError(f"{name}: 2 tiles differ from one launch")
             extra["forced_2_tiles_bitwise_equal"] = True
             del forced
+        if (rows, n_seg, kb) == WINDOW_FORCED:
+            forced = corr_accum.accumulate_banks(x, pn, kb, sums,
+                                                 force_streamed=True)
+            torch.cuda.synchronize()
+            equal = _same(forced, got)
+            print(f"  forced onto the streamed branch: bitwise the "
+                  f"{cfg['branch']} launch: {equal}")
+            if cfg["branch"] != "resident" or not equal:
+                raise RuntimeError(f"{name}: the streamed branch differs "
+                                   f"from the resident launch")
+            del forced
+            extra.update(forced_streamed_bitwise_equal=True,
+                         forced_streamed_ms=_time_ms(
+                             lambda: corr_accum.accumulate_banks(  # noqa: B023
+                                 x, pn, kb, sums,  # noqa: B023
+                                 force_streamed=True), 3))
         del got
         entry = _entry(
             name, *k1_src, (rows, n_seg, kb, len(pn)), a_err,
@@ -979,7 +1026,7 @@ def _later_shapes(dev, g):
         entries.append(entry)
         del x, banks, cross, psd
     torch.cuda.empty_cache()
-    for C, n, decim in CAL_K3_SHAPES:
+    for C, n, decim in CAL_K3_SHAPES + WINDOW_K3_SHAPES:
         step = torch.randn(C, n, device=dev, generator=g, dtype=torch.float64)
         phase = torch.cumsum(0.3 * step, -1)
         x = torch.stack([0.3 * torch.cos(phase), 0.3 * torch.sin(phase)])
@@ -990,8 +1037,10 @@ def _later_shapes(dev, g):
         want = fm_demod.fm_demod_decimate_plain(x, FS, decim=decim)
         torch.cuda.synchronize()
         err, same = float((got - want).abs().max()), _same(got, again)
-        print(f"fm_demod [{C} ch x {n} samples, D={decim}]: max |kernel - "
-              f"plain| = {err:.3e} (tol {K3_TOL:g}); two launches bitwise "
+        aligned = fm_demod.rows_aligned(x)
+        print(f"fm_demod [{C} ch x {n} samples, D={decim}, "
+              f"{'aligned' if aligned else 'unaligned'} rows]: max |kernel "
+              f"- plain| = {err:.3e} (tol {K3_TOL:g}); two launches bitwise "
               f"equal: {same}")
         if not (err < K3_TOL and same):
             raise RuntimeError(f"fm_demod at {(C, n, decim)}: error "
@@ -1002,6 +1051,8 @@ def _later_shapes(dev, g):
             lambda: fm_demod.fm_demod_decimate_plain(  # noqa: B023
                 x, FS, decim=decim),  # noqa: B023
             "fm_demod_kernel", _k3_bound(C, n, decim), 20))
+        entries[-1]["rows_aligned"] = aligned
+        del x, got, again, want
     return entries
 
 
@@ -1036,6 +1087,22 @@ NET_SHARD_K2_SHAPES = ((2, 198, 65536),)
 # The 12-station block's launch (rows, segments, banks) forced into tiles
 # of 33 pairs (2 tiles): bitwise the untiled launch.
 NET_FORCED = (12, 443, 4, 33)
+# Phase 12, the collector's longest window (``cli/collector.py``'s
+# MAX_DURATION_S, 100 s): three blocks of 66,666,666 samples, 1479 whole
+# kernel segments each (28,842 samples of ragged tail dropped). Kernel 1
+# there (rows, segments, banks, rows a block): the batch banks of 3
+# stations (the resident branch, 93 chunks; forced onto the streamed
+# branch, bitwise the same) and of 12 (66 pairs, the streamed branch),
+# and a block's short last chunk (1479 = 15·96 + 39) on the overlapped
+# ingest's 9 stacked rows, a tail session's 3 and 12 stations' 36 stacked
+# rows (the 96-segment chunks are the 30 s window's shapes); kernel 3 on
+# the FM path's 9 channels of a 100 s block.
+WINDOW_S = 100
+WINDOW_BLOCK = WINDOW_S * int(FS) // 3
+WINDOW_K1 = ((3, 1479, 4, 3), (12, 1479, 4, 12), (9, 39, 1, 3),
+             (3, 39, 1, 3), (36, 39, 1, 12))
+WINDOW_FORCED = (3, 1479, 4)
+WINDOW_K3_SHAPES = ((9, WINDOW_BLOCK, FM_DECIM),)
 
 
 def _k1_launch_keys(rows: int, n_seg: int, kb: int, pairs, sums: bool,
@@ -1052,10 +1119,13 @@ def _k1_launch_keys(rows: int, n_seg: int, kb: int, pairs, sums: bool,
 def _synthesize(dev, out_dir: Path, lo_ppm=None, mover_enu=None,
                 interferer_lla=None, prefix: str = "sim",
                 csv: Path = ROOT / "lat-lon-table.csv",
-                clock_offsets_s=CLOCK_OFFSETS_S, tgt_shift=None):
+                clock_offsets_s=CLOCK_OFFSETS_S, tgt_shift=None,
+                block: int = BLOCK, write: bool = True):
     """Write one u8 [REF | TGT | REF] .dat per receiver of ``csv`` (every
     row but the KEVO target and the REF transmitter) with its clock
-    offset; return (paths, truth). ``tgt_shift`` ({name: samples})
+    offset, each block ``block`` samples; return (paths, truth). With
+    ``write=False`` nothing is written: the first item is then
+    {name: the file's bytes as a u8 array}. ``tgt_shift`` ({name: samples})
     delays a station's TGT block further, its REF blocks untouched (a
     multipath lock: tests/test_multistation.py's ``_roll_tgt``). ``truth``: per-station TGT delays (samples) at the TGT
     block's midpoint geometry (``tau_tgt``), the transmitter's lat/lon/
@@ -1086,7 +1156,7 @@ def _synthesize(dev, out_dir: Path, lo_ppm=None, mover_enu=None,
     names = [n for n in table.names if n != "KEVO"]
     shift = np.array([(tgt_shift or {}).get(n, 0.0) for n in names])
     st = lla_to_ecef(table.lla_array(names))
-    t_mid_tgt = 1.5 * BLOCK / FS
+    t_mid_tgt = 1.5 * block / FS
     v_ecef = np.zeros(3)
     if mover_enu is not None:
         v_ecef = (enu_to_ecef(np.asarray(mover_enu, np.float64), tgt0)
@@ -1106,11 +1176,11 @@ def _synthesize(dev, out_dir: Path, lo_ppm=None, mover_enu=None,
     tau_int = (None if interferer_lla is None
                else delays(lla_to_ecef(np.asarray(interferer_lla))))
     pad = 4096
-    n_fft = 1 << (BLOCK + 2 * pad).bit_length()  # > BLOCK + pad + delays
+    n_fft = 1 << (block + 2 * pad).bit_length()  # > block + pad + delays
     g = torch.Generator(device=dev).manual_seed(SEED)
     f = torch.fft.fftfreq(n_fft, device=dev, dtype=torch.float64)
-    t_rel = (torch.arange(BLOCK, device=dev, dtype=torch.float64)
-             - (BLOCK - 1) / 2.0) / FS
+    t_rel = (torch.arange(block, device=dev, dtype=torch.float64)
+             - (block - 1) / 2.0) / FS
 
     def source():
         # FM-like source: a 15 kHz low-passed message at 25 kHz rms
@@ -1125,14 +1195,14 @@ def _synthesize(dev, out_dir: Path, lo_ppm=None, mover_enu=None,
 
     def delayed(spec, d):
         return torch.fft.ifft(spec * torch.polar(
-            torch.ones_like(f), -2 * np.pi * f * d))[pad:pad + BLOCK]
+            torch.ones_like(f), -2 * np.pi * f * d))[pad:pad + block]
 
     raw = {n: [] for n in names}
     for b, kind in enumerate(("ref", "tgt", "ref")):
         carrier = TGT_FREQ if kind == "tgt" else REF_FREQ
         # Each station's clock at this block's midpoint, in samples.
         clock = (np.asarray(clock_offsets_s)
-                 + drift * (b + 0.5) * BLOCK / FS) * FS
+                 + drift * (b + 0.5) * block / FS) * FS
         rate = drift + (rate_motion if kind == "tgt" else 0.0)
         spec = source()
         spec_int = (source() if kind == "tgt" and tau_int is not None
@@ -1145,7 +1215,7 @@ def _synthesize(dev, out_dir: Path, lo_ppm=None, mover_enu=None,
                                  -2 * np.pi * carrier * rate[s] * t_rel)
             if spec_int is not None:
                 z += delayed(spec_int, tau_int[s] + clock[s])
-            noise = torch.randn(2, BLOCK, device=dev, generator=g,
+            noise = torch.randn(2, block, device=dev, generator=g,
                                 dtype=torch.float64)
             iq = torch.stack([0.3 * z.real + 0.1 * noise[0],
                               0.3 * z.imag + 0.1 * noise[1]], dim=-1)
@@ -1153,6 +1223,14 @@ def _synthesize(dev, out_dir: Path, lo_ppm=None, mover_enu=None,
             raw[name].append(u8.to(torch.uint8).reshape(-1).cpu().numpy())
             del z, noise, iq, u8
         del spec, spec_int
+    truth = {"tau_tgt": dict(zip(names, tau["tgt"])),
+             "tgt_lla": ecef_to_lla(p_tgt),
+             "rate": dict(zip(names, rate_motion)), "v_ecef": v_ecef,
+             "tau_int": None if tau_int is None else dict(zip(names, tau_int)),
+             "int_lla": (None if interferer_lla is None
+                         else np.asarray(interferer_lla, np.float64))}
+    if not write:
+        return {n: np.concatenate(raw.pop(n)) for n in names}, truth
     paths = []
     for name in names:
         p = out_dir / f"{prefix}-{name}-1700000000.dat"
@@ -1160,12 +1238,6 @@ def _synthesize(dev, out_dir: Path, lo_ppm=None, mover_enu=None,
             for part in raw[name]:
                 fh.write(part.tobytes())
         paths.append(str(p))
-    truth = {"tau_tgt": dict(zip(names, tau["tgt"])),
-             "tgt_lla": ecef_to_lla(p_tgt),
-             "rate": dict(zip(names, rate_motion)), "v_ecef": v_ecef,
-             "tau_int": None if tau_int is None else dict(zip(names, tau_int)),
-             "int_lla": (None if interferer_lla is None
-                         else np.asarray(interferer_lla, np.float64))}
     return paths, truth
 
 
@@ -1314,6 +1386,38 @@ def _check_overlap_result(what, res, tau_tgt, tgt_tx, fused_by_pair):
             "fix_err_m": fix_err}
 
 
+def _tail_run(proc, names, views, block: int):
+    """A ``TailIngest`` session over growing files: each station's view
+    cut to k/10 of its words (k = 1..9) fed in turn, then the whole
+    files finished by ``process_captures(caps, tail=session)``, timed
+    from the moment the last byte lands. Returns (the result, the
+    session, chunks dispatched before the last tenth, last byte → fix
+    s)."""
+    import torch
+
+    from tdoa_tpu_torch.pipeline.processor import HostCapture
+
+    total = views[0].shape[0]
+    sess = proc.tail_session(names, block)
+    before = 0
+    for k in range(1, 10):
+        before += sess.feed([v[:total * k // 10] for v in views])
+    caps = {n: HostCapture(u16=v, block_len=block)
+            for n, v in zip(names, views)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()  # the last byte lands now
+    r = proc.process_captures(caps, tail=sess)
+    return r, sess, before, time.perf_counter() - t0
+
+
+def _tail_ready(spans, block: int, total: int) -> int:
+    """The chunks of a capture of three ``block``-sample blocks (chunk
+    ``spans`` a block) whose samples all lie within the first nine
+    tenths of its ``total`` samples."""
+    return sum(1 for b in range(3) for start, n in spans
+               if b * block + start + n <= total * 9 // 10)
+
+
 def phase_overlap(dev, paths, tau_tgt, tgt_tx, fused_by_pair):
     """Phase 5 on phase 4's files: overlapped ingest, the streaming loop
     without a host wait, a checkpoint round trip, a tail session."""
@@ -1323,7 +1427,6 @@ def phase_overlap(dev, paths, tau_tgt, tgt_tx, fused_by_pair):
     from tdoa_tpu_torch.io.datfile import iq_bytes_as_u16
     from tdoa_tpu_torch.ops.kernels.corr_accum import SEG_LEN
     from tdoa_tpu_torch.pipeline import TDOAProcessor, ingest, streaming
-    from tdoa_tpu_torch.pipeline.processor import HostCapture
     from tdoa_tpu_torch.solve.multilateration import station_pairs
 
     print("== phase 5: overlapped ingest, checkpoint, tail session")
@@ -1409,21 +1512,9 @@ def phase_overlap(dev, paths, tau_tgt, tgt_tx, fused_by_pair):
     t_views = [views[names.index(n)] for n in t_names]
     total = t_views[0].shape[0]
 
-    def tail_run():
-        sess = proc.tail_session(t_names, BLOCK)
-        before = 0
-        for k in range(1, 10):
-            before += sess.feed([v[:total * k // 10] for v in t_views])
-        caps = {n: HostCapture(u16=v, block_len=BLOCK)
-                for n, v in zip(t_names, t_views)}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()  # the last byte lands now
-        r = proc.process_captures(caps, tail=sess)
-        return r, sess, before, time.perf_counter() - t0
-
-    tail_run()  # warm-up at the 3-row shapes
+    _tail_run(proc, t_names, t_views, BLOCK)  # warm-up at the 3-row shapes
     _reset_counts(counters)
-    res_t, sess, before, after_s = tail_run()
+    res_t, sess, before, after_s = _tail_run(proc, t_names, t_views, BLOCK)
     launches_t, shapes_t = _read_counts(counters)
     print(f"-- tail session: {before}/{sess.total_chunks} chunks dispatched "
           f"before the last tenth of the files; last byte → fix "
@@ -1433,8 +1524,7 @@ def phase_overlap(dev, paths, tau_tgt, tgt_tx, fused_by_pair):
     # Every chunk whose samples lay within the first nine tenths of the
     # files went out before the last tenth arrived (with four or fewer
     # chunks a block that is all but two of them).
-    ready = sum(1 for b in range(3) for start, n in spans
-                if b * BLOCK + start + n <= total * 9 // 10)
+    ready = _tail_ready(spans, BLOCK, total)
     if before != ready or ready < sess.total_chunks - len(spans) // 2:
         raise RuntimeError(f"the tail session dispatched {before} chunks "
                            f"before the last tenth, {ready} were ready")
@@ -3123,7 +3213,6 @@ def _network_tail(proc, paths, names, batch, counters, out) -> list:
     from tdoa_tpu_torch.io.datfile import iq_bytes_as_u16
     from tdoa_tpu_torch.ops.kernels.corr_accum import SEG_LEN
     from tdoa_tpu_torch.pipeline import ingest
-    from tdoa_tpu_torch.pipeline.processor import HostCapture
 
     t_names = sorted(names)
     views = []
@@ -3134,24 +3223,11 @@ def _network_tail(proc, paths, names, batch, counters, out) -> list:
     total = views[0].shape[0]
     _, spans = ingest.plan_chunks(BLOCK, SEG_LEN)
 
-    def tail_run():
-        sess = proc.tail_session(t_names, BLOCK)
-        before = 0
-        for k in range(1, 10):
-            before += sess.feed([v[:total * k // 10] for v in views])
-        caps = {n: HostCapture(u16=v, block_len=BLOCK)
-                for n, v in zip(t_names, views)}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()  # the last byte lands now
-        r = proc.process_captures(caps, tail=sess)
-        return r, sess, before, time.perf_counter() - t0
-
-    tail_run()  # warm-up
+    _tail_run(proc, t_names, views, BLOCK)  # warm-up
     _reset_counts(counters)
-    res, sess, before, after_s = tail_run()
+    res, sess, before, after_s = _tail_run(proc, t_names, views, BLOCK)
     launches, shapes = _read_counts(counters)
-    ready = sum(1 for b in range(3) for start, n in spans
-                if b * BLOCK + start + n <= total * 9 // 10)
+    ready = _tail_ready(spans, BLOCK, total)
     dev_batch = max(abs(v - batch[k]) for k, v in _by_pair(res).items())
     print(f"-- tail session, 12 stations: {before}/{sess.total_chunks} "
           f"chunks dispatched before the last tenth of the files ({ready} "
@@ -3435,6 +3511,367 @@ def phase_network(dev, tmp: Path):
     return out
 
 
+def _peak_gb(dev) -> float:
+    """The card's peak allocated memory since the last reset, GB."""
+    import torch
+
+    return torch.cuda.max_memory_allocated(dev) / 1e9
+
+
+def _timed_run(dev, counters, fn):
+    """``fn()`` after a warm-up call, with every launch count set to 0
+    and the peak-memory mark reset just before it: (result, wall s,
+    launches, shapes, peak GB of the timed call)."""
+    import torch
+
+    fn()  # warm-up
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()  # results are host arrays: synced
+    wall = time.perf_counter() - t0
+    launches, shapes = _read_counts(counters)
+    return res, wall, launches, shapes, _peak_gb(dev)
+
+
+def _window_running_sum(dev) -> list:
+    """``dsp.fm.running_sum`` (the simulator's FM phase integral) over one
+    100 s block: two calls bitwise equal and within float32 rounding of
+    the sum's magnitude of a float64 running sum (the bound of
+    ``tests/test_torch_dsp.py::test_running_sum_matches_float64``).
+    Returns the failures."""
+    import numpy as np
+    import torch
+
+    from tdoa_tpu_torch.dsp.fm import running_sum
+
+    g = torch.Generator(device=dev).manual_seed(SEED + WINDOW_S)
+    a = torch.randn(WINDOW_BLOCK, device=dev, generator=g)
+    got, again = running_sum(a), running_sum(a)
+    want = torch.cumsum(a.double(), 0)
+    err = float((got.double() - want).abs().max())
+    tol = 64 * float(np.finfo(np.float32).eps) * max(
+        float(want.abs().max()), 1.0)
+    same = torch.equal(got, again)
+    print(f"-- dsp.fm.running_sum over {WINDOW_BLOCK} samples: max |f32 - "
+          f"float64| = {err:.3e} (bound {tol:.3e}); two calls bitwise "
+          f"equal: {same}")
+    del a, got, again, want
+    return [] if err < tol and same else [
+        f"running_sum: error {err:.3e} (bound {tol:.3e}), repeatable {same}"]
+
+
+def _window_collector(dev, tmp: Path, counters, out) -> list:
+    """The collector CLI at ``--duration 100`` (``--backend sim``, one
+    call a station, one epoch: the same simulated scene), then the three
+    files it wrote through ``process_files`` on the fused route against
+    the simulator's truth (0.5 sample, 200 m), and the stream service
+    over their directory as a ``--watch --overlap-ingest 100`` deployment
+    runs it (the window's tail session, its fix within 200 m, one
+    kernel-1 launch a chunk). Returns the failures."""
+    import numpy as np
+    import torch
+
+    from tdoa_tpu_torch.cli import collector, stream_processor
+    from tdoa_tpu_torch.cli.simulator import (
+        DEFAULT_REF_TX,
+        DEFAULT_STATIONS,
+        DEFAULT_TGT_TX,
+    )
+    from tdoa_tpu_torch.ops.kernels.corr_accum import SEG_LEN
+    from tdoa_tpu_torch.pipeline import ingest
+    from tdoa_tpu_torch.sim import SimScene
+    from tdoa_tpu_torch.sim.scene import compute_truth
+
+    cdir = tmp / "window-collector"
+    cdir.mkdir()
+    epoch, fails = 1_700_000_100, []
+    t0 = time.perf_counter()
+    for name in DEFAULT_STATIONS:
+        rc, text, err = _tool(collector.main, [
+            str(REF_FREQ), str(TGT_FREQ), str(epoch), name, "--backend",
+            "sim", "--duration", str(WINDOW_S), "--out", str(cdir)])
+        if rc != 0:
+            fails.append(f"collector {name}: exit {rc}: {text[-300:]}"
+                         f"{err[-300:]}")
+    wall = time.perf_counter() - t0
+    files = sorted(str(p) for p in cdir.glob("*.dat"))
+    sizes = {Path(f).name: Path(f).stat().st_size for f in files}
+    print(f"-- collector --backend sim --duration {WINDOW_S}: {len(files)} "
+          f"files {sizes} in {wall:.1f} s (3 calls)")
+    if fails or len(files) != 3 or set(sizes.values()) != {6 * WINDOW_BLOCK}:
+        return fails + [f"collector files {sizes}"]
+    scene = SimScene(
+        station_names=tuple(DEFAULT_STATIONS),
+        station_lla=np.array(list(DEFAULT_STATIONS.values())),
+        ref_tx_lla=np.array(DEFAULT_REF_TX),
+        tgt_tx_lla=np.array(DEFAULT_TGT_TX), ref_freq=REF_FREQ,
+        tgt_freq=TGT_FREQ, block_len=WINDOW_BLOCK, seed=epoch % (1 << 31))
+    truth = compute_truth(scene)
+    tau = dict(zip(scene.station_names, truth.station_delays_samples[:, 1]))
+    name = f"{WINDOW_S} s: the collector's files, fused IQ"
+    out[name] = _run_path(dev, files, tau, np.array(DEFAULT_TGT_TX), name,
+                          {}, 0.5, 200.0, ("corr_accum", "zoom_probe"), ())
+    out[name]["collector_s"] = wall
+
+    jsonl = tmp / "window-fixes.jsonl"
+    _reset_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc, text, err = _tool(stream_processor.main, [
+        str(REF_FREQ), str(TGT_FREQ), str(ROOT / "lat-lon-table.csv"),
+        str(cdir), "--watch", "0.2", "--settle", "0.5", "--overlap-ingest",
+        str(WINDOW_S), "--idle-exit", "2", "--jsonl", str(jsonl)])
+    wall = time.perf_counter() - t0
+    launches, shapes = _read_counts(counters)
+    recs = ([json.loads(v) for v in jsonl.read_text().splitlines()]
+            if jsonl.exists() else [])
+    fix_err = (_fix_err_m(SimpleNamespace(**recs[0]["fix"]),
+                          np.array(DEFAULT_TGT_TX)) if recs else float("inf"))
+    name = f"{WINDOW_S} s: stream service, --watch --overlap-ingest"
+    n_chunks = 3 * len(ingest.plan_chunks(WINDOW_BLOCK, SEG_LEN)[1])
+    print(f"-- {name}: exit {rc}, {len(recs)} window(s), fix {fix_err:.1f} "
+          f"m; {wall:.3f} s with the idle exit; launches {launches}, kernel "
+          f"1 {shapes['k1_shapes']}")
+    out[name] = {"wall_s": wall, "launches": launches, **shapes,
+                 "fix_err_m": fix_err, "windows": len(recs)}
+    if (rc != 0 or len(recs) != 1 or not fix_err < 200.0
+            or "tail-ingest" not in err or "fell back" in err
+            or launches["corr_accum"] != n_chunks):
+        fails.append(f"stream service: exit {rc}, {len(recs)} windows, fix "
+                     f"{fix_err:.1f} m, launches {launches}: {err[-300:]}")
+    return fails
+
+
+def _window_network(dev, tmp: Path, counters, out) -> list:
+    """Phase 11's 12-station scene (st4's TGT 160 samples late) over a
+    100 s window, its bytes made on the card and kept in host memory:
+    the batch kernel route (the bytes decoded on the card as
+    ``load_files`` decodes them, then ``process_captures``) and the
+    overlapped ingest (``HostCapture`` views of the same bytes), each a
+    warm-up and a timed run. Held to st4 alone excluded, every clean
+    pair within 0.5 sample of the truth, the fix within 200 m, the
+    overlapped result within 0.05 sample of the batch one, kernel 1
+    once a block (batch) and once a 12-row block a chunk (overlapped).
+    Returns the failures."""
+    import torch
+
+    from tdoa_tpu_torch.io.datfile import (
+        bytes_to_iq_planar,
+        iq_bytes_as_u16,
+        split_blocks,
+    )
+    from tdoa_tpu_torch.ops.kernels.corr_accum import SEG_LEN
+    from tdoa_tpu_torch.pipeline import TDOAProcessor, ingest
+    from tdoa_tpu_torch.pipeline.processor import HostCapture
+
+    csv = _network_csv(tmp / "window-network.csv")
+    t0 = time.perf_counter()
+    raws, truth = _synthesize(dev, tmp, prefix="win-net", csv=csv,
+                              clock_offsets_s=NET_CLOCK_OFFSETS_S,
+                              tgt_shift={NET_OUTLIER: NET_SHIFT},
+                              block=WINDOW_BLOCK, write=False)
+    torch.cuda.synchronize()
+    print(f"synthesized {len(raws)} x {3 * WINDOW_BLOCK} samples in "
+          f"{time.perf_counter() - t0:.1f} s (host memory, no files)")
+    tau, tgt_tx = truth["tau_tgt"], truth["tgt_lla"]
+    proc = TDOAProcessor.from_csv(REF_FREQ, TGT_FREQ, str(csv), device=dev)
+    dtype = (torch.bfloat16 if proc._fused_eligible(len(raws), WINDOW_BLOCK)
+             else torch.float32)
+
+    def batch():
+        return proc.process_captures({
+            n: split_blocks(bytes_to_iq_planar(
+                torch.from_numpy(raw).to(dev), dtype))
+            for n, raw in raws.items()})
+
+    def overlapped():
+        return proc.process_captures({
+            n: HostCapture(u16=iq_bytes_as_u16(raw), block_len=WINDOW_BLOCK)
+            for n, raw in raws.items()})
+
+    fails = []
+    res, wall, launches, shapes, peak = _timed_run(dev, counters, batch)
+    names = res.station_names
+    err = {(names[i], names[j]): res.corrected_tdoa_samples[k]
+           - (tau[names[j]] - tau[names[i]])
+           for k, (i, j) in enumerate(res.pair_idx)
+           if NET_OUTLIER not in (names[i], names[j])}
+    worst = max(abs(v) for v in err.values())
+    fix_err = _fix_err_m(res.fix, tgt_tx)
+    key = f"{WINDOW_S} s: 12 stations, batch ({dtype})"
+    print(f"-- {key}: bytes in memory → fix {wall:.3f} s, peak memory "
+          f"{peak:.2f} GB  [{_smi()}]; excluded {res.excluded_stations}; "
+          f"{len(err)} clean pairs, largest |TDOA - truth| {worst:.4f} "
+          f"samples; fix {fix_err:.1f} m; launches {launches}, kernel 1 "
+          f"{shapes['k1_shapes']}, kernel 2 {shapes['k2_shapes']}")
+    out[key] = {"wall_s": wall, "peak_gb": peak, "launches": launches,
+                **shapes, "excluded": res.excluded_stations,
+                "tdoa_err_max_samples": worst, "fix_err_m": fix_err}
+    if res.excluded_stations != [NET_OUTLIER] or not (
+            worst < 0.5 and fix_err < 200.0) or launches["corr_accum"] != 3:
+        fails.append(f"12-station batch: excluded {res.excluded_stations}, "
+                     f"TDOA error {worst:.3f}, fix {fix_err:.1f} m, launches "
+                     f"{launches}")
+    batch_by_pair = _by_pair(res)
+    res_o, wall, launches, shapes, peak = _timed_run(dev, counters,
+                                                     overlapped)
+    dev_batch = max(abs(v - batch_by_pair[k])
+                    for k, v in _by_pair(res_o).items())
+    n_chunks = len(ingest.plan_chunks(WINDOW_BLOCK, SEG_LEN)[1])
+    key = f"{WINDOW_S} s: 12 stations, process_captures overlapped"
+    print(f"-- {key}: {wall:.3f} s, peak memory {peak:.2f} GB; excluded "
+          f"{res_o.excluded_stations}; largest |overlapped - batch| "
+          f"{dev_batch:.4f} samples; fix {_fix_err_m(res_o.fix, tgt_tx):.1f}"
+          f" m; {proc.ingest_diag.get('n_chunks')} chunks, gather "
+          f"{proc.ingest_diag.get('gather_s', 0) * 1e3:.1f} ms; launches "
+          f"{launches}, kernel 1 {shapes['k1_shapes']}")
+    out[key] = {"wall_s": wall, "peak_gb": peak, "launches": launches,
+                **shapes, "excluded": res_o.excluded_stations,
+                "vs_batch_samples": dev_batch}
+    if res_o.excluded_stations != [NET_OUTLIER] or not dev_batch < 0.05 \
+            or launches["corr_accum"] != 3 * n_chunks:
+        fails.append(f"12-station overlapped: excluded "
+                     f"{res_o.excluded_stations}, {dev_batch:.4f} samples "
+                     f"from the batch path, launches {launches} for "
+                     f"{n_chunks} chunks")
+    del raws
+    return fails
+
+
+def phase_window(dev, tmp: Path):
+    """Phase 12: the collector's longest window, 100 s (three blocks of
+    66,666,666 samples, 1479 whole kernel segments each): a 3-station
+    capture through every IQ path, FM, the processor CLI, the
+    overlapped ingest and a tail session; the collector writing a 100 s
+    window and ``process_files`` on its files; ``dsp.fm.running_sum``
+    over a block; phase 11's 12-station scene on the batch kernel route
+    and the overlapped ingest. Capture→fix (last byte → fix for the
+    tail session) and peak memory per route printed."""
+    import numpy as np
+    import torch
+
+    from tdoa_tpu_torch.cli import processor as processor_cli
+    from tdoa_tpu_torch.io.datfile import iq_bytes_as_u16
+    from tdoa_tpu_torch.ops.kernels.corr_accum import SEG_LEN
+    from tdoa_tpu_torch.pipeline import TDOAProcessor, ingest
+
+    print(f"== phase 12: the collector's {WINDOW_S} s window (3 blocks of "
+          f"{WINDOW_BLOCK} samples)")
+    out, counters = {}, _counters()
+    _, spans = ingest.plan_chunks(WINDOW_BLOCK, SEG_LEN)
+    if (WINDOW_BLOCK // SEG_LEN, spans[-1][1] // SEG_LEN) != (
+            WINDOW_K1[0][1], WINDOW_K1[2][1]):
+        raise RuntimeError(f"phase 3 checked kernel 1 at {WINDOW_K1}, the "
+                           f"window has chunks {spans}")
+    fails = _window_running_sum(dev)
+    wdir = tmp / "window"
+    wdir.mkdir()
+    t0 = time.perf_counter()
+    paths, truth = _synthesize(dev, wdir, prefix="win", block=WINDOW_BLOCK)
+    torch.cuda.synchronize()
+    print(f"synthesized {len(paths)} x {3 * WINDOW_BLOCK} samples in "
+          f"{time.perf_counter() - t0:.1f} s")
+    tau_tgt, tgt_tx = truth["tau_tgt"], truth["tgt_lla"]
+    for name, cfg, tdoa_tol, fix_tol, must, must_not in PATHS:
+        key = f"{WINDOW_S} s: {name}"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        out[key] = _run_path(dev, paths, tau_tgt, tgt_tx, key, cfg,
+                             tdoa_tol, fix_tol, must, must_not)
+        out[key]["peak_gb"] = _peak_gb(dev)
+        print(f"peak memory {out[key]['peak_gb']:.2f} GB")
+    fused = out[f"{WINDOW_S} s: fused IQ"]["tdoa_by_pair"]
+    csv = str(ROOT / "lat-lon-table.csv")
+
+    # The processor CLI in this process, on the same files.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc, text, _ = _tool(processor_cli.main, [str(REF_FREQ), str(TGT_FREQ),
+                                             csv, *paths, "--json"])
+    wall = time.perf_counter() - t0
+    launches, shapes = _read_counts(counters)
+    cli = json.loads(text.strip().splitlines()[-1])
+    err_c = np.array([t * 1e-6 * FS - (tau_tgt[b] - tau_tgt[a])
+                      for (a, b), t in zip(cli["pairs"], cli["tdoa_us"])])
+    fix_c = _fix_err_m(SimpleNamespace(**cli["fix"]), tgt_tx)
+    key = f"{WINDOW_S} s: processor CLI"
+    print(f"-- {key}: exit {rc}, {wall:.3f} s, peak memory "
+          f"{_peak_gb(dev):.2f} GB; TDOA err {np.round(err_c, 4).tolist()} "
+          f"samples, fix {fix_c:.1f} m; launches {launches}")
+    out[key] = {"wall_s": wall, "peak_gb": _peak_gb(dev),
+                "launches": launches, **shapes,
+                "tdoa_err_samples": err_c.tolist(), "fix_err_m": fix_c}
+    if rc != 0 or not (np.all(np.abs(err_c) < 0.5) and fix_c < 200.0) \
+            or launches["corr_accum"] != 3:
+        fails.append(f"processor CLI: exit {rc}, TDOA error {err_c}, fix "
+                     f"{fix_c:.1f} m, launches {launches}")
+
+    # The overlapped ingest and a tail session on the same files.
+    proc = TDOAProcessor.from_csv(REF_FREQ, TGT_FREQ, csv, device=dev)
+    res, wall, launches, shapes, peak = _timed_run(
+        dev, counters, lambda: proc.process_files_overlapped(paths))
+    diag = dict(proc.ingest_diag)
+    copy_s = diag["transfer_stream_s"]  # CUDA events; None on the CPU
+    key = f"{WINDOW_S} s: process_files_overlapped"
+    print(f"-- {key}: {wall:.3f} s, peak memory {peak:.2f} GB  [{_smi()}]; "
+          f"chunks {diag['n_chunks']} of {diag['chunk_segs']} segments; "
+          f"gather {diag['gather_s'] * 1e3:.1f} ms, copy stream "
+          f"{_dev_str(copy_s and copy_s * 1e3, 1)}; launches {launches}, "
+          f"kernel 1 {shapes['k1_shapes']}")
+    out[key] = {"wall_s": wall, "peak_gb": peak, "launches": launches,
+                **shapes, "diag": diag, **_check_overlap_result(
+                    key, res, tau_tgt, tgt_tx, fused)}
+    if launches["corr_accum"] != len(spans) or diag["n_chunks"] != len(spans):
+        fails.append(f"overlapped: {launches['corr_accum']} launches of "
+                     f"kernel 1 for a plan of {len(spans)} chunks")
+    names = sorted(res.station_names)
+    views = []
+    for n in names:
+        raw = np.memmap(next(p for p in paths if f"-{n}-" in p),
+                        dtype=np.uint8, mode="r")
+        views.append(iq_bytes_as_u16(raw[: (raw.size // 2) * 2]))
+    _tail_run(proc, names, views, WINDOW_BLOCK)  # warm-up
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts(counters)
+    res_t, sess, before, after_s = _tail_run(proc, names, views,
+                                             WINDOW_BLOCK)
+    launches, shapes = _read_counts(counters)
+    ready = _tail_ready(spans, WINDOW_BLOCK, views[0].shape[0])
+    key = f"{WINDOW_S} s: tail session"
+    print(f"-- {key}: {before}/{sess.total_chunks} chunks dispatched before "
+          f"the last tenth of the files ({ready} ready); last byte → fix "
+          f"{after_s:.3f} s, peak memory {_peak_gb(dev):.2f} GB; launches "
+          f"{launches}, kernel 1 {shapes['k1_shapes']}")
+    out[key] = {"wall_s": after_s, "peak_gb": _peak_gb(dev),
+                "launches": launches, **shapes, "chunks_before_close": before,
+                "total_chunks": sess.total_chunks, **_check_overlap_result(
+                    key, res_t, tau_tgt, tgt_tx, fused)}
+    if before != ready or launches["corr_accum"] != sess.total_chunks \
+            or launches["zoom_probe"] != 3:
+        fails.append(f"tail: {before} chunks before the last tenth ({ready} "
+                     f"ready), launches {launches}")
+    del views
+    shutil.rmtree(wdir, ignore_errors=True)
+    fails += _window_collector(dev, tmp, counters, out)
+    shutil.rmtree(tmp / "window-collector", ignore_errors=True)
+    torch.cuda.empty_cache()
+    fails += _window_network(dev, tmp, counters, out)
+    print(json.dumps({"window": {
+        k: {kk: vv for kk, vv in v.items()
+            if kk not in (*SHAPE_KEYS.values(), "tdoa_by_pair")}
+        for k, v in out.items()}}))
+    if fails:
+        raise RuntimeError("phase 12: " + "; ".join(fails))
+    return out
+
+
 def phase_slice(dev, tmp: Path):
     """Phases 4 and 5 on a synthesized capture written into ``tmp``;
     returns (the paths' results, the files, the truth)."""
@@ -3492,6 +3929,7 @@ def main() -> int:
         paths.update(phase_sharded(dev, files, truth))
         paths.update(phase_calibration(dev, tmp))
         paths.update(phase_network(dev, tmp))
+        paths.update(phase_window(dev, tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # Every kernel is held against its plain version shape by shape: a
@@ -3504,7 +3942,8 @@ def main() -> int:
                "k2_shapes": set(map(str, K2_SHAPES + SHARD_K2_SHAPES
                                     + CAL_K2_SHAPES + NET_K2_SHAPES
                                     + NET_SHARD_K2_SHAPES)),
-               "k3_shapes": set(map(str, K3_SHAPES + CAL_K3_SHAPES))}
+               "k3_shapes": set(map(str, K3_SHAPES + CAL_K3_SHAPES
+                                    + WINDOW_K3_SHAPES))}
     for p, r in paths.items():
         for key, ok in checked.items():
             if set(r[key]) - ok:

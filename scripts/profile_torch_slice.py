@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's 30 s, 3-station slice.
+"""Where the time goes in the PyTorch port's 3-station slice.
 
     python3 scripts/profile_torch_slice.py [--runs 12] [--mode iq|fm]
-        [--accumulator auto|xla] [--out chiprun_out/profile_torch_slice.json]
+        [--accumulator auto|xla] [--seconds 30|100] [--out FILE]
     python3 scripts/profile_torch_slice.py --overlap
         [--chunk-segs 12 24 48 96 192]
 
 Needs one CUDA card (sm_90a) and imports nothing of JAX. It synthesizes
-the capture ``chip_smoke.py`` runs (three 10 s blocks of 20 M samples
-per station, ``lat-lon-table.csv`` geometry), then on a warm process
+the capture ``chip_smoke.py`` runs (three blocks per station of a third
+of ``--seconds`` each: 20 M samples in the default 30 s window,
+66,666,666 in the collector's longest, 100 s; ``lat-lon-table.csv``
+geometry), then on a warm process
 of the chosen path (``--mode fm``: FM demod by kernel 3 and the
 segmented correlator on the audio; ``--accumulator xla``: the segmented
 IQ correlator; the defaults: the fused IQ kernels):
@@ -175,6 +177,9 @@ def main() -> int:
     ap.add_argument("--overlap", action="store_true",
                     help="measure process_files_overlapped beside "
                          "process_files (fused IQ)")
+    ap.add_argument("--seconds", type=int, default=30, choices=[30, 100],
+                    help="the capture window: the collector's default or "
+                         "its longest")
     ap.add_argument("--chunk-segs", type=int, nargs="*", default=[],
                     help="with --overlap: chunk sizes (segments) to sweep")
     ap.add_argument("--out", default=None,
@@ -198,12 +203,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     report = {"device": chip_smoke._smi(), "torch": torch.__version__,
               "cuda": torch.version.cuda, "mode": args.mode,
-              "accumulator": args.accumulator}
+              "accumulator": args.accumulator, "seconds": args.seconds}
     print(f"nvidia-smi: {report['device']}  torch {report['torch']}")
     (ROOT / "build").mkdir(exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix="profile_slice_", dir=ROOT / "build"))
     try:
-        paths, _, _ = chip_smoke._synthesize(dev, tmp)
+        paths, _ = chip_smoke._synthesize(
+            dev, tmp, block=args.seconds * int(chip_smoke.FS) // 3)
         torch.cuda.synchronize()
         proc = TDOAProcessor.from_csv(162_400_000.0, 101_900_000.0,
                                       str(ROOT / "lat-lon-table.csv"),
@@ -280,6 +286,7 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     suffix = ("" if (args.mode, args.accumulator) == ("iq", "auto")
               else f"_{args.mode}_{args.accumulator}")
+    suffix += "" if args.seconds == 30 else f"_{args.seconds}s"
     out = Path(args.out or ROOT / "chiprun_out"
                / f"profile_torch_slice{suffix}.json")
     out.parent.mkdir(parents=True, exist_ok=True)

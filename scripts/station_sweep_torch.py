@@ -1,9 +1,10 @@
 """Station-count sweep of the port's batch correlator on the card.
 
 The port's counterpart of ``scripts/station_sweep.py`` (which drives the
-JAX package on a TPU). For each station count: three blocks of 10 s
-(443 kernel segments of 2 Msps samples) as bf16 planar tensors on the
-card, drawn from a seeded ``torch.Generator`` — a common wideband source
+JAX package on a TPU). For each station count: three blocks of a third
+of ``--seconds`` each (443 kernel segments of 2 Msps samples in a 30 s
+window, 1479 in the collector's longest, 100 s) as bf16 planar tensors
+on the card, drawn from a seeded ``torch.Generator`` — a common wideband source
 delayed by a whole number of samples per station (REF and TGT delays
 apart), plus independent noise — through
 ``pipeline.processor.process_blocks(..., max_lag=20000,
@@ -15,11 +16,15 @@ split σ). Beside it, the same blocks through the segmented route
 Each station count prints one JSON line: steady latency (median of 5
 runs, each ended by a device sync), sustained latency (5 runs queued,
 one sync, per run), kernel 1's tiles, branch, launches and device time
-per run, kernel 2's device time per run (``torch.profiler``), peak
-device memory of a run, the segmented route's steady latency, and each
-route's largest corrected-TDOA error against the planted delays. The card's name and
-power limit (``nvidia-smi``) come first. The TPU sweep's dispatch
-floor, MFU and FLOP-model fields have no counterpart here.
+per run, kernel 2's device time per run (``torch.profiler``), the
+segmented route's steady latency, each route's peak device memory of a
+run (the blocks included) and largest corrected-TDOA error against the
+planted delays. A route whose run the card cannot hold in its memory is
+reported as refused, with the allocator's message, in place of its
+numbers (``kernel_refused``, ``segmented_refused``); the sweep goes on,
+and no route stands in for another. The card's name and power limit
+(``nvidia-smi``) come first. The TPU sweep's dispatch floor, MFU and
+FLOP-model fields have no counterpart here.
 
     python3 scripts/station_sweep_torch.py [--stations 3 5 8 12 16 24]
         [--seconds 30] [--seed 7] [--out stations.jsonl]
@@ -126,11 +131,21 @@ def _device_ms(fn) -> dict:
     return out
 
 
-def sweep_one(n_st: int, seconds: float, seed: int, device) -> dict:
-    """The JSON line of one station count."""
-    blocks = make_blocks(n_st, seconds, seed + n_st, device)
+def _refused(route, *args) -> dict:
+    """``route(*args)``'s fields, or ``{"refused": ...}`` with the
+    allocator's message where the card cannot hold the route's run."""
+    try:
+        return route(*args)
+    except torch.cuda.OutOfMemoryError as e:
+        msg = str(e).splitlines()[0]
+    torch.cuda.empty_cache()
+    return {"refused": f"out of memory: {msg}"}
+
+
+def _kernel_route(blocks, device) -> dict:
+    """The kernel route's fields of one station count's JSON line."""
     pairs, truth = blocks[3], blocks[4]
-    n_seg = int(blocks[0].shape[-1]) // SEG_LEN
+    n_st = int(blocks[0].shape[1])
     tiles = corr_accum.plan_tiles(pairs, n_st, True,
                                   corr_accum.smem_optin(device))
     err = tdoa_error(run(blocks), truth)  # warm-up: plans, allocator
@@ -149,11 +164,7 @@ def sweep_one(n_st: int, seconds: float, seed: int, device) -> dict:
     sustained = (time.perf_counter() - t0) / 5
     del outs
     dev = _device_ms(lambda: run(blocks))
-    err_seg = tdoa_error(run(blocks, "xla"), truth)
-    steady_seg = _steady(lambda: run(blocks, "xla"))
     return {
-        "stations": n_st, "pairs": len(pairs), "capture_seconds": seconds,
-        "segments_per_block": n_seg,
         "k1_tiles": len(tiles), "k1_tile_pairs": [hi - lo for *_, lo, hi
                                                   in tiles],
         "k1_branch": corr_accum.kernel_config(n_st, pairs, True, 4,
@@ -162,11 +173,39 @@ def sweep_one(n_st: int, seconds: float, seed: int, device) -> dict:
         "steady_latency_s": steady, "sustained_latency_s": sustained,
         "k1_device_ms_per_run": dev["corr_accum"],
         "k2_device_ms_per_run": dev["zoom_probe"],
-        "peak_memory_bytes": peak,
-        "segmented_steady_latency_s": steady_seg,
-        "tdoa_err_samples": err, "segmented_tdoa_err_samples": err_seg,
-        "k2_shape": [4, len(pairs), corr_accum.FFT_LEN],
+        "peak_memory_bytes": peak, "tdoa_err_samples": err,
     }
+
+
+def _segmented_route(blocks, device) -> dict:
+    """The segmented route's fields of one station count's JSON line."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    err = tdoa_error(run(blocks, "xla"), blocks[4])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device)
+    return {"segmented_steady_latency_s": _steady(lambda: run(blocks, "xla")),
+            "segmented_peak_memory_bytes": peak,
+            "segmented_tdoa_err_samples": err}
+
+
+def sweep_one(n_st: int, seconds: float, seed: int, device) -> dict:
+    """The JSON line of one station count."""
+    blocks = make_blocks(n_st, seconds, seed + n_st, device)
+    pairs = blocks[3]
+    n_seg = int(blocks[0].shape[-1]) // SEG_LEN
+    line = {"stations": n_st, "pairs": len(pairs),
+            "capture_seconds": seconds, "segments_per_block": n_seg,
+            "blocks_bytes": 3 * blocks[0].numel() * blocks[0].element_size(),
+            "card_bytes": torch.cuda.mem_get_info(device)[1]}
+    for name, route in (("kernel", _kernel_route),
+                        ("segmented", _segmented_route)):
+        fields = _refused(route, blocks, device)
+        if "refused" in fields:
+            fields = {f"{name}_refused": fields["refused"]}
+        line.update(fields)
+    line["k2_shape"] = [4, len(pairs), corr_accum.FFT_LEN]
+    return line
 
 
 def smi() -> str:

@@ -139,7 +139,15 @@ def _phase_slope_refine(cross: torch.Tensor, coarse_delay: torch.Tensor,
     spectrum, wrap-free by construction), fit φ ≈ θ − 2πfδ with |C|²
     weights. Returns (delay, delay_std, peak_width)."""
     f = _fftfreq(fft_len, cross.device)[None, :]
-    w = cross.real.square() + cross.imag.square()
+    # The fit does not change with the weights' scale. |C| scaled by a
+    # power of two (exact: every sum keeps its bits) to a peak in
+    # [0.5, 1) keeps the fit's fourth-power sums (det, n_eff) inside
+    # float32, where |C|² grows with the square of the segment count: a
+    # strong signal over a 100 s block's 1479 segments overflowed them,
+    # and every delay was NaN.
+    peak = cross.abs().amax(-1, keepdim=True)
+    s = torch.ldexp(torch.ones_like(peak), -torch.frexp(peak).exponent)
+    w = (cross.real * s).square() + (cross.imag * s).square()
     two_pi = TWO_PI
     if 0 < max_lag and fft_len * (max_lag + 1) < 2**31:
         ramp = _int_deramp(coarse_delay, fft_len)
@@ -421,7 +429,13 @@ def correlate_pairs_planar(x: torch.Tensor, pair_idx,
     n = int(x.shape[-1])
     seg_len, fft_len = resolve_seg(n, max_lag, seg_len, fft_len)
     x = x.to(torch.float32)
-    rms = torch.sqrt((x[0].square() + x[1].square()).mean(-1))
+    # Per-station RMS over groups of rows whose squares each stay within
+    # SEG_CHUNK_BYTES: no temporary of the signal's size beside it.
+    rows = max(1, SEG_CHUNK_BYTES // (4 * max(n, 1)))
+    rms = torch.cat([
+        torch.sqrt((x[0, r:r + rows].square()
+                    + x[1, r:r + rows].square()).mean(-1))
+        for r in range(0, int(x.shape[1]), rows)])
     inv = 1.0 / torch.clamp(rms, min=1e-30)
     n_seg_total = n // seg_len
     K = split_k(n_seg_total) if refine == "phase" else 0

@@ -303,8 +303,13 @@ def process_blocks(
     n_st = int(ref1.shape[1])
     p = np.asarray(pairs, np.int64).reshape(-1, 2)
     m = len(p)
-    # [2, 3·n_st, L] f32, demeaned in place (a fresh tensor).
-    x = torch.cat([ref1, tgt, ref2], dim=1).to(torch.float32)
+    # [2, 3·n_st, L] f32, demeaned in place (a fresh tensor): each block
+    # widened straight into its rows, with no stack in the blocks' own
+    # dtype beside it (a 100 s window's blocks are GBs).
+    x = torch.empty(2, 3 * n_st, int(ref1.shape[-1]), dtype=torch.float32,
+                    device=ref1.device)
+    for k, blk in enumerate((ref1, tgt, ref2)):
+        x[:, k * n_st:(k + 1) * n_st] = blk
     x -= x.mean(-1, keepdim=True)
     # Pair lists for each block, offset into the stacked station axis.
     all_pairs = (p[None] + np.arange(3)[:, None, None] * n_st).reshape(3 * m, 2)
