@@ -62,9 +62,10 @@ SEG_LEN = SEG_ROWS * R  # 45056
 # barrier).
 SCRATCH_BUF_BYTES = 24 << 20
 # The segments of the longest block a capture holds (a 100 s window in
-# three blocks): the routing gate counts the streamed branch's scratch,
-# which grows with the block, at this length, so that one verdict holds
-# for every capture and chunk of a process.
+# three blocks): the overlapped ingest's gate (``fits_device``) counts
+# the streamed branch's scratch, which grows with the chunk, at this
+# length, so that one verdict holds for every chunk of a process; the
+# batch route counts it at the block's own length.
 MAX_BLOCK_SEGS = 1480
 # The kernel's transform-buffer constants (csrc/corr_accum.cu: GROUPS,
 # SLOT), for the footprint mirror below.
@@ -86,7 +87,7 @@ def smem_bytes(n_st: int, m: int, track: bool, n_res: int = 1) -> int:
     (``smem_bytes`` in ``csrc/corr_accum.cu``), mirrored here for the
     tile planner and ``branch_of``: a resident-branch CTA holds all of
     its items, a streamed-branch stage-2 CTA one (``n_res`` = 1);
-    ``fits_device`` holds the mirror and the library to each other."""
+    ``launch_bytes`` holds the mirror and the library to each other."""
     def pad4(n):
         return (n + 3) & ~3
 
@@ -379,23 +380,23 @@ def _device_plan(n_seg: int, n_banks: int, run: int, device) -> torch.Tensor:
     return torch.from_numpy(chunk_plan(n_seg, n_banks, run)).to(device)
 
 
-def fits_device(n_st: int, pairs, track_sums: bool, n_banks: int,
-                device: torch.device) -> bool:
-    """Whether the kernel runs ``pairs`` over ``n_st`` rows on
-    ``device`` as ``accumulate_banks`` launches them (the tiles of
-    ``plan_tiles`` at the device's opt-in shared memory): every tile's
-    launch has a shape and a branch (the footprint mirror plans them,
-    the built library must agree), and the device holds the largest
-    launch's scratch (``scratch_bytes``; the streamed branch's grows
-    with the block, so it is counted at ``MAX_BLOCK_SEGS``, the longest
-    block a capture holds), the bank accumulators and, where the list
-    is tiled, the tiles' outputs beside them."""
+def launch_bytes(n_st: int, pairs, track_sums: bool, n_banks: int,
+                 device: torch.device, n_seg: int):
+    """Device bytes the kernel needs to run ``pairs`` over ``n_st`` rows
+    of ``n_seg`` segments in ``n_banks`` banks on ``device``, as
+    ``accumulate_banks`` launches them (the tiles of ``plan_tiles`` at
+    the device's opt-in shared memory): the largest launch's scratch
+    (``scratch_bytes``; the streamed branch's grows with the block), the
+    bank accumulators and, where the list is tiled, the tiles' outputs
+    beside them. None where no launch holds one pair. Every tile's
+    launch must have a shape and a branch: the footprint mirror plans
+    them, and where the built library disagrees this raises."""
     key = pairs_key(pairs)
     optin = smem_optin(device)
     try:
         tiles = _tiles(key, n_st, track_sums, optin, None)
     except ValueError:  # no launch holds one pair
-        return False
+        return None
     scratch = 0
     for rows, m_tile in _launch_shapes(tiles):
         err, cfg = _launch_shape(rows, m_tile, track_sums, n_banks, True,
@@ -407,13 +408,22 @@ def fits_device(n_st: int, pairs, track_sums: bool, n_banks: int,
                 f"corr_accum launch shape for {rows} rows, {m_tile} pairs: "
                 f"CUDA error {err}, branch {cfg.get('branch')} (the "
                 f"footprint mirror says it fits, branch {mirror})")
-        scratch = max(scratch, scratch_bytes(mirror, rows, n_banks,
-                                             MAX_BLOCK_SEGS))
+        scratch = max(scratch, scratch_bytes(mirror, rows, n_banks, n_seg))
     acc = n_banks * FFT_LEN * (8 * len(key) + 4 * n_st
                                + (8 * n_st if track_sums else 0))
-    tiled = acc if len(tiles) > 1 else 0
-    free, _ = torch.cuda.mem_get_info(device)
-    return scratch + acc + tiled < free
+    return scratch + acc + (acc if len(tiles) > 1 else 0)
+
+
+def fits_device(n_st: int, pairs, track_sums: bool, n_banks: int,
+                device: torch.device) -> bool:
+    """Whether the kernel runs ``pairs`` over ``n_st`` rows on
+    ``device``: some launch holds the pairs and the device's free
+    memory holds ``launch_bytes`` with the streamed scratch counted at
+    ``MAX_BLOCK_SEGS``, the longest block a capture holds (the
+    overlapped ingest's gate, one verdict for every chunk)."""
+    need = launch_bytes(n_st, pairs, track_sums, n_banks, device,
+                        MAX_BLOCK_SEGS)
+    return need is not None and need < torch.cuda.mem_get_info(device)[0]
 
 
 def accumulate_banks(x: torch.Tensor, pairs, n_banks: int = 1,

@@ -107,6 +107,17 @@ def _chunk_plan(n: int, d: int, max_lag: int, seg_len: Optional[int],
     return per, seg, fft_len
 
 
+def _split_groups(n_seg: int, d: int) -> int:
+    """The split error bar's groups over ``d`` ranks holding ``n_seg``
+    segments in all: ``split_k``'s, halved until the ranks divide into
+    that many contiguous groups (the reference's
+    ``tdoa_tpu/parallel/mesh.py:165-167``)."""
+    K = split_k(n_seg)
+    while K > 1 and d % K != 0:
+        K //= 2
+    return K
+
+
 def _pair_array(pairs) -> np.ndarray:
     p = np.asarray(pairs, np.int64).reshape(-1, 2)
     if p.size == 0:
@@ -150,9 +161,7 @@ def _correlate_chunk(xl: torch.Tensor, p: np.ndarray, mesh: Mesh,
     # The segments behind the summed accumulators: the HT coherence is
     # debiased by this count exactly as on one device.
     n_seg = (int(xl.shape[-1]) // seg) * d
-    K = split_k(n_seg) if refine == "phase" else 0
-    while K > 1 and d % K != 0:
-        K //= 2
+    K = _split_groups(n_seg, d) if refine == "phase" else 0
     if K >= 2:
         # The split error bar: the chunks are contiguous, so the rank
         # groups rank // (d/K) hold the capture's K contiguous slices.

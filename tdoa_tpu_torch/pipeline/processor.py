@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import functools
 import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -443,21 +442,66 @@ def _deramp_correlate(
     )
 
 
-@functools.lru_cache(maxsize=None)
-def _fused_fits(n_stations: int, index: int) -> bool:
-    """``fits_device``'s verdict on the fused batch shape (K = 4 banks,
-    DC sums, all pairs, pair-tiled where one launch does not hold them:
-    13 stations and up on the H100; from 4 stations kernel 1's streamed
-    branch, whose scratch is counted at the longest block a capture
-    holds) for ``n_stations`` on card ``index``, taken once and kept:
-    ``load_files`` (bf16 or f32 decode) and ``process_captures`` (which
-    accumulator) ask it at different free memory — the captures, and
-    with LO compensation the derotated blocks, lie between the two — and
-    must never disagree."""
-    from tdoa_tpu_torch.ops.kernels.corr_accum import fits_device
+# Memory the batch path holds beyond the counted tensors: the
+# allocator's rounding and the host analyses' device temporaries (the
+# kernel route peaked up to 0.4 GB above the count at 100 s on the H100).
+ROUTE_SLACK_BYTES = 1 << 30
 
-    return fits_device(n_stations, station_pairs(n_stations), True, 4,
-                       torch.device("cuda", index))
+
+@dataclasses.dataclass(frozen=True)
+class BatchRoute:
+    """The batch path's route for one station count and block length on
+    one card: ``"pallas"`` (kernel 1) or ``"xla"`` (the segmented
+    correlator), each route's reckoned device bytes from where the
+    verdict was asked (``batch_route_bytes``; ``kernel_bytes`` None
+    where no launch of kernel 1 holds one pair) and the free bytes it
+    saw."""
+
+    route: str
+    kernel_bytes: Optional[int]
+    segmented_bytes: int
+    free_bytes: int
+
+
+def batch_route_bytes(n_stations: int, block_len: int, lo_compensation: bool,
+                      seg_fft_len: int, launch: Optional[int],
+                      staged: Optional[torch.dtype] = None):
+    """(kernel route, segmented route) device bytes that
+    ``process_captures`` still allocates for three blocks of
+    ``block_len`` samples of ``n_stations``, in units of one planar f32
+    block. ``staged`` None: asked before the decode, so the captures as
+    ``load_files`` decodes them and process_captures' stacks of them
+    count (bf16, 1.5 + 1.5, for the kernel route; f32, 3 + 3, for the
+    segmented one), with LO compensation 5 more (the derotated f32
+    blocks in place of the stacks and one block's derotation
+    temporaries). Else the dtype of the stacks process_captures holds,
+    derotated where LO compensation ran: the captures and stacks are
+    allocated already, and the kernel route adds only a block's bf16
+    operand copy where the stacks are wider. Then kernel 1's ``launch``
+    bytes (``corr_accum.launch_bytes``; None: no launch holds one pair),
+    or process_blocks' f32 stack (3), the segmented correlator's chunk
+    buffers and five copies of its K = 4 banks of the 3·m stacked pairs
+    at ``seg_fft_len``; ``ROUTE_SLACK_BYTES`` on each."""
+    from tdoa_tpu_torch.ops.corr import SEG_CHUNK_BYTES
+
+    blk = 2 * n_stations * block_len * 4
+    if staged is None:
+        lo = 5 * blk if lo_compensation else 0
+        k_blocks, s_blocks = 3 * blk + lo, 6 * blk + lo
+    else:
+        k_blocks, s_blocks = (0 if staged == torch.bfloat16 else blk // 2), 0
+    kernel = (None if launch is None
+              else k_blocks + launch + ROUTE_SLACK_BYTES)
+    m = n_stations * (n_stations - 1) // 2
+    banks = 4 * 3 * m * seg_fft_len * 8
+    segmented = (s_blocks + 3 * blk + 3 * SEG_CHUNK_BYTES + 5 * banks
+                 + ROUTE_SLACK_BYTES)
+    return kernel, segmented
+
+
+# The batch route's verdicts, one per (stations, block length, LO
+# compensation, segmented FFT length, card): TDOAProcessor.batch_route.
+_BATCH_ROUTES: Dict[tuple, BatchRoute] = {}
 
 
 def _planar(b, device) -> torch.Tensor:
@@ -533,13 +577,15 @@ class TDOAProcessor:
                 f"accumulator must be 'auto', 'pallas' or 'xla', got "
                 f"{cfg.accumulator!r}")
 
-    def _fused_eligible(self, n_stations: int, min_block_samples: int) -> bool:
+    def _fused_eligible(self, n_stations: int, min_block_samples: int,
+                        staged: Optional[torch.dtype] = None) -> bool:
         """Whether the fused kernels run: the IQ mode, the kernel's
         alias-free lag window and ``TARGET_SEGS`` kernel segments per
-        block on any device; on CUDA also the kernel's own shared-memory
-        and device-buffer footprint, decided once per (stations, card)
-        (``_fused_fits``). The one predicate behind both the
-        accumulator="auto" decision and the bf16-decode decision.
+        block on any device; on CUDA also the batch route's verdict
+        (``batch_route``; ``staged``: the dtype of the stacks the caller
+        already holds on the card, None before the decode). The one
+        predicate behind both the accumulator="auto" decision and the
+        bf16-decode decision.
 
         The reference's TPU route asks for one segment. The kernel's
         segment is fixed, so a shorter block holds fewer Welch segments
@@ -559,10 +605,72 @@ class TDOAProcessor:
             and min_block_samples >= TARGET_SEGS * SEG_LEN
         )
         if ok and self.device.type == "cuda":
-            index = (torch.cuda.current_device() if self.device.index is None
-                     else self.device.index)
-            ok = _fused_fits(n_stations, index)
+            ok = self.batch_route(n_stations, min_block_samples,
+                                  staged).route == "pallas"
         return ok
+
+    def _seg_fft_len(self, block_len: int) -> int:
+        cfg = self.config
+        return resolve_seg(block_len, cfg.max_lag,
+                           auto_seg_len(block_len, cfg.max_lag, cfg.seg_len),
+                           None)[1]
+
+    def _card(self) -> torch.device:
+        return torch.device("cuda", torch.cuda.current_device()
+                            if self.device.index is None
+                            else self.device.index)
+
+    def route_bytes(self, n_stations: int, block_len: int,
+                    staged: Optional[torch.dtype] = None):
+        """(kernel route, segmented route) device bytes of the batch path
+        on this processor's card for ``n_stations`` of ``block_len``
+        samples, the length processed (after ``truncate_samples``):
+        ``batch_route_bytes`` with kernel 1's launch at the block's own
+        segments."""
+        from tdoa_tpu_torch.ops.kernels.corr_accum import SEG_LEN, launch_bytes
+
+        launch = launch_bytes(n_stations, station_pairs(n_stations), True, 4,
+                              self._card(), block_len // SEG_LEN)
+        return batch_route_bytes(n_stations, block_len,
+                                 self.config.lo_compensation == "auto",
+                                 self._seg_fft_len(block_len), launch, staged)
+
+    def batch_route(self, n_stations: int, block_len: int,
+                    staged: Optional[torch.dtype] = None) -> BatchRoute:
+        """The batch route's verdict on this processor's card, taken once
+        per station count, block length, LO setting, segmented FFT
+        length and card, by whichever of ``load_files`` (before the
+        decode) and ``process_captures`` (holding its stacks, of dtype
+        ``staged``) asks first, and kept: the other asks at another free
+        memory and must never disagree. Each route's need
+        (``route_bytes``, from where it is asked) against the free
+        memory (``mem_get_info``'s and what the allocator holds unused):
+        the kernel route where its need fits; else the segmented route
+        where its need fits, whether no launch of kernel 1 holds one
+        pair or the memory refused it; else a ``RuntimeError`` naming
+        both needs."""
+        dev = self._card()
+        key = (n_stations, block_len, self.config.lo_compensation == "auto",
+               self._seg_fft_len(block_len), dev.index)
+        verdict = _BATCH_ROUTES.get(key)
+        if verdict is not None:
+            return verdict
+        kernel, segmented = self.route_bytes(n_stations, block_len, staged)
+        free = (torch.cuda.mem_get_info(dev)[0]
+                + torch.cuda.memory_reserved(dev)
+                - torch.cuda.memory_allocated(dev))
+        for route, need in (("pallas", kernel), ("xla", segmented)):
+            if need is not None and need < free:
+                verdict = BatchRoute(route, kernel, segmented, free)
+                _BATCH_ROUTES[key] = verdict
+                return verdict
+        k_need = ("no launch holds one pair" if kernel is None
+                  else f"needs {kernel / 1e9:.2f} GB")
+        raise RuntimeError(
+            f"{n_stations} stations of {block_len}-sample blocks fit neither "
+            f"batch route on {dev}: kernel 1 {k_need}, the segmented "
+            f"correlator {segmented / 1e9:.2f} GB, {free / 1e9:.2f} GB free; "
+            f"shorter captures, fewer stations, or process_files_overlapped")
 
     def _reject_outliers(
         self,
@@ -1486,7 +1594,8 @@ class TDOAProcessor:
             if accumulator == "auto":
                 accumulator = (
                     "pallas"
-                    if self._fused_eligible(len(names), int(ref1.shape[-1]))
+                    if self._fused_eligible(len(names), int(ref1.shape[-1]),
+                                            ref1.dtype)
                     else "xla"
                 )
             with stage("correlate+clock"):

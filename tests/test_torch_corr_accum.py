@@ -4,6 +4,8 @@ JAX fused Pallas kernel it replaces (interpret mode on the CPU), and its
 own invariants. On the CPU the wrapper runs the kernel's plain torch
 version; the CUDA kernel itself is held to that version on the card."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -399,10 +401,10 @@ def h100_gate(monkeypatch):
     monkeypatch.setattr(torch.cuda, "mem_get_info", lambda d: (80 << 30,
                                                                80 << 30))
     ts._kernel_fits.cache_clear()
-    tproc._fused_fits.cache_clear()
+    tproc._BATCH_ROUTES.clear()
     yield asked
     ts._kernel_fits.cache_clear()
-    tproc._fused_fits.cache_clear()
+    tproc._BATCH_ROUTES.clear()
 
 
 @pytest.mark.parametrize("n_st,tiles", [(8, 3), (12, 3), (16, 6), (24, 18)])
@@ -502,6 +504,164 @@ def test_kernel_gate_raises_where_the_library_takes_another_branch(
     with pytest.raises(RuntimeError, match="branch resident"):
         corr_accum.fits_device(12, _all_pairs(12), True, 4,
                                torch.device("cuda", 0))
+
+
+WINDOW_BLOCK = 66_666_666  # a 100 s capture's block: 1479 kernel segments
+
+
+def _on_card(**cfg):
+    """A processor that asks the card's gates (stood in by ``h100_gate``)
+    without a card."""
+    from tdoa_tpu_torch.pipeline.processor import (
+        ProcessorConfig,
+        TDOAProcessor,
+    )
+
+    proc = TDOAProcessor(ProcessorConfig(162.4e6, 101.9e6, **cfg), None,
+                         device="cpu")
+    proc.device = torch.device("cuda", 0)
+    return proc
+
+
+@pytest.mark.parametrize("n_st,n_seg", [
+    (3, 443), (3, 1479), (12, 443), (12, 1479), (24, 443), (24, 1479)])
+def test_launch_bytes_count_the_streamed_scratch_at_the_blocks_segments(
+        h100_gate, n_st, n_seg):
+    """Kernel 1's launch bytes grow with the block exactly as its largest
+    launch's scratch does (from 4 stations the streamed branch's
+    hand-off of the whole block), so the batch route counts 5.6 GB of
+    scratch at 24 stations × 443 segments, where the gate once counted
+    1480 segments (18.6 GB) whatever the block."""
+    card = torch.device("cuda", 0)
+    pairs = _all_pairs(n_st)
+    tiles = corr_accum.plan_tiles(pairs, n_st, True, H100_SMEM_OPTIN)
+    rows = max(r1 - r0 for r0, r1, _, _ in tiles)
+    branch = "resident" if n_st == 3 else "streamed"
+    grown = (corr_accum.launch_bytes(n_st, pairs, True, 4, card, n_seg)
+             - corr_accum.launch_bytes(n_st, pairs, True, 4, card, 1))
+    assert grown == (corr_accum.scratch_bytes(branch, rows, 4, n_seg)
+                     - corr_accum.scratch_bytes(branch, rows, 4, 1))
+    if n_st == 24:
+        assert (corr_accum.scratch_bytes(branch, rows, 4, n_seg)
+                < (6e9 if n_seg == 443 else 19e9))
+
+
+@pytest.mark.parametrize("n_st,block,lo", [
+    (3, WINDOW_BLOCK, False), (12, WINDOW_BLOCK, False),
+    (24, WINDOW_BLOCK, False), (24, 443 * SEG_LEN, False),
+    (3, WINDOW_BLOCK, True)])
+def test_batch_route_with_ample_memory_takes_the_kernel(h100_gate, n_st,
+                                                        block, lo):
+    """With 80 GB free every network of 3 to 24 stations, at 10 and 100 s,
+    with and without LO compensation, takes the kernel route, whose need
+    is the smaller and grows with the block; the verdict records the
+    free memory it saw."""
+    proc = _on_card(lo_compensation="auto" if lo else "off")
+    v = proc.batch_route(n_st, block)
+    assert v.route == "pallas" and v.free_bytes == 80 << 30
+    assert v.kernel_bytes < v.segmented_bytes
+    shorter = proc.route_bytes(n_st, block // 2)
+    assert shorter[0] < v.kernel_bytes and shorter[1] < v.segmented_bytes
+
+
+def _needs(n_st, block, **cfg):
+    """The batch route's two needs at 80 GB free, before the decode."""
+    from tdoa_tpu_torch.pipeline import processor as tproc
+
+    v = _on_card(**cfg).batch_route(n_st, block)
+    tproc._BATCH_ROUTES.clear()
+    return v.kernel_bytes, v.segmented_bytes
+
+
+def test_batch_route_between_the_two_needs_takes_the_kernel(h100_gate,
+                                                            monkeypatch):
+    """Free memory between the routes' needs (24 stations × 100 s: ~59
+    GB for the kernel route, ~126 GB for the segmented one) takes the
+    kernel route; the verdict records what it saw."""
+    kernel, segmented = _needs(24, WINDOW_BLOCK)
+    assert kernel < 65e9 < segmented
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda d: (kernel + 1, 80 << 30))
+    proc = _on_card()
+    assert proc._fused_eligible(24, WINDOW_BLOCK)
+    assert proc.batch_route(24, WINDOW_BLOCK).free_bytes == kernel + 1
+
+
+@pytest.mark.parametrize("n_st,lo,staged,held_blocks", [
+    (24, False, torch.bfloat16, 3.0), (12, True, torch.float32, 4.5)])
+def test_batch_route_asked_first_by_process_captures_counts_its_stacks_once(
+        h100_gate, monkeypatch, n_st, lo, staged, held_blocks):
+    """Where ``process_captures`` asks first (captures handed in on the
+    card, as an in-memory caller does), the captures and its stacks are
+    allocated already: bf16 captures and stacks (3 planar f32 blocks in
+    all, 38.4 GB at 24 stations × 100 s), or with LO compensation the
+    captures and the derotated f32 blocks (4.5). The verdict counts them
+    as allocated and not again as needed, and takes the kernel route
+    that the same card takes when asked before the decode; counting
+    them twice, as asked before the decode at the free memory left,
+    fits neither route."""
+    cfg = {"lo_compensation": "auto" if lo else "off"}
+    assert _needs(n_st, WINDOW_BLOCK, **cfg)[0] < 80e9  # before the decode
+    free = (80 << 30) - int(held_blocks * 2 * n_st * WINDOW_BLOCK * 4)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda d: (free, 80 << 30))
+    with pytest.raises(RuntimeError, match="fit neither batch route"):
+        _on_card(**cfg).batch_route(n_st, WINDOW_BLOCK)
+    proc = _on_card(**cfg)
+    assert proc._fused_eligible(n_st, WINDOW_BLOCK, staged)
+    v = proc.batch_route(n_st, WINDOW_BLOCK)  # the kept verdict
+    assert v.route == "pallas" and v.free_bytes == free
+
+
+def test_batch_route_below_both_needs_raises_before_the_decode(
+        h100_gate, monkeypatch, tmp_path):
+    """Below both needs the verdict raises, naming both and the free
+    memory, and ``load_files`` raises before it decodes a file. (The
+    gate once sent a memory refusal to the segmented route, which needs
+    1.6-2.3x more, to fail later, after the decode.)"""
+    from tdoa_tpu_torch.pipeline import processor as tproc
+
+    kernel, segmented = _needs(3, WINDOW_BLOCK)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda d: (kernel, 80 << 30))
+    with pytest.raises(RuntimeError, match=r"fit neither batch route.*"
+                       f"needs {kernel / 1e9:.2f} GB.*"
+                       f"{segmented / 1e9:.2f} GB.*{kernel / 1e9:.2f} GB free"):
+        _on_card().batch_route(3, WINDOW_BLOCK)
+    decoded = []
+    monkeypatch.setattr(tproc, "load_dat", lambda *a, **k: decoded.append(a))
+    paths = []
+    for name in ("kx0u", "n3pay", "kf0mtl"):
+        path = tmp_path / f"{name}-1700000000.dat"
+        with open(path, "wb") as fh:
+            fh.truncate(6 * WINDOW_BLOCK)  # sparse: neither written nor read
+        paths.append(str(path))
+    proc = tproc.TDOAProcessor.from_csv(162.4e6, 101.9e6, str(
+        Path(__file__).resolve().parents[1] / "lat-lon-table.csv"),
+        device="cpu")
+    proc.device = torch.device("cuda", 0)
+    with pytest.raises(RuntimeError, match="fit neither batch route"):
+        proc.load_files(paths)
+    assert decoded == []
+
+
+@pytest.mark.parametrize("free_gb,route", [(80, "xla"), (1, None)])
+def test_batch_route_without_a_launch_takes_the_segmented_route_where_it_fits(
+        h100_gate, monkeypatch, free_gb, route):
+    """Where no launch of kernel 1 holds one pair, the segmented route
+    runs if its own need fits the free memory; else the verdict
+    raises."""
+    monkeypatch.setattr(corr_accum, "launch_bytes", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda d: (free_gb << 30, 80 << 30))
+    proc = _on_card()
+    if route is None:
+        with pytest.raises(RuntimeError, match="no launch holds one pair"):
+            proc.batch_route(3, 443 * SEG_LEN)
+    else:
+        v = proc.batch_route(3, 443 * SEG_LEN)
+        assert v.route == route and v.kernel_bytes is None
+        assert not proc._fused_eligible(3, 443 * SEG_LEN)
 
 
 def _cuda_block(n_st, n_seg, device):

@@ -63,6 +63,10 @@ SIX_CLOCKS_S = np.array([5e-6, -9e-6, 14e-6, -2e-6, 7e-6, -4e-6])
 SIX_LEN = 4 * SEG_LEN
 SIX_OPTS = {"xla": {"max_lag": 512, "seg_len": 1 << 13},
             "pallas": {"max_lag": 512, "accumulator": "pallas"}}
+# A block whose kernel segments 2 and 4 ranks do not divide: 9 of them
+# and a 100 s block's ragged tail (28,842 samples), as a 100 s block's
+# 1479 segments are not divided: the ranks keep 8, the rest is dropped.
+RAGGED_LEN = 9 * SEG_LEN + 28_842
 H100_SMEM_OPTIN = 232_448  # cudaDevAttrMaxSharedMemoryPerBlockOptin
 
 
@@ -137,6 +141,7 @@ def world():
     split_j, split_clean, split_wrecks = _split_inputs()
     jblocks, tblocks, p, ref_geo, truth = _scene_blocks()
     six = _scene_blocks(SIX_LLA, SIX_LEN, SIX_CLOCKS_S, seed=61)
+    rag = _scene_blocks(block_len=RAGGED_LEN, seed=67)
     xla = {"max_lag": 128, "seg_len": 1 << 12, "weighting": "ht"}
     cases = []
     for n in (2, 8):
@@ -155,6 +160,9 @@ def world():
             cases.append((f"six_{route}{n}", "blocks", n,
                           {"blocks": six[1], "pairs": six[2],
                            "ref_geo": six[3], "opts": opts}))
+            cases.append((f"ragged_{route}{n}", "blocks", n,
+                          {"blocks": rag[1], "pairs": rag[2],
+                           "ref_geo": rag[3], "opts": opts}))
     for k, xs in enumerate([split_clean, *split_wrecks]):
         cases.append((f"split{k}", "corr", 8,
                       {"x": xs, "pairs": ((0, 1),), "opts": xla}))
@@ -190,11 +198,17 @@ def world():
             ref[f"six_{route}{n}"] = jax_blocks(
                 *six[0], jnp.asarray(six[2]), jnp.asarray(six[3]),
                 jax_mesh(n), **opts, **extra)
+            extra = ({"pairs_static": tuple(map(tuple, rag[2].tolist()))}
+                     if route == "pallas" else {})
+            ref[f"ragged_{route}{n}"] = jax_blocks(
+                *rag[0], jnp.asarray(rag[2]), jnp.asarray(rag[3]),
+                jax_mesh(n), **opts, **extra)
     ranks.join(timeout=900)
     assert not ranks.is_alive(), "the spawned world did not finish"
     if "error" in box:
         raise box["error"]
-    return box["port"], ref, {"truth": truth, "six_truth": six[4]}
+    return box["port"], ref, {"truth": truth, "six_truth": six[4],
+                              "ragged_truth": rag[4]}
 
 
 def test_make_mesh_needs_a_process_group():
@@ -258,6 +272,25 @@ def test_six_station_sharded_step_matches_reference(world, route, n):
                                atol=TOL)
     np.testing.assert_allclose(got["corrected"],
                                inputs["six_truth"].tgt_tdoa_samples,
+                               atol=0.6)
+    assert np.all(got["corrected_std"] > 0)
+
+
+@pytest.mark.parametrize("route", ["xla", "pallas"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_sharded_step_on_a_block_the_ranks_do_not_divide(world, route, n):
+    """The full sharded step on blocks of 9 kernel segments and a ragged
+    tail over 2 and 4 ranks (each keeps 4 or 2 segments, the ninth and
+    the tail dropped, as 2 and 4 ranks drop a 100 s block's last
+    segments), both routes: corrected TDOAs within 2e-3 samples of the
+    JAX mesh's on the same blocks and 0.6 of the truth, every σ > 0."""
+    port, ref, inputs = world
+    got = port[f"ragged_{route}{n}"]
+    np.testing.assert_allclose(got["corrected"],
+                               np.asarray(ref[f"ragged_{route}{n}"][0]),
+                               atol=TOL)
+    np.testing.assert_allclose(got["corrected"],
+                               inputs["ragged_truth"].tgt_tdoa_samples,
                                atol=0.6)
     assert np.all(got["corrected_std"] > 0)
 

@@ -190,22 +190,24 @@ def test_cli_rejects_unported_flags(flag, tmp_path, capsys):
 def test_batch_route_is_decided_once_per_stations_and_card(monkeypatch):
     """``load_files`` (decode dtype) and ``process_captures``
     (accumulator) ask ``_fused_eligible`` at different free memory: the
-    card's verdict is taken once per (stations, card) and both calls —
-    of any processor — get it, even when the free memory would now say
-    otherwise."""
+    card's verdict is taken once per (stations, block length, card) and
+    both calls — of any processor — get it, even when the free memory
+    would now say otherwise."""
     from tdoa_tpu_torch.ops.kernels import corr_accum
     from tdoa_tpu_torch.pipeline import processor as tproc
 
-    answers = iter([True, False, False])
+    free = iter([80 << 30, 0, 0])
     asked = []
 
-    def fits(n_st, pairs, sums, banks, device):
+    def launch_bytes(n_st, pairs, sums, banks, device, n_seg):
         asked.append((n_st, [tuple(p) for p in pairs.tolist()], sums, banks,
-                      device))
-        return next(answers)
+                      device, n_seg))
+        return 1 << 20
 
-    monkeypatch.setattr(corr_accum, "fits_device", fits)
-    tproc._fused_fits.cache_clear()
+    monkeypatch.setattr(corr_accum, "launch_bytes", launch_bytes)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda d: (next(free), 80 << 30))
+    tproc._BATCH_ROUTES.clear()
     try:
         procs = [TDOAProcessor.from_csv(OMAHA["ref_freq"], OMAHA["tgt_freq"],
                                         CSV, device="cpu") for _ in range(2)]
@@ -216,12 +218,35 @@ def test_batch_route_is_decided_once_per_stations_and_card(monkeypatch):
         assert as_load_files is as_process_captures is True
         assert procs[1]._fused_eligible(3, BLOCK) is True
         assert asked == [(3, [(0, 1), (0, 2), (1, 2)], True, 4,
-                          torch.device("cuda", 0))]
+                          torch.device("cuda", 0), BLOCK // 45056)]
         # Off the kernel's geometry no card is asked at all.
         assert procs[0]._fused_eligible(3, 1000) is False
         assert len(asked) == 1
     finally:
-        tproc._fused_fits.cache_clear()
+        tproc._BATCH_ROUTES.clear()
+
+
+def test_process_captures_asks_the_route_holding_its_stacks(slice_run,
+                                                           monkeypatch):
+    """``load_files`` asks the batch route's gate before it decodes, and
+    ``process_captures`` asks it holding its stacks, of their dtype: so
+    where ``process_captures`` asks first, with the captures already on
+    the card, the verdict counts them and the stacks as allocated and
+    not again as needed."""
+    *_, files = slice_run
+    asked = []
+    eligible = TDOAProcessor._fused_eligible
+
+    def spy(self, n_stations, min_block_samples, staged=None):
+        asked.append((n_stations, min_block_samples, staged))
+        return eligible(self, n_stations, min_block_samples, staged)
+
+    monkeypatch.setattr(TDOAProcessor, "_fused_eligible", spy)
+    proc = TDOAProcessor.from_csv(OMAHA["ref_freq"], OMAHA["tgt_freq"], CSV,
+                                  device="cpu", max_lag=512)
+    res = proc.process_captures(proc.load_files(files))
+    assert asked == [(3, BLOCK, None), (3, BLOCK, torch.bfloat16)]
+    assert np.isfinite(res.corrected_tdoa_samples).all()
 
 
 def test_port_imports_without_jax():

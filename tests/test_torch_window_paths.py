@@ -1,0 +1,170 @@
+"""The paths the port runs at the collector's 100 s window (three blocks
+of 66,666,666 samples, 1479 whole kernel segments each) beyond the
+3-station IQ paths: the arithmetic that decides their shapes, against
+the JAX package's where it has a counterpart, on the CPU:
+
+- the sharded step's chunk plan and split groups of a 100 s block over
+  1, 2 and 4 ranks on both routes (the reference's inline arithmetic,
+  ``tdoa_tpu/parallel/mesh.py:76-100,165-167``);
+- kernel 1's tiles, branches and streamed scratch at 24 stations × 1479
+  segments (scene A's batch) and on the 72 stacked rows of a 100 s
+  block's 39-segment last chunk (its overlapped ingest), at the H100's
+  opt-in limit;
+- the overlapped ingest's geometry and chunks of a 100 s block at 24
+  stations;
+- ``_derotate`` of a block longer than 2^24 samples, where float32 stops
+  holding the sample index exactly, against the reference's.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from test_torch_corr_accum import (  # noqa: F401 (a fixture)
+    H100_SMEM_OPTIN,
+    H100_SMS,
+    h100_gate,
+)
+
+try:  # the card's machine has no JAX: this file runs on the CPU only
+    import jax.numpy as jnp
+    from tdoa_tpu.ops import corr as jcorr
+    from tdoa_tpu.ops.cplx import C
+    from tdoa_tpu.ops.pallas import corr_accum as jcorr_accum
+    from tdoa_tpu.pipeline import ingest as jingest
+    from tdoa_tpu.pipeline import processor as jproc
+except ModuleNotFoundError:
+    pass
+from tdoa_tpu_torch.ops.kernels import corr_accum
+from tdoa_tpu_torch.ops.kernels.corr_accum import FFT_LEN, SEG_LEN
+from tdoa_tpu_torch.parallel.mesh import _chunk_plan, _split_groups
+from tdoa_tpu_torch.pipeline import ingest as tingest
+from tdoa_tpu_torch.pipeline import processor as tproc
+
+BLOCK = 66_666_666  # a 100 s capture's block
+SEGS = 1479
+MAX_LAG = 20000
+FS = 2e6
+
+
+def _reference_chunk(n, d, max_lag, seg_len, route):
+    """The reference's per-rank chunk, segment and FFT and its split
+    groups for a capture of ``n`` samples over ``d`` ranks, as
+    ``correlate_pairs_sharded`` computes them inline."""
+    per = n // d
+    if route == "pallas":
+        per = (per // jcorr_accum.SEG_LEN) * jcorr_accum.SEG_LEN
+        seg, fft_len = jcorr_accum.SEG_LEN, jcorr_accum.FFT_LEN
+    else:
+        seg, fft_len = jcorr.resolve_seg(per, max_lag, seg_len, None)
+    K = jcorr.split_k((per // seg) * d)
+    while K > 1 and d % K != 0:
+        K //= 2
+    return per, seg, fft_len, K
+
+
+@pytest.mark.parametrize("seg_len", [45056, 1 << 16])
+@pytest.mark.parametrize("route", ["pallas", "xla"])
+@pytest.mark.parametrize("d,segs,groups", [(1, 1479, 1), (2, 1478, 2),
+                                           (4, 1476, 4)])
+def test_chunk_plan_of_a_100s_block_matches_the_reference(route, seg_len, d,
+                                                          segs, groups):
+    """A 100 s block over 1, 2 and 4 ranks: each rank's chunk, segment
+    and FFT and the split error bar's groups equal the reference's. On
+    the kernel route the ranks keep 1479, 1478 and 1476 of the block's
+    kernel segments (the rest dropped), in K = 1, 2 and 4 groups (as
+    many as the ranks divide into: one rank has no split)."""
+    per, seg, fft_len = _chunk_plan(BLOCK, d, MAX_LAG, seg_len, route)
+    K = _split_groups((per // seg) * d, d)
+    assert (per, seg, fft_len, K) == _reference_chunk(BLOCK, d, MAX_LAG,
+                                                      seg_len, route)
+    if route == "pallas":
+        assert per % SEG_LEN == 0 and per // SEG_LEN * d == segs
+        assert K == groups
+
+
+def test_kernel1_plans_at_24_stations_and_100s(h100_gate):
+    """At the H100's opt-in limit and 132 SMs: 24 stations' 276 pairs
+    over a 100 s block take 6 tiles of 46 on the streamed branch, one
+    stage 1 of 18.6 GB for the whole block; the overlapped ingest's 72
+    stacked rows (828 pairs) take 18 launches of 24 rows × 46, whose
+    39-segment last chunk needs 0.49 GB of scratch a row block. The
+    batch verdict counts the block's own scratch."""
+    pairs = [(i, j) for i in range(24) for j in range(i + 1, 24)]
+    tiles = corr_accum.plan_tiles(pairs, 24, True, H100_SMEM_OPTIN)
+    assert [(r0, r1, hi - lo) for r0, r1, lo, hi in tiles] == [(0, 24, 46)] * 6
+    assert {corr_accum.branch_of(24, 46, True, K, H100_SMEM_OPTIN, H100_SMS)
+            for K in (1, 4)} == {"streamed"}
+    assert corr_accum.scratch_plan("streamed", 24, 4, SEGS) == (370, 1)
+    assert corr_accum.scratch_bytes("streamed", 24, 4, SEGS) == \
+        24 * 4 * 370 * FFT_LEN * 8
+    stacked = [(b * 24 + i, b * 24 + j) for b in range(3) for i, j in pairs]
+    plan = corr_accum.plan_tiles(stacked, 72, True, H100_SMEM_OPTIN)
+    assert len(plan) == 18
+    assert {(r1 - r0, hi - lo) for r0, r1, lo, hi in plan} == {(24, 46)}
+    assert corr_accum.scratch_bytes("streamed", 24, 1, 39) == \
+        24 * 39 * FFT_LEN * 8
+    card = torch.device("cuda", 0)
+    acc = 4 * FFT_LEN * (8 * 276 + 12 * 24)
+    assert corr_accum.launch_bytes(24, pairs, True, 4, card, SEGS) == \
+        corr_accum.scratch_bytes("streamed", 24, 4, SEGS) + 2 * acc
+
+
+def test_overlapped_ingest_at_24_stations_and_100s(h100_gate):
+    """The overlapped ingest of a 100 s window at 24 stations: kernel 1's
+    geometry on the 72 stacked rows (bf16 operands), and chunks of 96
+    segments and a last one of 39, the reference's plan at the port's
+    chunk size; a tail session (on the CPU) plans the same chunks a
+    block."""
+    pairs = np.asarray([(b * 24 + i, b * 24 + j) for b in range(3)
+                        for i in range(24) for j in range(i + 1, 24)],
+                       np.int32)
+    card = torch.device("cuda", 0)
+    assert tingest._geometry(72, pairs, BLOCK, MAX_LAG, None, "auto",
+                             card) == (SEG_LEN, FFT_LEN, torch.bfloat16)
+    chunk, spans = tingest.plan_chunks(BLOCK, SEG_LEN)
+    j_chunk, j_spans = jingest.plan_chunks(BLOCK, SEG_LEN, chunk)
+    assert (chunk, spans) == (j_chunk, list(j_spans))
+    assert [n // SEG_LEN for _, n in spans] == [96] * 15 + [39]
+    proc = tproc.TDOAProcessor(tproc.ProcessorConfig(162.4e6, 101.9e6), None,
+                               device="cpu")
+    proc._ref_geo_tdoa_samples = lambda n, p: np.zeros(len(p))
+    sess = proc.tail_session([f"st{k}" for k in range(24)], BLOCK)
+    assert sess.total_chunks == 3 * len(spans)
+
+
+def test_derotate_past_float32_integers_matches_jax():
+    """``_derotate`` of one station's block of 2^24 + 2^20 samples, past
+    the 16,777,216 where a float32 index stops being exact, at 49 Hz (a
+    0.3 ppm LO error at the REF carrier; the angle reaches ~2.7e3 rad):
+    within ``test_derotate_matches_jax``'s 2e-4 of the reference."""
+    n = (1 << 24) + (1 << 20)
+    rng = np.random.default_rng(7)
+    x = (0.3 * rng.standard_normal((2, 1, n)) + 0.02).astype(np.float32)
+    shifts = np.array([49.0])
+    want = jproc._derotate(C(jnp.asarray(x[0]), jnp.asarray(x[1])), shifts,
+                           FS)
+    got = tproc._derotate(torch.from_numpy(x), shifts, FS).numpy()
+    np.testing.assert_allclose(got[0], np.asarray(want.re), atol=2e-4)
+    np.testing.assert_allclose(got[1], np.asarray(want.im), atol=2e-4)
+
+
+def test_phase6b_static_emitter_misses_its_bound_in_both_packages(
+        monkeypatch, tmp_path):
+    """``chip_smoke.py`` phase 6's scene (b) (a 130 m/s mover and an
+    equal-power static interferer, made by the smoke's own synthesizer,
+    here on the CPU with 2^20-sample blocks and another seed) through
+    both processors at phase 6's checked settings (velocity + 2
+    emitters, max_lag 512, a CAF over 2^18 samples): the same emitters,
+    their TDOAs within 5e-3 samples and fixes within 1 m of each other —
+    and the static emitter 1.27 km from its transmitter in both, past
+    phase 6's 1000 m bound. The bound is the reference's estimator's
+    margin (its TDOAs come from a deramp over the first 2^18 samples
+    with the mover in the window; ``test_torch_static_emitter`` holds
+    the two packages to each other at five more seeds), not a fault of
+    the port: phase 12 prints it at 100 s (ROADMAP Queue 3, "Not
+    faults")."""
+    from test_torch_static_emitter import static_readings
+
+    errs = static_readings(monkeypatch, tmp_path, 2)
+    assert errs["jax"][1] > 1000.0
