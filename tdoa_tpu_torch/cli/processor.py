@@ -15,9 +15,10 @@ block, ``--solve-velocity`` adds the CAF/FDOA emitter velocity and
 device chunk by chunk (``TDOAProcessor.process_files_overlapped``).
 ``--geojson PATH`` also writes the result as a GeoJSON FeatureCollection
 (``io/geojson.py``). ``--profile`` prints per-stage timings (each stage
-ends with the card synchronised) to stderr; ``--trace DIR`` writes a
-``torch.profiler`` Chrome trace of the run, the card's kernels included,
-into DIR (``utils/profiling.py``).
+ends with the card synchronised) and the window's ingest counters (times,
+bytes to the card and their GB/s) to stderr; ``--trace DIR`` writes a
+``torch.profiler`` Chrome trace of the run, the card's kernels and a
+range per stage included, into DIR (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -108,10 +109,12 @@ def main(argv=None) -> int:
                         "line) — loads directly in QGIS/Google Earth/"
                         "geojson.io")
     p.add_argument("--profile", action="store_true",
-                   help="print per-stage timings (device-synced) to stderr")
+                   help="print per-stage timings (device-synced) and the "
+                        "ingest's counters to stderr")
     p.add_argument("--trace", metavar="DIR", default=None,
                    help="capture a torch.profiler trace (Chrome trace "
-                        "JSON, the card's kernels included) into DIR")
+                        "JSON, the card's kernels and a range per stage "
+                        "included) into DIR")
     args = p.parse_args(
         rewrite_prior_argv(sys.argv[1:] if argv is None else argv))
     prior = None if args.prior is None else parse_prior(args.prior, p.error)
@@ -147,9 +150,9 @@ def main(argv=None) -> int:
           f"(ref {args.ref_freq/1e6:.4f} MHz, target "
           f"{args.target_freq/1e6:.4f} MHz)",
           file=sys.stderr if args.json else sys.stdout)
-    from tdoa_tpu_torch.utils.profiling import StageTimer, trace
+    from tdoa_tpu_torch.utils.profiling import StageTimer, ingest_report, trace
 
-    if args.profile:
+    if args.profile or args.trace:
         proc.timer = StageTimer()
     tracer = trace(args.trace) if args.trace else contextlib.nullcontext()
     try:
@@ -162,6 +165,8 @@ def main(argv=None) -> int:
         return 2
     if args.profile:
         print("stage timings:\n" + proc.timer.report(), file=sys.stderr)
+        print("ingest counters:\n" + ingest_report(proc.ingest_diag),
+              file=sys.stderr)
     names = res.station_names
     fix = res.fix
     if args.geojson:

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import Optional
 
 import numpy as np
@@ -92,15 +93,30 @@ class DatCapture:
 
 def load_dat(path: str, station: str = "",
              dtype: torch.dtype = torch.float32,
-             device: Optional[torch.device] = None) -> DatCapture:
+             device: Optional[torch.device] = None,
+             diag: Optional[dict] = None) -> DatCapture:
     """Load a ``.dat`` file and decode it on ``device`` (default: the
     card, ``utils.platform.default_device``) into planar ``dtype``
-    blocks. Only whole ``3 × (I, Q)`` sample groups are kept."""
+    blocks. Only whole ``3 × (I, Q)`` sample groups are kept.
+
+    ``diag``, when given, gains (added to what it holds): ``read_s``,
+    the host clock around the file read; ``h2d_s``, the host clock
+    around the pageable copy to ``device``, which returns once the copy
+    is done; ``h2d_bytes``, the bytes copied to the card (0 on the
+    CPU)."""
     if device is None:
         device = default_device()
+    t0 = time.perf_counter()
     raw = np.fromfile(path, dtype=np.uint8)
+    t1 = time.perf_counter()
     usable = (raw.size // (2 * NUM_BLOCKS)) * (2 * NUM_BLOCKS)
     dev_raw = torch.from_numpy(raw[:usable]).to(device)
+    if diag is not None:
+        t2 = time.perf_counter()
+        diag["read_s"] = diag.get("read_s", 0.0) + (t1 - t0)
+        diag["h2d_s"] = diag.get("h2d_s", 0.0) + (t2 - t1)
+        diag["h2d_bytes"] = diag.get("h2d_bytes", 0) + (
+            usable if dev_raw.is_cuda else 0)
     iq = bytes_to_iq_planar(dev_raw, dtype)
     ref1, tgt, ref2 = split_blocks(iq)
     return DatCapture(ref1=ref1, tgt=tgt, ref2=ref2, path=path,

@@ -137,6 +137,8 @@ class _Stager:
     def __init__(self, rows: int, chunk: int, device: torch.device):
         self.device = device
         self.gather_s = 0.0  # host clock around the (synchronous) gathers
+        self.wait_s = 0.0  # host clock around the waits for a pinned buffer
+        self.h2d_bytes = 0  # bytes copied to the card
         self._timed: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
         self._k = 0
         if device.type != "cuda":
@@ -163,13 +165,16 @@ class _Stager:
             self.gather_s += time.perf_counter() - t0
             return out
         s = self._k % STAGE_DEPTH
+        t0 = time.perf_counter()
         if self._copied[s] is not None:
             self._copied[s].synchronize()  # the copy stream only
-        t0 = time.perf_counter()
+        t1 = time.perf_counter()
+        self.wait_s += t1 - t0
         host = self._host[s][:rows * length].reshape(rows, length)
         for r, v in enumerate(views):
             np.copyto(host[r], v)
-        self.gather_s += time.perf_counter() - t0
+        self.gather_s += time.perf_counter() - t1
+        self.h2d_bytes += host.nbytes
         src = self._pinned[s][:rows * length]
         dst = self._staged[s][:rows * length]
         begin = torch.cuda.Event(enable_timing=True)
@@ -203,6 +208,16 @@ class _Stager:
         if self._timed:
             self._timed[-1][1].synchronize()
         return sum(b.elapsed_time(e) for b, e in self._timed) * 1e-3
+
+
+def _stager_diag(stager: _Stager) -> dict:
+    """What a stager did: ``gather_s``, ``wait_s`` (the host clock
+    around the waits for a pinned buffer's last copy), ``h2d_bytes``
+    and ``transfer_stream_s`` (``copy_seconds``, which waits for the
+    last copy)."""
+    return {"gather_s": stager.gather_s, "wait_s": stager.wait_s,
+            "h2d_bytes": stager.h2d_bytes,
+            "transfer_stream_s": stager.copy_seconds()}
 
 
 def _decode_update(state: AccState, packed: torch.Tensor, pairs,
@@ -298,10 +313,7 @@ class TailIngest:
         self._plan: List[Tuple[int, int, int]] = [
             (b, s, l) for b in range(3) for (s, l) in spans
         ]
-        self.link_diag: dict = {
-            "adaptive": False,
-            "chunk_segs": chunk // self._seg,
-        }
+        self.link_diag: dict = {"chunk_segs": chunk // self._seg}
         self._states = [
             acc_init(n_st, self._m, self._fft_len, self.device)
             for _ in range(3)
@@ -383,8 +395,7 @@ class TailIngest:
                 f"samples per station)"
             )
         if self._stager is not None:
-            self.link_diag["gather_s"] = self._stager.gather_s
-            self.link_diag["transfer_stream_s"] = self._stager.copy_seconds()
+            self.link_diag.update(_stager_diag(self._stager))
             self._stager = None  # release the pinned and staging buffers
         res = [
             acc_finalize(self._states[b], self._pairs, self.max_lag,
@@ -463,11 +474,8 @@ def accumulate_overlapped(
         state = _decode_update(state, buf, all_pairs, seg_r, fft_len, dtype)
         stager.decoded()
     if diag is not None:
-        diag.update(
-            adaptive=False, mode="chunked", chunk_segs=chunk // seg_r,
-            n_chunks=len(spans), gather_s=stager.gather_s,
-            transfer_stream_s=stager.copy_seconds(),
-        )
+        diag.update(chunk_segs=chunk // seg_r, n_chunks=len(spans),
+                    **_stager_diag(stager))
     return state, all_pairs, fft_len
 
 
@@ -503,11 +511,13 @@ def ingest_overlapped(
 
     ``chunk_samples`` sets the chunk size (default ``DEFAULT_CHUNK_SEGS``
     segments); the plan is fixed before the first chunk. ``diag``, when
-    given, is filled with ``mode`` ("chunked"), ``chunk_segs``,
-    ``n_chunks``, ``gather_s`` (host clock around the gathers into the
-    staging memory, which are the file reads) and ``transfer_stream_s``
-    (the chunks' time on the copy stream from CUDA events; ``None`` on the
-    CPU); asking for it waits for the last copy.
+    given, is filled with ``chunk_segs``, ``n_chunks``, ``gather_s``
+    (host clock around the gathers into the staging memory, which are
+    the file reads), ``wait_s`` (host clock around the waits for a
+    pinned buffer's last copy), ``h2d_bytes`` (bytes copied to the
+    card, 0 on the CPU) and ``transfer_stream_s`` (the chunks' time on
+    the copy stream from CUDA events; ``None`` on the CPU); asking for
+    it waits for the last copy.
     """
     dev = default_device() if device is None else torch.device(device)
     m = int(np.asarray(pair_idx).reshape(-1, 2).shape[0])

@@ -528,14 +528,22 @@ class TDOAProcessor:
         self.stations = stations
         self.device = torch.device(device) if device is not None \
             else default_device()
-        # What the last overlapped ingest did (``ingest_overlapped``'s
-        # ``diag``): chunk size and count, gather and copy-stream times.
+        # What this window's ingest did, cleared as each ``load_files``
+        # and ``process_files_overlapped`` starts: the batch ingest's
+        # ``read_s``, ``h2d_s`` and ``h2d_bytes`` (``load_dat``'s
+        # ``diag``); the overlapped ingest's chunk size and count,
+        # ``gather_s``, ``wait_s``, ``h2d_bytes`` and
+        # ``transfer_stream_s`` (``ingest_overlapped``'s ``diag``).
         self.ingest_diag: dict = {}
         # Optional per-stage wall-clock accounting: any object whose
-        # ``stage(name)`` is a context manager around one stage
-        # ("load+decode", "mmap", "lo-compensate", "correlate+clock",
-        # "solve", "re-solve (echo-bias σ)", "caf+deramp", "velocity",
-        # "associate+solve-emitters"), e.g. utils.profiling.StageTimer.
+        # ``stage(name)`` is a context manager around one stage, e.g.
+        # utils.profiling.StageTimer. The stages of a window follow one
+        # another, none inside another, and some open more than once:
+        # "load+decode" or "mmap", "prepare", "lo-compensate",
+        # "correlate+clock", "ingest+correlate+clock" or
+        # "tail-finalize+clock", "checks", "solve", "caf+deramp",
+        # "multipath", "re-solve (echo-bias σ)", "analyze", "velocity",
+        # "associate+solve-emitters", "assemble", "unmap".
         self.timer = None
 
     def _stage(self, name: str):
@@ -1378,84 +1386,89 @@ class TDOAProcessor:
         unchanged. Requires every capture to be a ``HostCapture`` in
         the session's exact station order."""
         cfg = self.config
-        names = [n for n in captures.keys()]
-        if len(names) < 3:
-            raise ValueError("need at least 3 stations for a 2D fix")
-        pairs = station_pairs(len(names))
-
-        # Overlapped-ingest mode: every station arrives as a
-        # host-resident HostCapture and the correlation step streams it
-        # chunk-by-chunk (pipeline/ingest.py) instead of staging whole
-        # blocks on device. Everything downstream of the correlate step
-        # runs UNCHANGED. The analyses that sample the waveform eagerly
-        # (received-power ghost ranking) read contiguous-run host
-        # subsamples.
-        host_mode = all(
-            isinstance(captures[n], HostCapture) for n in names
-        )
-        if tail is not None:
-            if not host_mode:
-                raise ValueError(
-                    "tail sessions need HostCapture captures"
-                )
-            if tail.names != names:
-                raise ValueError(
-                    f"tail session stations {tail.names} != window "
-                    f"stations {names}"
-                )
-            if not tail.check_final_sizes(
-                [captures[n].u16.shape[0] for n in names]
-            ):
-                raise ValueError(
-                    f"tail session block-length mismatch — "
-                    f"{tail.mismatch}; reprocess via the batch path"
-                )
-        if host_mode:
-            unsupported = [
-                opt for opt, on in (
-                    ("mode='fm'", cfg.mode != "iq"),
-                    ("lo_compensation", cfg.lo_compensation == "auto"),
-                    ("solve_velocity", cfg.solve_velocity),
-                    ("multi_emitter", cfg.multi_emitter > 1),
-                ) if on
-            ]
-            if unsupported:
-                raise ValueError(
-                    "overlapped ingest supports the standard IQ path; "
-                    f"{', '.join(unsupported)} need the whole blocks on "
-                    "device — use process_files/process_captures"
-                )
-        self._check_supported()
-
-        def prep(b) -> torch.Tensor:
-            b = _planar(b, self.device)
-            if cfg.truncate_samples is not None:
-                b = b[:, :cfg.truncate_samples]
-            return b
-
-        def stack(idx: int) -> torch.Tensor:
-            return torch.stack([prep(captures[n][idx]) for n in names], dim=1)
-
-        # Capture-time geometry: REF1/REF2 midpoints are two ORIGINAL
-        # block lengths apart even when the analysis window is truncated.
-        if host_mode:
-            orig_block_len = min(captures[n].block_len for n in names)
-
-            # Small contiguous-run subsamples stand in for the waveform
-            # in the eager power analyses (mean power AND the Welch
-            # spectral estimator — see HostCapture.subsample_planar).
-            def stack_sub(idx: int) -> torch.Tensor:
-                return _stack_station_subsamples([
-                    captures[n].subsample_planar(idx, device=self.device)
-                    for n in names
-                ])
-
-            ref1, tgt, ref2 = stack_sub(0), stack_sub(1), stack_sub(2)
-        else:
-            orig_block_len = min(int(captures[n][0].shape[-1])
-                                 for n in names)
-            ref1, tgt, ref2 = stack(0), stack(1), stack(2)
         stage = self._stage
+        # Stages follow one another, none inside another: the
+        # window is their one parent.
+        with stage("prepare"):
+            names = [n for n in captures.keys()]
+            if len(names) < 3:
+                raise ValueError("need at least 3 stations for a 2D fix")
+            pairs = station_pairs(len(names))
+
+            # Overlapped-ingest mode: every station arrives as a
+            # host-resident HostCapture and the correlation step streams it
+            # chunk-by-chunk (pipeline/ingest.py) instead of staging whole
+            # blocks on device. Everything downstream of the correlate step
+            # runs UNCHANGED. The analyses that sample the waveform eagerly
+            # (received-power ghost ranking) read contiguous-run host
+            # subsamples.
+            host_mode = all(
+                isinstance(captures[n], HostCapture) for n in names
+            )
+            if tail is not None:
+                if not host_mode:
+                    raise ValueError(
+                        "tail sessions need HostCapture captures"
+                    )
+                if tail.names != names:
+                    raise ValueError(
+                        f"tail session stations {tail.names} != window "
+                        f"stations {names}"
+                    )
+                if not tail.check_final_sizes(
+                    [captures[n].u16.shape[0] for n in names]
+                ):
+                    raise ValueError(
+                        f"tail session block-length mismatch — "
+                        f"{tail.mismatch}; reprocess via the batch path"
+                    )
+            if host_mode:
+                unsupported = [
+                    opt for opt, on in (
+                        ("mode='fm'", cfg.mode != "iq"),
+                        ("lo_compensation", cfg.lo_compensation == "auto"),
+                        ("solve_velocity", cfg.solve_velocity),
+                        ("multi_emitter", cfg.multi_emitter > 1),
+                    ) if on
+                ]
+                if unsupported:
+                    raise ValueError(
+                        "overlapped ingest supports the standard IQ path; "
+                        f"{', '.join(unsupported)} need the whole blocks on "
+                        "device — use process_files/process_captures"
+                    )
+            self._check_supported()
+
+            def prep(b) -> torch.Tensor:
+                b = _planar(b, self.device)
+                if cfg.truncate_samples is not None:
+                    b = b[:, :cfg.truncate_samples]
+                return b
+
+            def stack(idx: int) -> torch.Tensor:
+                return torch.stack([prep(captures[n][idx]) for n in names],
+                                   dim=1)
+
+            # Capture-time geometry: REF1/REF2 midpoints are two ORIGINAL
+            # block lengths apart even when the analysis window is truncated.
+            if host_mode:
+                orig_block_len = min(captures[n].block_len for n in names)
+
+                # Small contiguous-run subsamples stand in for the waveform
+                # in the eager power analyses (mean power AND the Welch
+                # spectral estimator — see HostCapture.subsample_planar).
+                def stack_sub(idx: int) -> torch.Tensor:
+                    return _stack_station_subsamples([
+                        captures[n].subsample_planar(idx, device=self.device)
+                        for n in names
+                    ])
+
+                ref1, tgt, ref2 = stack_sub(0), stack_sub(1), stack_sub(2)
+            else:
+                orig_block_len = min(int(captures[n][0].shape[-1])
+                                     for n in names)
+                ref1, tgt, ref2 = stack(0), stack(1), stack(2)
+            ref_geo = self._ref_geo_tdoa_samples(names, pairs)
         warnings: List[str] = []
         lo_ppm = None
         if cfg.lo_compensation == "auto":
@@ -1564,7 +1577,6 @@ class TDOAProcessor:
                     tgt = _derotate(tgt, lo_ppm * 1e-6 * cfg.tgt_freq,
                                     cfg.sample_rate)
 
-        ref_geo = self._ref_geo_tdoa_samples(names, pairs)
         if host_mode and tail is not None:
             with stage("tail-finalize+clock"):
                 out = tail.finalize([captures[n].u16 for n in names])
@@ -1590,14 +1602,18 @@ class TDOAProcessor:
                     device=self.device,
                 )
         else:
-            accumulator = cfg.accumulator
-            if accumulator == "auto":
-                accumulator = (
-                    "pallas"
-                    if self._fused_eligible(len(names), int(ref1.shape[-1]),
-                                            ref1.dtype)
-                    else "xla"
-                )
+            # The route, decided on the stacks the correlation reads:
+            # the derotated ones where LO compensation ran.
+            with stage("prepare"):
+                accumulator = cfg.accumulator
+                if accumulator == "auto":
+                    accumulator = (
+                        "pallas"
+                        if self._fused_eligible(len(names),
+                                                int(ref1.shape[-1]),
+                                                ref1.dtype)
+                        else "xla"
+                    )
             with stage("correlate+clock"):
                 out = process_blocks(
                     ref1, tgt, ref2, pairs,
@@ -1611,120 +1627,123 @@ class TDOAProcessor:
                     sample_rate=cfg.sample_rate,
                     accumulator=accumulator,
                 )
-        (corrected, tgt_d, ref_d, clock, quality, peaks, corr_std,
-         tgt_window, tgt_std, win_c_blocks) = (t.cpu() for t in out)
-        win_c_np = win_c_blocks.numpy().astype(np.complex128)  # [3, m, W]
-        corrected = np.asarray(corrected, np.float64)
-        tdoa_s = corrected / cfg.sample_rate
-        tdoa_std_s = np.asarray(corr_std, np.float64) / cfg.sample_rate
-        # REF clock-correction variance (s²): the composite σ minus the
-        # TGT block's own — re-attached to any re-measured TGT σ (the
-        # deramp path) so σs stay commensurate across candidate sets.
-        ref_var_s2 = np.maximum(
-            tdoa_std_s ** 2
-            - (np.asarray(tgt_std, np.float64) / cfg.sample_rate) ** 2,
-            0.0,
-        )
-        ref_d = np.asarray(ref_d, np.float64)
-        # REF-block midpoints sit 2 original block lengths apart.
-        drift_ppm = (ref_d[:, 1] - ref_d[:, 0]) / (2 * orig_block_len) * 1e6
-        if lo_ppm is not None:
-            rel = ", ".join(
-                f"{n} {p_:+.3f}" for n, p_ in zip(names, lo_ppm)
+        with stage("checks"):
+            (corrected, tgt_d, ref_d, clock, quality, peaks, corr_std,
+             tgt_window, tgt_std, win_c_blocks) = (t.cpu() for t in out)
+            win_c_np = win_c_blocks.numpy().astype(np.complex128)  # [3, m, W]
+            corrected = np.asarray(corrected, np.float64)
+            tdoa_s = corrected / cfg.sample_rate
+            tdoa_std_s = np.asarray(corr_std, np.float64) / cfg.sample_rate
+            # REF clock-correction variance (s²): the composite σ minus the
+            # TGT block's own — re-attached to any re-measured TGT σ (the
+            # deramp path) so σs stay commensurate across candidate sets.
+            ref_var_s2 = np.maximum(
+                tdoa_std_s ** 2
+                - (np.asarray(tgt_std, np.float64) / cfg.sample_rate) ** 2,
+                0.0,
             )
-            warnings.append(
-                f"receiver LO offsets measured from the REF block and "
-                f"compensated (relative ppm: {rel})"
-            )
-        if cfg.clock_correction and self.stations.reference_tx is None:
-            warnings.append(
-                f"reference transmitter position unknown (no station row "
-                f"named '{cfg.ref_freq:.0f}'): clock correction cancels "
-                f"clock offsets but leaves the REF transmitter's per-pair "
-                f"geometric TDOA in every measurement — the fix may be "
-                f"biased"
-            )
-        lla = self.stations.lla_array(names)
-        ecef = lla_to_ecef(lla)
-        q_arr = np.asarray(quality[1], np.float64)
-        for k, (i, j) in enumerate(pairs):
-            bl = np.linalg.norm(ecef[i] - ecef[j])
-            max_tdoa = bl / SPEED_OF_LIGHT
-            if abs(tdoa_s[k]) > max_tdoa * 1.05:
-                warnings.append(
-                    f"pair {names[i]}-{names[j]}: TDOA {tdoa_s[k]*1e6:.2f} us "
-                    f"exceeds baseline limit {max_tdoa*1e6:.2f} us"
+            ref_d = np.asarray(ref_d, np.float64)
+            # REF-block midpoints sit 2 original block lengths apart.
+            drift_ppm = ((ref_d[:, 1] - ref_d[:, 0]) / (2 * orig_block_len)
+                         * 1e6)
+            if lo_ppm is not None:
+                rel = ", ".join(
+                    f"{n} {p_:+.3f}" for n, p_ in zip(names, lo_ppm)
                 )
-            if q_arr[k] < 5.0:
                 warnings.append(
-                    f"pair {names[i]}-{names[j]}: weak correlation "
-                    f"(peak-to-sidelobe {q_arr[k]:.1f}) — measurement "
-                    f"downweighted"
+                    f"receiver LO offsets measured from the REF block and "
+                    f"compensated (relative ppm: {rel})"
                 )
+            if cfg.clock_correction and self.stations.reference_tx is None:
+                warnings.append(
+                    f"reference transmitter position unknown (no station row "
+                    f"named '{cfg.ref_freq:.0f}'): clock correction cancels "
+                    f"clock offsets but leaves the REF transmitter's per-pair "
+                    f"geometric TDOA in every measurement — the fix may be "
+                    f"biased"
+                )
+            lla = self.stations.lla_array(names)
+            ecef = lla_to_ecef(lla)
+            q_arr = np.asarray(quality[1], np.float64)
+            for k, (i, j) in enumerate(pairs):
+                bl = np.linalg.norm(ecef[i] - ecef[j])
+                max_tdoa = bl / SPEED_OF_LIGHT
+                if abs(tdoa_s[k]) > max_tdoa * 1.05:
+                    warnings.append(
+                        f"pair {names[i]}-{names[j]}: TDOA "
+                        f"{tdoa_s[k]*1e6:.2f} us "
+                        f"exceeds baseline limit {max_tdoa*1e6:.2f} us"
+                    )
+                if q_arr[k] < 5.0:
+                    warnings.append(
+                        f"pair {names[i]}-{names[j]}: weak correlation "
+                        f"(peak-to-sidelobe {q_arr[k]:.1f}) — measurement "
+                        f"downweighted"
+                    )
 
-        # Co-channel presence check: a second emitter at comparable
-        # power puts a second strong peak in every pair's correlation.
-        # When all pairs lock the SAME second emitter the TDOA set is
-        # cycle-consistent and the fix lands cleanly — on whichever
-        # source won the peak race — so no residual or quality gate can
-        # see it. The secondary peak can. The detection runs in every
-        # mode (the lobe-shape detector below stands down on it); the
-        # WARNING is mode-1 only — with multi_emitter > 1 the
-        # association path already separates and reports the sources.
-        from tdoa_tpu_torch.solve.association import top_k_peaks
+            # Co-channel presence check: a second emitter at comparable
+            # power puts a second strong peak in every pair's correlation.
+            # When all pairs lock the SAME second emitter the TDOA set is
+            # cycle-consistent and the fix lands cleanly — on whichever
+            # source won the peak race — so no residual or quality gate can
+            # see it. The secondary peak can. The detection runs in every
+            # mode (the lobe-shape detector below stands down on it); the
+            # WARNING is mode-1 only — with multi_emitter > 1 the
+            # association path already separates and reports the sources.
+            from tdoa_tpu_torch.solve.association import top_k_peaks
 
-        win64 = np.asarray(tgt_window, np.float64)
-        cand = top_k_peaks(win64, 2)
-        second_frac = cand.value[:, 1] / np.maximum(
-            cand.value[:, 0], 1e-30
-        )
-        strong = second_frac >= 0.6
-        secondary_fired = bool(
-            np.count_nonzero(strong) >= max(1, (len(pairs) + 1) // 2)
-        )
-        if secondary_fired and cfg.multi_emitter == 1:
-            warnings.append(
-                f"strong secondary correlation peaks on "
-                f"{int(np.count_nonzero(strong))}/{len(pairs)} pairs "
-                f"(>= 60% of the primary): a co-channel emitter or "
-                f"strong multipath is present and the single-emitter "
-                f"fix may belong to either source — rerun with "
-                f"--multi-emitter 2 to separate them"
+            win64 = np.asarray(tgt_window, np.float64)
+            cand = top_k_peaks(win64, 2)
+            second_frac = cand.value[:, 1] / np.maximum(
+                cand.value[:, 0], 1e-30
             )
-        # In-peak multipath detector: an echo INSIDE the correlation
-        # peak width merges with the direct path — no secondary peak,
-        # no quality drop, and a 3-station fix absorbs the common bias
-        # with near-zero residual (a Monte Carlo silent miss, seed
-        # 6204). The merged lobe's shape gives it away: a clean GCC
-        # peak's power centroid is stable as the measuring window
-        # widens (|skew| change < 0.5 over L=20→60 on clean AND noisy
-        # scenes), while a direct+echo composite drags the centroid
-        # further with every widening (drift > 1.0 on 11/13 planted-
-        # echo scenes). Computed on the plain windows, so it stands
-        # down when motion smear explains the distortion (deramp) or a
-        # resolvable second source already fired the stronger warning.
-        # (IQ mode only: FM-mode audio correlation is plain-weighted and
-        # oversampled — its lobes are legitimately wide and asymmetric.)
-        if cfg.mode == "iq":
-            lobe_drift = _lobe_centroid_drift(win64)
-        else:
-            lobe_drift = np.zeros(len(pairs))
-        # Windows the echo-bias σ accounting reads: the REPORTED
-        # measurement's. A deramp adoption below swaps in the deramped
-        # windows (motion smear removed there — any residual centroid
-        # drag on them is echo, not motion).
-        echo_win = win64
+            strong = second_frac >= 0.6
+            secondary_fired = bool(
+                np.count_nonzero(strong) >= max(1, (len(pairs) + 1) // 2)
+            )
+            if secondary_fired and cfg.multi_emitter == 1:
+                warnings.append(
+                    f"strong secondary correlation peaks on "
+                    f"{int(np.count_nonzero(strong))}/{len(pairs)} pairs "
+                    f"(>= 60% of the primary): a co-channel emitter or "
+                    f"strong multipath is present and the single-emitter "
+                    f"fix may belong to either source — rerun with "
+                    f"--multi-emitter 2 to separate them"
+                )
+            # In-peak multipath detector: an echo INSIDE the correlation
+            # peak width merges with the direct path — no secondary peak,
+            # no quality drop, and a 3-station fix absorbs the common bias
+            # with near-zero residual (a Monte Carlo silent miss, seed
+            # 6204). The merged lobe's shape gives it away: a clean GCC
+            # peak's power centroid is stable as the measuring window
+            # widens (|skew| change < 0.5 over L=20→60 on clean AND noisy
+            # scenes), while a direct+echo composite drags the centroid
+            # further with every widening (drift > 1.0 on 11/13 planted-
+            # echo scenes). Computed on the plain windows, so it stands
+            # down when motion smear explains the distortion (deramp) or a
+            # resolvable second source already fired the stronger warning.
+            # (IQ mode only: FM-mode audio correlation is plain-weighted and
+            # oversampled — its lobes are legitimately wide and asymmetric.)
+            if cfg.mode == "iq":
+                lobe_drift = _lobe_centroid_drift(win64)
+            else:
+                lobe_drift = np.zeros(len(pairs))
+            # Windows the echo-bias σ accounting reads: the REPORTED
+            # measurement's. A deramp adoption below swaps in the deramped
+            # windows (motion smear removed there — any residual centroid
+            # drag on them is echo, not motion).
+            echo_win = win64
 
-        q = np.asarray(quality[1], np.float64)
-        # Quadratic quality weighting with a hard gate: a pair whose
-        # correlation peak barely clears the sidelobe floor carries no
-        # usable timing — letting it vote at all can drag the solve by
-        # hundreds of km (its residual is unbounded). Gate only while
-        # enough healthy pairs remain to fix a position.
-        w = (q / np.maximum(q.max(), 1e-9)) ** 2
-        gated = w * (q >= 5.0)
-        if np.count_nonzero(gated) >= min(3, len(pairs)):
-            w = gated
+            q = np.asarray(quality[1], np.float64)
+            # Quadratic quality weighting with a hard gate: a pair whose
+            # correlation peak barely clears the sidelobe floor carries no
+            # usable timing — letting it vote at all can drag the solve by
+            # hundreds of km (its residual is unbounded). Gate only while
+            # enough healthy pairs remain to fix a position.
+            w = (q / np.maximum(q.max(), 1e-9)) ** 2
+            gated = w * (q >= 5.0)
+            if np.count_nonzero(gated) >= min(3, len(pairs)):
+                w = gated
         with stage("solve"):
             fix = solve_fix(
                 lla,
@@ -1873,103 +1892,105 @@ class TDOAProcessor:
         echo_ratio = None
         echo_env_confirmed = False
         if cfg.mode == "iq" and cfg.multipath_mitigation:
-            # Honest echo-bias accounting, CONTINUOUS (not gated on the
-            # warning threshold): the centroid-offset statistic maps
-            # each pair's lobe contamination to a calibrated σ addend,
-            # plus a scene floor once any pair confirms an echo
-            # environment (dsp/multipath.py echo_bias_sigma — the
-            # calibration table and the measured evidence that delay
-            # RE-ESTIMATION is worse than the plain GCC-HT read live
-            # there). Clean scenes stay untouched (offset < knee).
-            # Runs UNCONDITIONALLY on ``echo_win`` — the reported
-            # measurement's windows — because the statistic is
-            # self-gating (clean lobes sit under the knee) while the
-            # old motion/secondary stand-down gates silenced it on
-            # exactly the scenes that needed it (round-4 calibration:
-            # 2 of 3 uncovered multipath tail trials were strong
-            # echoes whose 60%+ secondary peaks fired secondary_fired,
-            # which then suppressed the σ accounting on the reported
-            # single-emitter fix). An adopted deramp reads the
-            # DERAMPED windows, where a true mover's lobes are clean
-            # (offset ~0 ⇒ no inflation) and only genuine echo drag
-            # survives; a non-adopted deramp reports the plain set, so
-            # its plain-window drag — echo or residual motion smear —
-            # belongs in the reported error budget either way. A
-            # co-channel source OUTSIDE the lobe (distinct peak beyond
-            # ±60 lags) leaves the centroid alone; one inside it drags
-            # the reported fix exactly like an echo and is covered the
-            # same way.
-            from tdoa_tpu_torch.dsp.multipath import (
-                _ECHO_ENV_THRESHOLD,
-                REF_ECHO_CONSISTENCY_THRESHOLD,
-                echo_bias_sigma,
-                lobe_centroid_offset,
-                mitigate_flagged_pairs,
-                ref_lobe_echo_consistency,
-            )
+            with stage("multipath"):
+                # Honest echo-bias accounting, CONTINUOUS (not gated on the
+                # warning threshold): the centroid-offset statistic maps
+                # each pair's lobe contamination to a calibrated σ addend,
+                # plus a scene floor once any pair confirms an echo
+                # environment (dsp/multipath.py echo_bias_sigma — the
+                # calibration table and the measured evidence that delay
+                # RE-ESTIMATION is worse than the plain GCC-HT read live
+                # there). Clean scenes stay untouched (offset < knee).
+                # Runs UNCONDITIONALLY on ``echo_win`` — the reported
+                # measurement's windows — because the statistic is
+                # self-gating (clean lobes sit under the knee) while the
+                # old motion/secondary stand-down gates silenced it on
+                # exactly the scenes that needed it (round-4 calibration:
+                # 2 of 3 uncovered multipath tail trials were strong
+                # echoes whose 60%+ secondary peaks fired secondary_fired,
+                # which then suppressed the σ accounting on the reported
+                # single-emitter fix). An adopted deramp reads the
+                # DERAMPED windows, where a true mover's lobes are clean
+                # (offset ~0 ⇒ no inflation) and only genuine echo drag
+                # survives; a non-adopted deramp reports the plain set, so
+                # its plain-window drag — echo or residual motion smear —
+                # belongs in the reported error budget either way. A
+                # co-channel source OUTSIDE the lobe (distinct peak beyond
+                # ±60 lags) leaves the centroid alone; one inside it drags
+                # the reported fix exactly like an echo and is covered the
+                # same way.
+                from tdoa_tpu_torch.dsp.multipath import (
+                    _ECHO_ENV_THRESHOLD,
+                    REF_ECHO_CONSISTENCY_THRESHOLD,
+                    echo_bias_sigma,
+                    lobe_centroid_offset,
+                    mitigate_flagged_pairs,
+                    ref_lobe_echo_consistency,
+                )
 
-            # Environment confirmation for the σ floor: the drift
-            # statistic on the SAME windows the offset reads (equal to
-            # lobe_drift unless a deramp adoption swapped the windows).
-            drift_echo = (
-                lobe_drift if echo_win is win64
-                else _lobe_centroid_drift(echo_win)
-            )
-            off_echo = lobe_centroid_offset(echo_win)
-            # Third, INDEPENDENT confirmation lane (round 5): dual-REF
-            # lobe-shape consistency. A static station-local reflector
-            # marks BOTH REF blocks' lobes the same way (~1/3 capture
-            # apart) while noise jitter is independent between them —
-            # this sees echo environments whose TGT statistics stay
-            # inside clean ranges (the invisible-echo class; 14% of it
-            # detected at zero false positives over 80 clean scenes,
-            # REFECHO_PROBE.json). Premise: the reflectors are
-            # station-local, so the REF channel traverses them too.
-            cx_ref = win_c_np
-            s_ref = ref_lobe_echo_consistency(
-                np.abs(cx_ref[0]), np.abs(cx_ref[2])
-            )
-            ref_echo_env = bool(
-                s_ref.size
-                and float(s_ref.max()) > REF_ECHO_CONSISTENCY_THRESHOLD
-            )
-            # Scene-level echo-environment confirmation: any lane over
-            # its threshold. Drives the σ floor here AND the heavy-tail
-            # contour scales below.
-            echo_env_confirmed = bool(
-                (drift_echo.size and float(drift_echo.max()) > 1.0)
-                or (off_echo.size
-                    and float(off_echo.max()) > _ECHO_ENV_THRESHOLD)
-                or ref_echo_env
-            )
-            mp_sigma = echo_bias_sigma(
-                off_echo,
-                env_confirmed=bool(
-                    drift_echo.size and float(drift_echo.max()) > 1.0
-                ) or ref_echo_env,
-            )
-            if ref_echo_env:
-                k_r = int(np.argmax(s_ref))
-                i_r, j_r = pairs[k_r]
-                warnings.append(
-                    f"REF-block lobes carry a consistent echo signature "
-                    f"(dual-REF centroid consistency "
-                    f"{float(s_ref.max()):.2f} > "
-                    f"{REF_ECHO_CONSISTENCY_THRESHOLD} on "
-                    f"{names[i_r]}-{names[j_r]}): station-local "
-                    f"multipath environment — echo-bias σ floor applied "
-                    f"to every pair"
+                # Environment confirmation for the σ floor: the drift
+                # statistic on the SAME windows the offset reads (equal to
+                # lobe_drift unless a deramp adoption swapped the windows).
+                drift_echo = (
+                    lobe_drift if echo_win is win64
+                    else _lobe_centroid_drift(echo_win)
                 )
-            if np.any(mp_sigma > 0):
-                multipath_sigma = mp_sigma
-                # Pre-inflation noise σ: the independent part of the
-                # station-correlated covariance rebuilt after
-                # _analyze_fix (the echo part enters through the
-                # per-station bias model there, not this diagonal).
-                tdoa_noise_s = tdoa_std_s.copy()
-                tdoa_std_s = np.sqrt(
-                    tdoa_std_s ** 2 + (mp_sigma / cfg.sample_rate) ** 2
+                off_echo = lobe_centroid_offset(echo_win)
+                # Third, INDEPENDENT confirmation lane (round 5): dual-REF
+                # lobe-shape consistency. A static station-local reflector
+                # marks BOTH REF blocks' lobes the same way (~1/3 capture
+                # apart) while noise jitter is independent between them —
+                # this sees echo environments whose TGT statistics stay
+                # inside clean ranges (the invisible-echo class; 14% of it
+                # detected at zero false positives over 80 clean scenes,
+                # REFECHO_PROBE.json). Premise: the reflectors are
+                # station-local, so the REF channel traverses them too.
+                cx_ref = win_c_np
+                s_ref = ref_lobe_echo_consistency(
+                    np.abs(cx_ref[0]), np.abs(cx_ref[2])
                 )
+                ref_echo_env = bool(
+                    s_ref.size
+                    and float(s_ref.max()) > REF_ECHO_CONSISTENCY_THRESHOLD
+                )
+                # Scene-level echo-environment confirmation: any lane over
+                # its threshold. Drives the σ floor here AND the heavy-tail
+                # contour scales below.
+                echo_env_confirmed = bool(
+                    (drift_echo.size and float(drift_echo.max()) > 1.0)
+                    or (off_echo.size
+                        and float(off_echo.max()) > _ECHO_ENV_THRESHOLD)
+                    or ref_echo_env
+                )
+                mp_sigma = echo_bias_sigma(
+                    off_echo,
+                    env_confirmed=bool(
+                        drift_echo.size and float(drift_echo.max()) > 1.0
+                    ) or ref_echo_env,
+                )
+                if ref_echo_env:
+                    k_r = int(np.argmax(s_ref))
+                    i_r, j_r = pairs[k_r]
+                    warnings.append(
+                        f"REF-block lobes carry a consistent echo signature "
+                        f"(dual-REF centroid consistency "
+                        f"{float(s_ref.max()):.2f} > "
+                        f"{REF_ECHO_CONSISTENCY_THRESHOLD} on "
+                        f"{names[i_r]}-{names[j_r]}): station-local "
+                        f"multipath environment — echo-bias σ floor "
+                        f"applied to every pair"
+                    )
+                if np.any(mp_sigma > 0):
+                    multipath_sigma = mp_sigma
+                    # Pre-inflation noise σ: the independent part of the
+                    # station-correlated covariance rebuilt after
+                    # _analyze_fix (the echo part enters through the
+                    # per-station bias model there, not this diagonal).
+                    tdoa_noise_s = tdoa_std_s.copy()
+                    tdoa_std_s = np.sqrt(
+                        tdoa_std_s ** 2 + (mp_sigma / cfg.sample_rate) ** 2
+                    )
+            if multipath_sigma is not None:
                 with stage("re-solve (echo-bias σ)"):
                     fix = solve_fix(
                         lla, tdoa_s, weights=w, pair_idx=pairs,
@@ -1977,126 +1998,77 @@ class TDOAProcessor:
                     )
         if (not motion_detected and not secondary_fired
                 and np.max(lobe_drift) > 1.0):
-            k_d = int(np.argmax(lobe_drift))
-            i_d, j_d = pairs[k_d]
-            flagged = lobe_drift > 1.0
-            multipath_flagged = flagged.copy()
-            n_d = int(np.count_nonzero(flagged))
-            # Diagnose the flagged lobes: the two-path decomposition's
-            # SEPARATION and amplitude ratio are template-bias-free
-            # (differences), so they reliably measure the echo's
-            # geometry even though its absolute positions must not
-            # replace the TDOA (dsp/multipath.py evidence table).
-            fits = [None] * len(pairs)
-            if cfg.multipath_mitigation:
-                cx = win_c_np  # [3 (block), m, W]
-                _, _, fits = mitigate_flagged_pairs(
-                    cx[1], flagged, q, lobe_drift, cfg.max_lag,
-                    ref_win_c=cx[[0, 2]],
+            with stage("multipath"):
+                k_d = int(np.argmax(lobe_drift))
+                i_d, j_d = pairs[k_d]
+                flagged = lobe_drift > 1.0
+                multipath_flagged = flagged.copy()
+                n_d = int(np.count_nonzero(flagged))
+                # Diagnose the flagged lobes: the two-path decomposition's
+                # SEPARATION and amplitude ratio are template-bias-free
+                # (differences), so they reliably measure the echo's
+                # geometry even though its absolute positions must not
+                # replace the TDOA (dsp/multipath.py evidence table).
+                fits = [None] * len(pairs)
+                if cfg.multipath_mitigation:
+                    cx = win_c_np  # [3 (block), m, W]
+                    _, _, fits = mitigate_flagged_pairs(
+                        cx[1], flagged, q, lobe_drift, cfg.max_lag,
+                        ref_win_c=cx[[0, 2]],
+                    )
+                detail = []
+                for k in np.flatnonzero(flagged):
+                    fit = fits[k]
+                    if fit is None or not fit.decisive:
+                        continue
+                    if echo_sep is None:
+                        echo_sep = np.full(len(pairs), np.nan)
+                        echo_ratio = np.full(len(pairs), np.nan)
+                    echo_sep[k] = fit.separation
+                    echo_ratio[k] = fit.echo_ratio
+                    excess_km = (fit.separation / cfg.sample_rate
+                                 * SPEED_OF_LIGHT / 1000.0)
+                    detail.append(
+                        f"{names[pairs[k][0]]}-{names[pairs[k][1]]}: echo "
+                        f"{fit.separation:.1f} samples (~{excess_km:.1f} km "
+                        f"excess path) at {fit.echo_ratio:.2f} relative "
+                        f"amplitude"
+                    )
+                sigma_note = (
+                    "the error budget carries the calibrated echo-bias σ "
+                    "(multipath_sigma_samples) and the position was "
+                    "re-solved with it"
+                    if multipath_sigma is not None
+                    else "enable multipath_mitigation to fold the "
+                         "calibrated echo-bias σ into the error budget"
                 )
-            detail = []
-            for k in np.flatnonzero(flagged):
-                fit = fits[k]
-                if fit is None or not fit.decisive:
-                    continue
-                if echo_sep is None:
-                    echo_sep = np.full(len(pairs), np.nan)
-                    echo_ratio = np.full(len(pairs), np.nan)
-                echo_sep[k] = fit.separation
-                echo_ratio[k] = fit.echo_ratio
-                excess_km = (fit.separation / cfg.sample_rate
-                             * SPEED_OF_LIGHT / 1000.0)
-                detail.append(
-                    f"{names[pairs[k][0]]}-{names[pairs[k][1]]}: echo "
-                    f"{fit.separation:.1f} samples (~{excess_km:.1f} km "
-                    f"excess path) at {fit.echo_ratio:.2f} relative "
-                    f"amplitude"
+                diag_note = (
+                    " — two-path diagnosis: " + "; ".join(detail)
+                    if detail else ""
                 )
-            sigma_note = (
-                "the error budget carries the calibrated echo-bias σ "
-                "(multipath_sigma_samples) and the position was "
-                "re-solved with it"
-                if multipath_sigma is not None
-                else "enable multipath_mitigation to fold the "
-                     "calibrated echo-bias σ into the error budget"
-            )
-            diag_note = (
-                " — two-path diagnosis: " + "; ".join(detail)
-                if detail else ""
-            )
-            warnings.append(
-                f"correlation main lobe is asymmetric on "
-                f"{n_d}/{len(pairs)} pairs (worst {names[i_d]}-"
-                f"{names[j_d]}, centroid drift "
-                f"{lobe_drift[k_d]:.1f} samples): in-peak multipath "
-                f"echo (or uncompensated emitter motion — rerun with "
-                f"--solve-velocity); {sigma_note}{diag_note}"
-            )
+                warnings.append(
+                    f"correlation main lobe is asymmetric on "
+                    f"{n_d}/{len(pairs)} pairs (worst {names[i_d]}-"
+                    f"{names[j_d]}, centroid drift "
+                    f"{lobe_drift[k_d]:.1f} samples): in-peak multipath "
+                    f"echo (or uncompensated emitter motion — rerun with "
+                    f"--solve-velocity); {sigma_note}{diag_note}"
+                )
         # The TDOA set is final now (plain or deramp-adopted): run the
         # consistency gate, outlier rejection, ghost/prior/power
         # analysis, and the out-of-prior warning on what will actually
         # be reported.
-        fix, w, excluded_stations, ghost_verdict = self._analyze_fix(
-            fix, w, tdoa_s, tdoa_std_s, names, pairs, lla, tgt, ref1,
-            warnings, deramp_note=deramp_note,
-            # Only Doppler the CAF deemed significant (> 2 grid bins —
-            # the same adaptive gate as the deramp decision) may rank
-            # ghost candidates: below it the "measured" Doppler is
-            # sub-bin interpolation noise and any verdict from it would
-            # be noise-driven.
-            fdoa_hz=nu_emitter if motion_detected else None,
-        )
-
-        if multipath_sigma is not None and fix.cov_en is not None:
-            # Fix-level echo covariance (round-4): echo biases live at
-            # STATIONS, so pairs sharing one are correlated — the
-            # independent per-pair model's multipath fix coverage sat
-            # at 72.7% 3σ while per-pair coverage was 95-96%.
-            # Apportion the calibrated per-pair σ addends to
-            # per-station biases (σ_pair² ≈ τ_i² + τ_j²) and rebuild
-            # the FINAL fix's covariance (post ghost swaps/exclusions,
-            # final weights) with the sandwich model; every internal
-            # re-solve keeps the cheap independent model — only the
-            # reported ellipse changes.
-            from tdoa_tpu_torch.dsp.multipath import (
-                STATION_BIAS_FIX_INFLATION,
-                STATION_BIAS_FIX_INFLATION_CONFIRMED,
-                station_bias_apportion,
+        with stage("analyze"):
+            fix, w, excluded_stations, ghost_verdict = self._analyze_fix(
+                fix, w, tdoa_s, tdoa_std_s, names, pairs, lla, tgt, ref1,
+                warnings, deramp_note=deramp_note,
+                # Only Doppler the CAF deemed significant (> 2 grid bins —
+                # the same adaptive gate as the deramp decision) may rank
+                # ghost candidates: below it the "measured" Doppler is
+                # sub-bin interpolation noise and any verdict from it would
+                # be noise-driven.
+                fdoa_hz=nu_emitter if motion_detected else None,
             )
-            from tdoa_tpu_torch.solve.multilateration import (
-                error_ellipse,
-                fix_covariance_enu_correlated,
-            )
-
-            # One γ for every echo-engaged fix (round-5: the two tiers
-            # are equal — the maha tail lives in the UNCONFIRMED class,
-            # so a confirmed-only inflation could never reach it; the
-            # tail is covered by conf_scales below instead).
-            tau_m = (
-                (STATION_BIAS_FIX_INFLATION_CONFIRMED
-                 if echo_env_confirmed else STATION_BIAS_FIX_INFLATION)
-                * station_bias_apportion(pairs, len(names), multipath_sigma)
-                / cfg.sample_rate * SPEED_OF_LIGHT
-            )
-            cov_mp = fix_covariance_enu_correlated(
-                lla_to_enu(lla, fix.origin_lla), pairs, fix.enu,
-                tdoa_noise_s * SPEED_OF_LIGHT, tau_m, weights=w,
-            )
-            if np.all(np.isfinite(cov_mp)):
-                from tdoa_tpu_torch.dsp.multipath import ECHO_TAIL_CONF_SCALES
-
-                fix = dataclasses.replace(
-                    fix, cov_en=cov_mp, ellipse=error_ellipse(cov_mp),
-                    # EVERY echo-engaged fix carries the calibrated
-                    # heavy-tail contour scales: the kσ confidence
-                    # contour is the k·s_k ellipse. A single Gaussian
-                    # scale cannot calibrate both the echo-bias median
-                    # and its tail, and the tail's worst rows are the
-                    # UNCONFIRMED ones (TGT statistics under the env
-                    # thresholds) — so the scales must not be gated on
-                    # confirmation (round-5 fit, MULTIPATH_CAL_r05).
-                    conf_scales=ECHO_TAIL_CONF_SCALES,
-                )
 
         if cfg.solve_velocity:
             with stage("velocity"):
@@ -2155,33 +2127,90 @@ class TDOAProcessor:
                     caf_info, clock, lla, pairs, names, drift_ppm, lo_ppm,
                     win64, tdoa_std_s, tgt, warnings)
 
-        return TDOAResult(
-            fix=fix,
-            station_names=names,
-            pair_idx=pairs,
-            tgt_delay_samples=np.asarray(tgt_d, np.float64),
-            ref_delay_samples=ref_d,
-            clock_offset_samples=np.asarray(clock, np.float64),
-            corrected_tdoa_samples=corrected,
-            tdoa_seconds=tdoa_s,
-            quality=q,
-            peak_value=np.asarray(peaks[1], np.float64),
-            tdoa_std_s=tdoa_std_s,
-            clock_drift_ppm=drift_ppm,
-            warnings=warnings,
-            emitters=emitters,
-            velocity_enu=velocity_enu,
-            velocity_residual_hz=velocity_residual_hz,
-            velocity_sigma_enu=velocity_sigma,
-            fdoa_hz=fdoa_out,
-            excluded_stations=excluded_stations or None,
-            solve_weights=np.asarray(w, np.float64),
-            multipath_flagged=multipath_flagged,
-            multipath_sigma_samples=multipath_sigma,
-            multipath_echo_separation_samples=echo_sep,
-            multipath_echo_ratio=echo_ratio,
-            ghost=ghost_verdict,
-        )
+        # The fix's covariance is rebuilt last: velocity and the
+        # emitters read no covariance.
+        with stage("assemble"):
+            if multipath_sigma is not None and fix.cov_en is not None:
+                # Fix-level echo covariance (round-4): echo biases live at
+                # STATIONS, so pairs sharing one are correlated — the
+                # independent per-pair model's multipath fix coverage sat
+                # at 72.7% 3σ while per-pair coverage was 95-96%.
+                # Apportion the calibrated per-pair σ addends to
+                # per-station biases (σ_pair² ≈ τ_i² + τ_j²) and
+                # rebuild the FINAL fix's covariance (post ghost
+                # swaps/exclusions, final weights) with the sandwich
+                # model; every internal re-solve keeps the cheap
+                # independent model — only the reported ellipse changes.
+                from tdoa_tpu_torch.dsp.multipath import (
+                    STATION_BIAS_FIX_INFLATION,
+                    STATION_BIAS_FIX_INFLATION_CONFIRMED,
+                    station_bias_apportion,
+                )
+                from tdoa_tpu_torch.solve.multilateration import (
+                    error_ellipse,
+                    fix_covariance_enu_correlated,
+                )
+
+                # One γ for every echo-engaged fix (round-5: the two tiers
+                # are equal — the maha tail lives in the UNCONFIRMED class,
+                # so a confirmed-only inflation could never reach it; the
+                # tail is covered by conf_scales below instead).
+                tau_m = (
+                    (STATION_BIAS_FIX_INFLATION_CONFIRMED
+                     if echo_env_confirmed else STATION_BIAS_FIX_INFLATION)
+                    * station_bias_apportion(pairs, len(names),
+                                             multipath_sigma)
+                    / cfg.sample_rate * SPEED_OF_LIGHT
+                )
+                cov_mp = fix_covariance_enu_correlated(
+                    lla_to_enu(lla, fix.origin_lla), pairs, fix.enu,
+                    tdoa_noise_s * SPEED_OF_LIGHT, tau_m, weights=w,
+                )
+                if np.all(np.isfinite(cov_mp)):
+                    from tdoa_tpu_torch.dsp.multipath import (
+                        ECHO_TAIL_CONF_SCALES,
+                    )
+
+                    fix = dataclasses.replace(
+                        fix, cov_en=cov_mp, ellipse=error_ellipse(cov_mp),
+                        # EVERY echo-engaged fix carries the calibrated
+                        # heavy-tail contour scales: the kσ confidence
+                        # contour is the k·s_k ellipse. A single Gaussian
+                        # scale cannot calibrate both the echo-bias median
+                        # and its tail, and the tail's worst rows are the
+                        # UNCONFIRMED ones (TGT statistics under the env
+                        # thresholds) — so the scales must not be gated on
+                        # confirmation (round-5 fit, MULTIPATH_CAL_r05).
+                        conf_scales=ECHO_TAIL_CONF_SCALES,
+                    )
+
+            return TDOAResult(
+                fix=fix,
+                station_names=names,
+                pair_idx=pairs,
+                tgt_delay_samples=np.asarray(tgt_d, np.float64),
+                ref_delay_samples=ref_d,
+                clock_offset_samples=np.asarray(clock, np.float64),
+                corrected_tdoa_samples=corrected,
+                tdoa_seconds=tdoa_s,
+                quality=q,
+                peak_value=np.asarray(peaks[1], np.float64),
+                tdoa_std_s=tdoa_std_s,
+                clock_drift_ppm=drift_ppm,
+                warnings=warnings,
+                emitters=emitters,
+                velocity_enu=velocity_enu,
+                velocity_residual_hz=velocity_residual_hz,
+                velocity_sigma_enu=velocity_sigma,
+                fdoa_hz=fdoa_out,
+                excluded_stations=excluded_stations or None,
+                solve_weights=np.asarray(w, np.float64),
+                multipath_flagged=multipath_flagged,
+                multipath_sigma_samples=multipath_sigma,
+                multipath_echo_separation_samples=echo_sep,
+                multipath_echo_ratio=echo_ratio,
+                ghost=ghost_verdict,
+            )
 
     def process_files(self, dat_paths: Sequence[str]) -> TDOAResult:
         """Load ``.dat`` files (station identity from filenames) and
@@ -2232,6 +2261,7 @@ class TDOAProcessor:
         mmap'ed read-only — peak host memory is O(chunk), not
         O(capture). Standard IQ path only (fm/LO-compensation/velocity/
         multi-emitter need whole blocks on device and raise)."""
+        self.ingest_diag.clear()
         captures: Dict[str, HostCapture] = {}
         known = self.stations.names
         with self._stage("mmap"):
@@ -2257,7 +2287,10 @@ class TDOAProcessor:
                     u16=iq_bytes_as_u16(raw[: (raw.size // 2) * 2]),
                     block_len=raw.size // 2 // 3,
                 )
-        return self.process_captures(captures)
+        res = self.process_captures(captures)
+        with self._stage("unmap"):
+            captures.clear()  # the last references to the mmaps
+        return res
 
     def load_files(
         self, dat_paths: Sequence[str]
@@ -2269,6 +2302,7 @@ class TDOAProcessor:
         the block length from the file size: 3 blocks × 2 bytes per
         sample), else f32."""
         cfg = self.config
+        self.ingest_diag.clear()
         block_samples = [os.path.getsize(p) // (2 * 3)
                          for p in dat_paths if os.path.exists(p)]
         if cfg.truncate_samples is not None:
@@ -2299,6 +2333,6 @@ class TDOAProcessor:
                         f"(second: {path}); pass one file per station"
                     )
                 cap = load_dat(path, station=st, dtype=dtype,
-                               device=self.device)
+                               device=self.device, diag=self.ingest_diag)
                 captures[st] = (cap.ref1, cap.tgt, cap.ref2)
         return captures

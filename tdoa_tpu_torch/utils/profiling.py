@@ -7,13 +7,14 @@ Two layers:
   of everything inside it, the card's kernels included;
 - ``StageTimer``: wall-clock stage accounting whose stage edges
   synchronise the card, so stage times measure the work and not only its
-  launches under asynchronous execution.
+  launches under asynchronous execution. Each stage is also a
+  ``torch.profiler.record_function`` range, so a trace taken around the
+  run labels the host's time by stage.
 """
 
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import os
 import time
 from typing import Dict, List
@@ -41,42 +42,24 @@ def trace(log_dir: str):
         log_dir, f"trace-{os.getpid()}-{time.time_ns()}.json"))
 
 
-def _cuda_devices(x, out: set) -> set:
-    """The CUDA devices of every tensor in ``x`` (tensors, tuples, lists,
-    dicts, NamedTuples and dataclasses, nested)."""
-    if isinstance(x, torch.Tensor):
-        if x.is_cuda:
-            out.add(x.device)
-    elif isinstance(x, dict):
-        for v in x.values():
-            _cuda_devices(v, out)
-    elif isinstance(x, (tuple, list)):
-        for v in x:
-            _cuda_devices(v, out)
-    elif dataclasses.is_dataclass(x) and not isinstance(x, type):
-        for f in dataclasses.fields(x):
-            _cuda_devices(getattr(x, f.name), out)
-    return out
-
-
-def sync(x) -> None:
-    """Wait for the work producing ``x``: synchronise each card that holds
-    one of its tensors."""
-    for dev in _cuda_devices(x, set()):
-        torch.cuda.synchronize(dev)
+def range_label(name: str) -> str:
+    """A stage's name as a profiler range: ASCII, since the trace's
+    exporter names a range with other characters "unknown" ("re-solve
+    (echo-bias σ)" → "re-solve (echo-bias sigma)")."""
+    return name.replace("σ", "sigma").encode("ascii", "replace").decode()
 
 
 class StageTimer:
     """Accumulates (stage → seconds); each stage ends by synchronising
     the card (when CUDA is in use), so its time includes the device
-    work it launched.
+    work it launched, and is a profiler range named ``range_label``.
+    The report keeps the stages' own names.
 
     Usage::
 
         timer = StageTimer()
         with timer.stage("correlate"):
             out = correlate(...)
-            timer.observe(out)   # optional sync point inside the stage
     """
 
     def __init__(self):
@@ -85,20 +68,18 @@ class StageTimer:
 
     @contextlib.contextmanager
     def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if torch.cuda.is_initialized():
-                torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            if name not in self.times:
-                self.order.append(name)
-                self.times[name] = 0.0
-            self.times[name] += dt
-
-    def observe(self, x) -> None:
-        sync(x)
+        with torch.profiler.record_function(range_label(name)):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                if torch.cuda.is_initialized():
+                    torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                if name not in self.times:
+                    self.order.append(name)
+                    self.times[name] = 0.0
+                self.times[name] += dt
 
     def report(self) -> str:
         total = sum(self.times.values())
@@ -109,3 +90,28 @@ class StageTimer:
                 f"  {name:<20s} {t*1e3:8.1f} ms  ({100*t/max(total,1e-12):4.1f}%)"
             )
         return "\n".join(lines)
+
+
+# ``TDOAProcessor.ingest_diag``'s times, in report order, and their labels.
+_INGEST_TIMES = (("read_s", "file read"), ("h2d_s", "pageable copy"),
+                 ("gather_s", "gather"), ("wait_s", "pinned wait"),
+                 ("transfer_stream_s", "copy stream"))
+
+
+def ingest_report(diag: dict) -> str:
+    """A window's ingest counters (``TDOAProcessor.ingest_diag``) as
+    report lines: each time in ms, and the bytes copied to the card with
+    their rate over the copy's time (the pageable copy's host clock in
+    the batch ingest, the copy stream's in the overlapped one)."""
+    lines = [f"  {label:<20s} {diag[key] * 1e3:8.1f} ms"
+             for key, label in _INGEST_TIMES if diag.get(key) is not None]
+    if "h2d_bytes" in diag:
+        nbytes = diag["h2d_bytes"]
+        copy_s = diag.get("h2d_s", diag.get("transfer_stream_s"))
+        rate = (f"  ({nbytes / copy_s / 1e9:.2f} GB/s)"
+                if nbytes and copy_s else "")
+        lines.append(f"  {'bytes to the card':<20s} {nbytes:d} B{rate}")
+    if "n_chunks" in diag:
+        lines.append(f"  {'chunks':<20s} {diag['n_chunks']} of "
+                     f"{diag['chunk_segs']} segments")
+    return "\n".join(lines)

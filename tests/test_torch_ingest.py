@@ -178,7 +178,7 @@ def test_overlapped_matches_jax(small_scene):
     assert _fix_error_m(rt.fix) < 150.0
     assert np.all(rt.tdoa_std_s > 0)
     d = proc.ingest_diag
-    assert d["mode"] == "chunked" and d["transfer_stream_s"] is None
+    assert d["transfer_stream_s"] is None
     assert d["n_chunks"] == len(tingest.plan_chunks(1 << 17, 1 << 14)[1])
 
 

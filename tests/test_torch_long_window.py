@@ -130,7 +130,8 @@ def test_load_files_decides_a_100s_block_from_the_file_size(
     decode and block split, traced on the file's length alone)."""
     asked = {}
 
-    def port_load(path, station="", dtype=torch.float32, device=None):
+    def port_load(path, station="", dtype=torch.float32, device=None,
+                  diag=None):
         asked.setdefault("port", []).append(dtype)
         z = torch.zeros(2, 1, dtype=dtype)
         return DatCapture(z, z, z, path, station)
