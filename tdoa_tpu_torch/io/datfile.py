@@ -91,34 +91,131 @@ class DatCapture:
     station: str = ""
 
 
+# The batch ingest's host ring on a card: slots of pinned memory that
+# each file's bytes pass through on their way to the device.
+RING_SLOTS = 3
+RING_CHUNK_BYTES = 16 << 20
+
+
+def _read_exactly(f, view: memoryview) -> None:
+    """Fill ``view`` from the unbuffered file ``f``."""
+    got = 0
+    while got < len(view):
+        n = f.readinto(view[got:])
+        if not n:
+            raise EOFError(f"{f.name}: ended {len(view) - got} bytes early")
+        got += n
+
+
+class _ChunkRing:
+    """Reused host buffers that files are read into chunk by chunk, each
+    chunk copied on to its place in a device buffer while the next one
+    is read. On a card the slots are pinned, and each has an event,
+    "this slot's last copy has finished", that the host waits on before
+    it reads into the slot again; elsewhere they are plain memory and a
+    copy is done when it returns. The ring runs on from one file to the
+    next without draining."""
+
+    def __init__(self, device, chunk_bytes: int = RING_CHUNK_BYTES,
+                 slots: int = RING_SLOTS):
+        self.device = torch.device(device)
+        pinned = self.device.type == "cuda"
+        self.slots = [torch.empty(chunk_bytes, dtype=torch.uint8,
+                                  pin_memory=pinned) for _ in range(slots)]
+        self.views = [memoryview(s.numpy()) for s in self.slots]
+        self.events = ([torch.cuda.Event() for _ in range(slots)]
+                       if pinned else None)
+        # Pinned buffers made and not yet counted by ``stream``.
+        self.allocs = slots if pinned else 0
+        self.next = 0
+
+    def _wait(self, i: int) -> float:
+        """Host seconds spent waiting for slot ``i``'s last copy."""
+        if self.events is None:
+            return 0.0
+        t0 = time.perf_counter()
+        self.events[i].synchronize()
+        return time.perf_counter() - t0
+
+    def stream(self, f, dst: torch.Tensor) -> dict:
+        """Read ``dst.numel()`` bytes of the unbuffered file ``f`` into
+        ``dst`` (u8) through the ring. Returns the counts of
+        ``load_dat``'s ``diag``, without ``h2d_bytes``."""
+        counts = {"read_s": 0.0, "h2d_s": 0.0, "staged_chunks": 0,
+                  "pinned_allocs": self.allocs}
+        self.allocs = 0
+        cuda_stream = (torch.cuda.current_stream(self.device)
+                       if self.events is not None else None)
+        off, total = 0, dst.numel()
+        while off < total:
+            i = self.next
+            self.next = (i + 1) % len(self.slots)
+            counts["h2d_s"] += self._wait(i)
+            n = min(len(self.views[i]), total - off)
+            t0 = time.perf_counter()
+            _read_exactly(f, self.views[i][:n])
+            counts["read_s"] += time.perf_counter() - t0
+            dst[off:off + n].copy_(self.slots[i][:n], non_blocking=True)
+            if cuda_stream is not None:
+                self.events[i].record(cuda_stream)
+            off += n
+            counts["staged_chunks"] += 1
+        return counts
+
+    def drain(self) -> float:
+        """Host seconds spent waiting for every slot's last copy."""
+        return sum(self._wait(i) for i in range(len(self.slots)))
+
+
 def load_dat(path: str, station: str = "",
              dtype: torch.dtype = torch.float32,
              device: Optional[torch.device] = None,
-             diag: Optional[dict] = None) -> DatCapture:
+             diag: Optional[dict] = None,
+             ring: Optional[_ChunkRing] = None) -> DatCapture:
     """Load a ``.dat`` file and decode it on ``device`` (default: the
     card, ``utils.platform.default_device``) into planar ``dtype``
-    blocks. Only whole ``3 × (I, Q)`` sample groups are kept.
+    blocks. Only whole ``3 × (I, Q)`` sample groups are read and kept.
+
+    On a card the bytes pass through ``ring``, a ``_ChunkRing`` that a
+    caller keeps across files and windows (one made for this call when
+    none is given): each chunk's copy to the device buffer overlaps the
+    next chunk's read, and the decode is enqueued behind the last copy,
+    so it overlaps whatever the host does next. On the CPU the bytes
+    are read straight into the buffer the decode reads, unless a ring
+    is given.
 
     ``diag``, when given, gains (added to what it holds): ``read_s``,
-    the host clock around the file read; ``h2d_s``, the host clock
-    around the pageable copy to ``device``, which returns once the copy
-    is done; ``h2d_bytes``, the bytes copied to the card (0 on the
-    CPU)."""
+    the host clock around the file reads; ``h2d_s``, the host clock
+    spent waiting for copies to the card (for a ring slot's earlier
+    copy and, with a ring of this call's own, for the last one);
+    ``h2d_bytes``, the bytes copied to the card (0 on the CPU);
+    ``staged_chunks``, the chunks that went through a ring;
+    ``pinned_allocs``, the pinned buffers allocated."""
     if device is None:
         device = default_device()
-    t0 = time.perf_counter()
-    raw = np.fromfile(path, dtype=np.uint8)
-    t1 = time.perf_counter()
-    usable = (raw.size // (2 * NUM_BLOCKS)) * (2 * NUM_BLOCKS)
-    dev_raw = torch.from_numpy(raw[:usable]).to(device)
-    if diag is not None:
-        t2 = time.perf_counter()
-        diag["read_s"] = diag.get("read_s", 0.0) + (t1 - t0)
-        diag["h2d_s"] = diag.get("h2d_s", 0.0) + (t2 - t1)
-        diag["h2d_bytes"] = diag.get("h2d_bytes", 0) + (
-            usable if dev_raw.is_cuda else 0)
+    device = torch.device(device)
+    own_ring = ring is None and device.type == "cuda"
+    if own_ring:
+        ring = _ChunkRing(device)
+    with open(path, "rb", buffering=0) as f:
+        size = os.fstat(f.fileno()).st_size
+        usable = (size // (2 * NUM_BLOCKS)) * (2 * NUM_BLOCKS)
+        dev_raw = torch.empty(usable, dtype=torch.uint8, device=device)
+        if ring is not None:
+            counts = ring.stream(f, dev_raw)
+        else:
+            t0 = time.perf_counter()
+            _read_exactly(f, memoryview(dev_raw.numpy()))
+            counts = {"read_s": time.perf_counter() - t0, "h2d_s": 0.0,
+                      "staged_chunks": 0, "pinned_allocs": 0}
     iq = bytes_to_iq_planar(dev_raw, dtype)
     ref1, tgt, ref2 = split_blocks(iq)
+    if own_ring:
+        counts["h2d_s"] += ring.drain()
+    if diag is not None:
+        counts["h2d_bytes"] = usable if dev_raw.is_cuda else 0
+        for key, value in counts.items():
+            diag[key] = diag.get(key, 0) + value
     return DatCapture(ref1=ref1, tgt=tgt, ref2=ref2, path=path,
                       station=station)
 

@@ -41,6 +41,7 @@ import torch
 from tdoa_tpu_torch.dsp.multipath import lobe_centroid_drift as _lobe_centroid_drift
 from tdoa_tpu_torch.geo import lla_to_ecef, lla_to_enu
 from tdoa_tpu_torch.io.datfile import (
+    _ChunkRing,
     iq_bytes_as_u16,
     load_dat,
     u16_to_iq_planar,
@@ -530,11 +531,20 @@ class TDOAProcessor:
             else default_device()
         # What this window's ingest did, cleared as each ``load_files``
         # and ``process_files_overlapped`` starts: the batch ingest's
-        # ``read_s``, ``h2d_s`` and ``h2d_bytes`` (``load_dat``'s
-        # ``diag``); the overlapped ingest's chunk size and count,
-        # ``gather_s``, ``wait_s``, ``h2d_bytes`` and
-        # ``transfer_stream_s`` (``ingest_overlapped``'s ``diag``).
+        # ``read_s`` (the file reads), ``h2d_s`` (the host's waits for
+        # the copies through the ring, the last one included),
+        # ``h2d_bytes``, ``staged_chunks`` (the chunks through the
+        # ring, 0 on the CPU) and ``pinned_allocs`` (the ring's pinned
+        # buffers made this window: all of them on the first window on
+        # a card, 0 after) (``load_dat``'s ``diag``); the overlapped
+        # ingest's chunk size and count, ``gather_s``, ``wait_s``,
+        # ``h2d_bytes`` and ``transfer_stream_s``
+        # (``ingest_overlapped``'s ``diag``).
         self.ingest_diag: dict = {}
+        # The batch ingest's pinned ring (``load_dat``), made by the
+        # first ``load_files`` on a card and kept for the processor's
+        # life; none on the CPU.
+        self._ring: Optional[_ChunkRing] = None
         # Optional per-stage wall-clock accounting: any object whose
         # ``stage(name)`` is a context manager around one stage, e.g.
         # utils.profiling.StageTimer. The stages of a window follow one
@@ -2300,7 +2310,13 @@ class TDOAProcessor:
         operand storage, when they will run (the ``_fused_eligible``
         predicate of process_captures' accumulator="auto" decision, with
         the block length from the file size: 3 blocks × 2 bytes per
-        sample), else f32."""
+        sample), else f32.
+
+        On a card the files are read in chunks through the processor's
+        pinned ring (``load_dat``), one file after another without
+        draining it, each chunk's copy and each file's decode enqueued
+        behind the read; the host waits for the last copy at the end.
+        The ring is made by the first such window and reused after."""
         cfg = self.config
         self.ingest_diag.clear()
         block_samples = [os.path.getsize(p) // (2 * 3)
@@ -2317,6 +2333,8 @@ class TDOAProcessor:
         captures: Dict[str, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
         known = self.stations.names
         with self._stage("load+decode"):
+            if self.device.type == "cuda" and self._ring is None:
+                self._ring = _ChunkRing(self.device)
             for path in dat_paths:
                 if not os.path.exists(path):
                     raise FileNotFoundError(
@@ -2333,6 +2351,9 @@ class TDOAProcessor:
                         f"(second: {path}); pass one file per station"
                     )
                 cap = load_dat(path, station=st, dtype=dtype,
-                               device=self.device, diag=self.ingest_diag)
+                               device=self.device, diag=self.ingest_diag,
+                               ring=self._ring)
                 captures[st] = (cap.ref1, cap.tgt, cap.ref2)
+            if self._ring is not None and captures:
+                self.ingest_diag["h2d_s"] += self._ring.drain()
         return captures

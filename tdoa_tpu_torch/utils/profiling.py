@@ -93,7 +93,7 @@ class StageTimer:
 
 
 # ``TDOAProcessor.ingest_diag``'s times, in report order, and their labels.
-_INGEST_TIMES = (("read_s", "file read"), ("h2d_s", "pageable copy"),
+_INGEST_TIMES = (("read_s", "file read"), ("h2d_s", "copy wait"),
                  ("gather_s", "gather"), ("wait_s", "pinned wait"),
                  ("transfer_stream_s", "copy stream"))
 
@@ -101,16 +101,22 @@ _INGEST_TIMES = (("read_s", "file read"), ("h2d_s", "pageable copy"),
 def ingest_report(diag: dict) -> str:
     """A window's ingest counters (``TDOAProcessor.ingest_diag``) as
     report lines: each time in ms, and the bytes copied to the card with
-    their rate over the copy's time (the pageable copy's host clock in
-    the batch ingest, the copy stream's in the overlapped one)."""
+    their rate over the ingest's time (the batch ingest's file reads and
+    waits for the copies, which overlap the copies; the overlapped
+    ingest's copy stream)."""
     lines = [f"  {label:<20s} {diag[key] * 1e3:8.1f} ms"
              for key, label in _INGEST_TIMES if diag.get(key) is not None]
     if "h2d_bytes" in diag:
         nbytes = diag["h2d_bytes"]
-        copy_s = diag.get("h2d_s", diag.get("transfer_stream_s"))
+        copy_s = (diag["read_s"] + diag.get("h2d_s", 0.0)
+                  if "read_s" in diag else diag.get("transfer_stream_s"))
         rate = (f"  ({nbytes / copy_s / 1e9:.2f} GB/s)"
                 if nbytes and copy_s else "")
         lines.append(f"  {'bytes to the card':<20s} {nbytes:d} B{rate}")
+    for key, label in (("staged_chunks", "ring chunks"),
+                       ("pinned_allocs", "pinned allocs")):
+        if key in diag:
+            lines.append(f"  {label:<20s} {diag[key]:d}")
     if "n_chunks" in diag:
         lines.append(f"  {'chunks':<20s} {diag['n_chunks']} of "
                      f"{diag['chunk_segs']} segments")

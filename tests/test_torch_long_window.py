@@ -131,7 +131,7 @@ def test_load_files_decides_a_100s_block_from_the_file_size(
     asked = {}
 
     def port_load(path, station="", dtype=torch.float32, device=None,
-                  diag=None):
+                  diag=None, ring=None):
         asked.setdefault("port", []).append(dtype)
         z = torch.zeros(2, 1, dtype=dtype)
         return DatCapture(z, z, z, path, station)
