@@ -15,8 +15,10 @@ block, ``--solve-velocity`` adds the CAF/FDOA emitter velocity and
 device chunk by chunk (``TDOAProcessor.process_files_overlapped``).
 ``--geojson PATH`` also writes the result as a GeoJSON FeatureCollection
 (``io/geojson.py``). ``--profile`` prints per-stage timings (each stage
-ends with the card synchronised) and the window's ingest counters (times,
-bytes to the card and their GB/s) to stderr; ``--trace DIR`` writes a
+ends with the card synchronised), the window's ingest counters (times,
+bytes to the card and their GB/s) and what the stage "checks" counted
+(the outputs' fetch to the host, its bytes, the pairs correlated and
+weighted) to stderr; ``--trace DIR`` writes a
 ``torch.profiler`` Chrome trace of the run, the card's kernels and a
 range per stage included, into DIR (``utils/profiling.py``).
 """
@@ -150,7 +152,8 @@ def main(argv=None) -> int:
           f"(ref {args.ref_freq/1e6:.4f} MHz, target "
           f"{args.target_freq/1e6:.4f} MHz)",
           file=sys.stderr if args.json else sys.stdout)
-    from tdoa_tpu_torch.utils.profiling import StageTimer, ingest_report, trace
+    from tdoa_tpu_torch.utils.profiling import (
+        StageTimer, checks_report, ingest_report, trace)
 
     if args.profile or args.trace:
         proc.timer = StageTimer()
@@ -166,6 +169,8 @@ def main(argv=None) -> int:
     if args.profile:
         print("stage timings:\n" + proc.timer.report(), file=sys.stderr)
         print("ingest counters:\n" + ingest_report(proc.ingest_diag),
+              file=sys.stderr)
+        print("checks counters:\n" + checks_report(proc.ingest_diag),
               file=sys.stderr)
     names = res.station_names
     fix = res.fix

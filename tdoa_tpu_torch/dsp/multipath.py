@@ -77,20 +77,46 @@ def lobe_centroid_drift(win: np.ndarray, l_narrow: int = 20,
     at low peak-to-sidelobe, and a peak too close to the window edge
     returns 0 — a clamped one-sided wide window fakes drift ~1.4 on
     clean lobes)."""
-    out = []
-    for row in win:
-        c = _floor_subtracted_centroids(row, (l_wide, l_narrow))
-        out.append(0.0 if c is None else abs(c[0] - c[1]))
-    return np.asarray(out)
+    return lobe_centroid_drift_offset(win, l_narrow, l_wide)[0]
+
+
+def lobe_centroid_drift_offset(win: np.ndarray, l_narrow: int = 20,
+                               l_wide: int = 60
+                               ) -> Tuple[np.ndarray, np.ndarray]:
+    """(`lobe_centroid_drift`, `lobe_centroid_offset`) of the same
+    windows from one pass over them: the offset is the drift's wide
+    centroid, at the same floor and peak."""
+    cents = [c for c, _ in _floor_subtracted_centroids(win,
+                                                       (l_wide, l_narrow))]
+    return (np.asarray([0.0 if c is None else abs(c[0] - c[1])
+                        for c in cents]),
+            np.asarray([0.0 if c is None else abs(c[0]) for c in cents]))
+
+
+# Rows a pass of `_floor_subtracted_centroids` takes: a few ±max_lag
+# windows, so their magnitudes stay in cache between the passes (at 276
+# pairs × 40001 lags the whole-array passes ran ~2.5× slower).
+_ROW_CHUNK = 8
+
+
+def _row_medians(w: np.ndarray) -> np.ndarray:
+    """``np.median`` of each row of ``w`` [m, W], value for value, from
+    one partition of the rows."""
+    n = w.shape[-1]
+    k = n // 2
+    part = np.partition(w, k, axis=-1)
+    med = (part[:, k] if n % 2
+           else (np.max(part[:, :k], axis=-1) + part[:, k]) / 2.0)
+    return np.where(np.isnan(np.max(w, axis=-1)), np.nan, med)
 
 
 def _floor_subtracted_centroids(
-    row: np.ndarray, widths: Tuple[int, ...]
-) -> Optional[Tuple[float, ...]]:
-    """Power-centroid offsets (lags from the argmax) of one correlation
-    window at each half-width in ``widths`` — the shared core of the
-    drift and absolute-offset statistics, so their calibration
-    hardenings can never desynchronize:
+    win: np.ndarray, widths: Tuple[int, ...],
+) -> List[Tuple[Optional[Tuple[float, ...]], Optional[tuple]]]:
+    """Power-centroid offsets (lags from the argmax) of each correlation
+    window (the rows of ``win``) at each half-width in ``widths`` — the
+    shared core of the drift and absolute-offset statistics, so their
+    calibration hardenings can never desynchronize:
 
     - sidelobe-floor subtraction: the window is mostly floor, so its
       median estimates the floor robustly (the lobe occupies a few % of
@@ -99,20 +125,37 @@ def _floor_subtracted_centroids(
       the quality gate;
     - edge guard: every width must see a symmetric window around the
       peak (a clamped side drags the wide centroid one way on a CLEAN
-      lobe, faking drift ~1.4) — returns None when the widest cannot.
-    """
-    w = np.abs(row).astype(np.float64)  # real or complex windows
-    p = int(np.argmax(w))
-    if min(p, len(w) - 1 - p) < max(widths):
-        return None
-    v = np.maximum(w - np.median(w), 0.0)
+      lobe, faking drift ~1.4) — None for a row whose widest cannot.
 
-    def centroid(L):
-        seg = v[p - L:p + L + 1] ** 2
-        lags = np.arange(-L, L + 1)
-        return float(np.sum(lags * seg) / np.maximum(np.sum(seg), 1e-30))
+    The magnitudes are ``|win|`` in float64; complex64 windows (the
+    processor's lag windows) are widened to complex128 a chunk at a
+    time first, so they read as the float64 reference's. Returns per
+    row (the offsets, the magnitudes at the argmax and its two
+    neighbours, or None at an edge)."""
+    wide = max(widths)
+    out: List[Tuple[Optional[Tuple[float, ...]], Optional[tuple]]] = []
+    for r0 in range(0, len(win), _ROW_CHUNK):
+        chunk = win[r0:r0 + _ROW_CHUNK]
+        if chunk.dtype == np.complex64:
+            chunk = chunk.astype(np.complex128)
+        w = np.abs(chunk).astype(np.float64, copy=False)
+        for row, p, floor in zip(w, np.argmax(w, axis=-1).tolist(),
+                                 _row_medians(w)):
+            three = (tuple(row[p - 1:p + 2]) if 1 <= p <= len(row) - 2
+                     else None)
+            if min(p, len(row) - 1 - p) < wide:
+                out.append((None, three))
+                continue
+            v = np.maximum(row[p - wide:p + wide + 1] - floor, 0.0)
 
-    return tuple(centroid(L) for L in widths)
+            def centroid(L):
+                seg = v[wide - L:wide + L + 1] ** 2
+                lags = np.arange(-L, L + 1)
+                return float(np.sum(lags * seg)
+                             / np.maximum(np.sum(seg), 1e-30))
+
+            out.append((tuple(centroid(L) for L in widths), three))
+    return out
 
 
 # Wiring threshold for ref_lobe_echo_consistency (round-5 probe,
@@ -149,40 +192,36 @@ def ref_lobe_echo_consistency(
     reflectors are station-local so the REF channel traverses them
     too. Calibration/validation: scripts/refecho_probe.py.
     """
-    out = []
-    for r1, r2 in zip(win_ref1, win_ref2):
-        a = _centroid_minus_peak(r1, l_wide)
-        b = _centroid_minus_peak(r2, l_wide)
-        if a is None or b is None:
-            out.append(0.0)
-            continue
-        out.append(min(abs(a), abs(b)) if a * b > 0 else 0.0)
-    return np.asarray(out)
+    a = _centroids_minus_peak(win_ref1, l_wide)
+    b = _centroids_minus_peak(win_ref2, l_wide)
+    return np.asarray([
+        0.0 if x is None or y is None else
+        (min(abs(x), abs(y)) if x * y > 0 else 0.0) for x, y in zip(a, b)])
 
 
-def _centroid_minus_peak(row: np.ndarray, l_wide: int) -> Optional[float]:
-    """Signed wide-window power-centroid offset measured from the
-    PARABOLIC sub-sample peak, not the integer argmax. The true
-    delay's fractional part shifts argmax-relative centroids by up to
-    ~±0.8 sample — identically in both REF blocks (same geometry), so
-    it masquerades as a consistent deviation and sets the clean floor
+def _centroids_minus_peak(win: np.ndarray,
+                          l_wide: int) -> List[Optional[float]]:
+    """Signed wide-window power-centroid offset of each row of ``win``,
+    measured from the PARABOLIC sub-sample peak, not the integer argmax.
+    The true delay's fractional part shifts argmax-relative centroids by
+    up to ~±0.8 sample — identically in both REF blocks (same geometry),
+    so it masquerades as a consistent deviation and sets the clean floor
     of the consistency statistic (first probe run: clean max 0.80,
     invisible-echo detection 0/18). A clean symmetric lobe's centroid
     coincides with its parabolic vertex, so subtracting the vertex
     cancels the fractional offset while an echo's one-sided drag —
     which moves the wide centroid far more than the 3-point vertex —
     survives."""
-    c = _floor_subtracted_centroids(row, (l_wide,))
-    if c is None:
-        return None
-    w = np.abs(row).astype(np.float64)
-    p = int(np.argmax(w))
-    if p < 1 or p > len(w) - 2:
-        return None
-    y0, y1, y2 = w[p - 1], w[p], w[p + 1]
-    denom = y0 - 2.0 * y1 + y2
-    delta = 0.5 * (y0 - y2) / denom if abs(denom) > 1e-30 else 0.0
-    return float(c[0] - np.clip(delta, -1.0, 1.0))
+    out: List[Optional[float]] = []
+    for c, three in _floor_subtracted_centroids(win, (l_wide,)):
+        if c is None or three is None:
+            out.append(None)
+            continue
+        y0, y1, y2 = three
+        denom = y0 - 2.0 * y1 + y2
+        delta = 0.5 * (y0 - y2) / denom if abs(denom) > 1e-30 else 0.0
+        out.append(float(c[0] - np.clip(delta, -1.0, 1.0)))
+    return out
 
 
 def lobe_centroid_offset(win: np.ndarray, l_wide: int = 60) -> np.ndarray:
@@ -196,11 +235,9 @@ def lobe_centroid_offset(win: np.ndarray, l_wide: int = 60) -> np.ndarray:
     which a close echo cancels out of by dragging both windows), the
     absolute offset sees close and far echoes alike. Peaks too close to
     the window edge return 0 (no symmetric window)."""
-    out = []
-    for row in win:
-        c = _floor_subtracted_centroids(row, (l_wide,))
-        out.append(0.0 if c is None else abs(c[0]))
-    return np.asarray(out)
+    return np.asarray([
+        0.0 if c is None else abs(c[0])
+        for c, _ in _floor_subtracted_centroids(win, (l_wide,))])
 
 
 # echo_bias_sigma calibration — measured on 40 randomized Monte Carlo

@@ -33,12 +33,16 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from tdoa_tpu_torch.dsp.multipath import lobe_centroid_drift as _lobe_centroid_drift
+from tdoa_tpu_torch.dsp.multipath import (
+    lobe_centroid_drift as _lobe_centroid_drift,
+    lobe_centroid_drift_offset,
+)
 from tdoa_tpu_torch.geo import lla_to_ecef, lla_to_enu
 from tdoa_tpu_torch.io.datfile import (
     _ChunkRing,
@@ -539,12 +543,21 @@ class TDOAProcessor:
         # a card, 0 after) (``load_dat``'s ``diag``); the overlapped
         # ingest's chunk size and count, ``gather_s``, ``wait_s``,
         # ``h2d_bytes`` and ``transfer_stream_s``
-        # (``ingest_overlapped``'s ``diag``).
+        # (``ingest_overlapped``'s ``diag``). Then the stage "checks"
+        # sets ``fetch_s`` (the host clock around the fetch of the
+        # outputs to the host, the lag windows through pinned buffers),
+        # ``d2h_bytes`` (the bytes of that fetch, 0 on the CPU),
+        # ``pairs`` (pairs correlated) and ``pairs_weighted`` (pairs past
+        # the quality gate that the first solve weights).
         self.ingest_diag: dict = {}
         # The batch ingest's pinned ring (``load_dat``), made by the
         # first ``load_files`` on a card and kept for the processor's
         # life; none on the CPU.
         self._ring: Optional[_ChunkRing] = None
+        # The pinned host buffers the stage "checks" fetches the lag
+        # windows into (``_fetch_pinned``), one a name, kept while the
+        # shape holds.
+        self._pinned: Dict[str, torch.Tensor] = {}
         # Optional per-stage wall-clock accounting: any object whose
         # ``stage(name)`` is a context manager around one stage, e.g.
         # utils.profiling.StageTimer. The stages of a window follow one
@@ -555,6 +568,19 @@ class TDOAProcessor:
         # "multipath", "re-solve (echo-bias σ)", "analyze", "velocity",
         # "associate+solve-emitters", "assemble", "unmap".
         self.timer = None
+
+    def _fetch_pinned(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """``t`` on the host: a card's tensor through the pinned buffer
+        ``name``, which the next window overwrites, so nothing read from
+        it may outlive this window. (A pageable fetch of 24 stations'
+        lag windows, 309 MB, ran at ~2 GB/s.)"""
+        if t.device.type == "cpu":
+            return t
+        buf = self._pinned.get(name)
+        if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+            buf = self._pinned[name] = torch.empty(
+                t.shape, dtype=t.dtype, pin_memory=True)
+        return buf.copy_(t)
 
     def _stage(self, name: str):
         """The timer's stage ``name``, or nothing without a timer."""
@@ -1638,9 +1664,23 @@ class TDOAProcessor:
                     accumulator=accumulator,
                 )
         with stage("checks"):
-            (corrected, tgt_d, ref_d, clock, quality, peaks, corr_std,
-             tgt_window, tgt_std, win_c_blocks) = (t.cpu() for t in out)
-            win_c_np = win_c_blocks.numpy().astype(np.complex128)  # [3, m, W]
+            t_fetch = time.perf_counter()
+            *small, tgt_window, tgt_std, win_c_blocks = out
+            (corrected, tgt_d, ref_d, clock, quality, peaks,
+             corr_std) = (t.cpu() for t in small)
+            tgt_std = tgt_std.cpu()
+            # The two large outputs through pinned buffers, which the
+            # next window's fetch overwrites: what outlives this window
+            # is copied out of them (``win64``, the widened ``cx``), and
+            # the rest is read before it returns. The lag windows [3
+            # (block), m, W] complex64 are widened where read.
+            tgt_window = self._fetch_pinned("tgt_window", tgt_window)
+            win_c_blocks = self._fetch_pinned("win_c", win_c_blocks).numpy()
+            self.ingest_diag["fetch_s"] = time.perf_counter() - t_fetch
+            self.ingest_diag["d2h_bytes"] = sum(
+                t.numel() * t.element_size() for t in out
+                if t.device.type != "cpu")
+            self.ingest_diag["pairs"] = len(pairs)
             corrected = np.asarray(corrected, np.float64)
             tdoa_s = corrected / cfg.sample_rate
             tdoa_std_s = np.asarray(corr_std, np.float64) / cfg.sample_rate
@@ -1734,8 +1774,10 @@ class TDOAProcessor:
             # resolvable second source already fired the stronger warning.
             # (IQ mode only: FM-mode audio correlation is plain-weighted and
             # oversampled — its lobes are legitimately wide and asymmetric.)
+            # The echo-bias offset below reads the same windows' wide
+            # centroid: both come from one pass.
             if cfg.mode == "iq":
-                lobe_drift = _lobe_centroid_drift(win64)
+                lobe_drift, lobe_offset = lobe_centroid_drift_offset(win64)
             else:
                 lobe_drift = np.zeros(len(pairs))
             # Windows the echo-bias σ accounting reads: the REPORTED
@@ -1754,6 +1796,7 @@ class TDOAProcessor:
             gated = w * (q >= 5.0)
             if np.count_nonzero(gated) >= min(3, len(pairs)):
                 w = gated
+            self.ingest_diag["pairs_weighted"] = int(np.count_nonzero(w))
         with stage("solve"):
             fix = solve_fix(
                 lla,
@@ -1945,7 +1988,10 @@ class TDOAProcessor:
                     lobe_drift if echo_win is win64
                     else _lobe_centroid_drift(echo_win)
                 )
-                off_echo = lobe_centroid_offset(echo_win)
+                off_echo = (
+                    lobe_offset if echo_win is win64
+                    else lobe_centroid_offset(echo_win)
+                )
                 # Third, INDEPENDENT confirmation lane (round 5): dual-REF
                 # lobe-shape consistency. A static station-local reflector
                 # marks BOTH REF blocks' lobes the same way (~1/3 capture
@@ -1955,10 +2001,8 @@ class TDOAProcessor:
                 # detected at zero false positives over 80 clean scenes,
                 # REFECHO_PROBE.json). Premise: the reflectors are
                 # station-local, so the REF channel traverses them too.
-                cx_ref = win_c_np
                 s_ref = ref_lobe_echo_consistency(
-                    np.abs(cx_ref[0]), np.abs(cx_ref[2])
-                )
+                    win_c_blocks[0], win_c_blocks[2])
                 ref_echo_env = bool(
                     s_ref.size
                     and float(s_ref.max()) > REF_ECHO_CONSISTENCY_THRESHOLD
@@ -2021,7 +2065,7 @@ class TDOAProcessor:
                 # replace the TDOA (dsp/multipath.py evidence table).
                 fits = [None] * len(pairs)
                 if cfg.multipath_mitigation:
-                    cx = win_c_np  # [3 (block), m, W]
+                    cx = win_c_blocks.astype(np.complex128)
                     _, _, fits = mitigate_flagged_pairs(
                         cx[1], flagged, q, lobe_drift, cfg.max_lag,
                         ref_win_c=cx[[0, 2]],

@@ -75,7 +75,6 @@ def top_k_peaks(
     m, n = w.shape
     lags = np.zeros((m, k))
     vals = np.zeros((m, k))
-    idx_all = np.arange(n)
     for kk in range(k):
         idx = np.argmax(w, axis=-1)
         val = w[np.arange(m), idx]
@@ -90,7 +89,8 @@ def top_k_peaks(
         interior = (idx >= 1) & (idx <= n - 2)
         lags[:, kk] = idx + np.where(interior, off, 0.0)
         vals[:, kk] = np.where(val > 0, val, 0.0)
-        w[np.abs(idx_all[None, :] - idx[:, None]) <= guard] = -np.inf
+        for row, i in zip(w, idx.tolist()):  # the ±guard exclusion zone
+            row[max(i - guard, 0):i + guard + 1] = -np.inf
     return PeakCandidates(lag=lags, value=vals)
 
 

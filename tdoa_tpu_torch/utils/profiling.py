@@ -121,3 +121,21 @@ def ingest_report(diag: dict) -> str:
         lines.append(f"  {'chunks':<20s} {diag['n_chunks']} of "
                      f"{diag['chunk_segs']} segments")
     return "\n".join(lines)
+
+
+def checks_report(diag: dict) -> str:
+    """What the stage "checks" counted (``TDOAProcessor.ingest_diag``):
+    the outputs' fetch to the host in ms, with its bytes and their rate,
+    and the pairs correlated and weighted."""
+    lines = []
+    if diag.get("fetch_s") is not None:
+        nbytes = diag["d2h_bytes"]
+        rate = (f"  ({nbytes / diag['fetch_s'] / 1e9:.2f} GB/s)"
+                if nbytes and diag["fetch_s"] else "")
+        lines += [f"  {'fetch':<20s} {diag['fetch_s'] * 1e3:8.1f} ms",
+                  f"  {'bytes to the host':<20s} {nbytes:d} B{rate}"]
+    for key, label in (("pairs", "pairs"),
+                       ("pairs_weighted", "pairs weighted")):
+        if key in diag:
+            lines.append(f"  {label:<20s} {diag[key]:d}")
+    return "\n".join(lines)

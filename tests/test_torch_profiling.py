@@ -275,7 +275,10 @@ def test_load_dat_counts_the_usable_bytes_to_the_card(cuda_sm90, tmp_path):
     assert diag["read_s"] > 0.0 and diag["h2d_s"] > 0.0
 
 
-_KEYS = {"process_files": BATCH_KEYS, "process_files_overlapped": OVERLAP_KEYS}
+# What the stage "checks" adds to a whole window's counters.
+CHECK_KEYS = {"fetch_s", "d2h_bytes", "pairs", "pairs_weighted"}
+_KEYS = {"process_files": BATCH_KEYS | CHECK_KEYS,
+         "process_files_overlapped": OVERLAP_KEYS | CHECK_KEYS}
 
 
 @pytest.mark.parametrize("first,then", [
@@ -284,7 +287,8 @@ _KEYS = {"process_files": BATCH_KEYS, "process_files_overlapped": OVERLAP_KEYS}
 ], ids=["overlapped-then-files", "files-then-overlapped"])
 def test_ingest_diag_holds_the_last_window_only(files, first, then):
     """An overlapped window followed by a files window leaves no
-    ``gather_s`` behind, and the other way no ``read_s``."""
+    ``gather_s`` behind, and the other way no ``read_s``; each window
+    holds the stage "checks"' counters besides."""
     tp = TDOAProcessor.from_csv(*FREQS, CSV, device="cpu", **SMALL)
     getattr(tp, first)(files)
     assert set(tp.ingest_diag) == _KEYS[first]
