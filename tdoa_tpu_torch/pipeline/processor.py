@@ -47,7 +47,7 @@ from tdoa_tpu_torch.geo import lla_to_ecef, lla_to_enu
 from tdoa_tpu_torch.io.datfile import (
     _ChunkRing,
     iq_bytes_as_u16,
-    load_dat,
+    load_window,
     u16_to_iq_planar,
 )
 from tdoa_tpu_torch.io.stations import (
@@ -535,24 +535,27 @@ class TDOAProcessor:
             else default_device()
         # What this window's ingest did, cleared as each ``load_files``
         # and ``process_files_overlapped`` starts: the batch ingest's
-        # ``read_s`` (the file reads), ``h2d_s`` (the host's waits for
-        # the copies through the ring, the last one included),
-        # ``h2d_bytes``, ``staged_chunks`` (the chunks through the
-        # ring, 0 on the CPU) and ``pinned_allocs`` (the ring's pinned
-        # buffers made this window: all of them on the first window on
-        # a card, 0 after) (``load_dat``'s ``diag``); the overlapped
-        # ingest's chunk size and count, ``gather_s``, ``wait_s``,
-        # ``h2d_bytes`` and ``transfer_stream_s``
-        # (``ingest_overlapped``'s ``diag``). Then the stage "checks"
-        # sets ``fetch_s`` (the host clock around the fetch of the
-        # outputs to the host, the lag windows through pinned buffers),
+        # ``read_s`` (the time a file read was in progress),
+        # ``read_busy_s`` (the reads' times summed over the ring's
+        # readers), ``readers`` (the threads that read a chunk),
+        # ``h2d_s`` (the host's waits for the copies through the ring,
+        # the last ones included), ``h2d_bytes``, ``staged_chunks`` (the
+        # chunks through the ring, 0 on the CPU) and ``pinned_allocs``
+        # (the ring's pinned buffers made this window: all of them on
+        # the first window on a card, 0 after) (``load_window``'s
+        # ``diag``); the overlapped ingest's chunk size and count,
+        # ``gather_s``, ``wait_s``, ``h2d_bytes`` and
+        # ``transfer_stream_s`` (``ingest_overlapped``'s ``diag``).
+        # Then the stage "checks" sets ``fetch_s`` (the host clock
+        # around the fetch of the outputs to the host, the lag windows
+        # through pinned buffers),
         # ``d2h_bytes`` (the bytes of that fetch, 0 on the CPU),
         # ``pairs`` (pairs correlated) and ``pairs_weighted`` (pairs past
         # the quality gate that the first solve weights).
         self.ingest_diag: dict = {}
-        # The batch ingest's pinned ring (``load_dat``), made by the
-        # first ``load_files`` on a card and kept for the processor's
-        # life; none on the CPU.
+        # The batch ingest's pinned ring and its reader threads
+        # (``load_window``), made by the first ``load_files`` on a card
+        # and kept for the processor's life; none on the CPU.
         self._ring: Optional[_ChunkRing] = None
         # The pinned host buffers the stage "checks" fetches the lag
         # windows into (``_fetch_pinned``), one a name, kept while the
@@ -2357,10 +2360,12 @@ class TDOAProcessor:
         sample), else f32.
 
         On a card the files are read in chunks through the processor's
-        pinned ring (``load_dat``), one file after another without
-        draining it, each chunk's copy and each file's decode enqueued
-        behind the read; the host waits for the last copy at the end.
-        The ring is made by the first such window and reused after."""
+        pinned ring (``load_window``): its reader threads read the
+        window's chunks at once, in file order, each chunk's copy
+        enqueued behind its read and each file's decode behind its
+        copies; the host waits for the last copy at the end. The ring,
+        its readers and their slots are made by the first such window
+        and reused after."""
         cfg = self.config
         self.ingest_diag.clear()
         block_samples = [os.path.getsize(p) // (2 * 3)
@@ -2377,8 +2382,7 @@ class TDOAProcessor:
         captures: Dict[str, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
         known = self.stations.names
         with self._stage("load+decode"):
-            if self.device.type == "cuda" and self._ring is None:
-                self._ring = _ChunkRing(self.device)
+            stations = []
             for path in dat_paths:
                 if not os.path.exists(path):
                     raise FileNotFoundError(
@@ -2389,15 +2393,15 @@ class TDOAProcessor:
                         f"cannot infer station from filename: {path} "
                         f"(known stations: {', '.join(known)})"
                     )
-                if st in captures:
+                if st in stations:
                     raise ValueError(
                         f"two capture files resolve to station '{st}' "
                         f"(second: {path}); pass one file per station"
                     )
-                cap = load_dat(path, station=st, dtype=dtype,
-                               device=self.device, diag=self.ingest_diag,
-                               ring=self._ring)
-                captures[st] = (cap.ref1, cap.tgt, cap.ref2)
-            if self._ring is not None and captures:
-                self.ingest_diag["h2d_s"] += self._ring.drain()
+                stations.append(st)
+            if self.device.type == "cuda" and self._ring is None:
+                self._ring = _ChunkRing(self.device)
+            for cap in load_window(dat_paths, stations, dtype, self.device,
+                                   self.ingest_diag, self._ring):
+                captures[cap.station] = (cap.ref1, cap.tgt, cap.ref2)
         return captures

@@ -93,7 +93,8 @@ class StageTimer:
 
 
 # ``TDOAProcessor.ingest_diag``'s times, in report order, and their labels.
-_INGEST_TIMES = (("read_s", "file read"), ("h2d_s", "copy wait"),
+_INGEST_TIMES = (("read_s", "file read"), ("read_busy_s", "reads summed"),
+                 ("h2d_s", "copy wait"),
                  ("gather_s", "gather"), ("wait_s", "pinned wait"),
                  ("transfer_stream_s", "copy stream"))
 
@@ -113,7 +114,8 @@ def ingest_report(diag: dict) -> str:
         rate = (f"  ({nbytes / copy_s / 1e9:.2f} GB/s)"
                 if nbytes and copy_s else "")
         lines.append(f"  {'bytes to the card':<20s} {nbytes:d} B{rate}")
-    for key, label in (("staged_chunks", "ring chunks"),
+    for key, label in (("readers", "readers"),
+                       ("staged_chunks", "ring chunks"),
                        ("pinned_allocs", "pinned allocs")):
         if key in diag:
             lines.append(f"  {label:<20s} {diag[key]:d}")

@@ -629,7 +629,8 @@ def test_batch_route_below_both_needs_raises_before_the_decode(
                        f"{segmented / 1e9:.2f} GB.*{kernel / 1e9:.2f} GB free"):
         _on_card().batch_route(3, WINDOW_BLOCK)
     decoded = []
-    monkeypatch.setattr(tproc, "load_dat", lambda *a, **k: decoded.append(a))
+    monkeypatch.setattr(tproc, "load_window",
+                        lambda *a, **k: decoded.append(a))
     paths = []
     for name in ("kx0u", "n3pay", "kf0mtl"):
         path = tmp_path / f"{name}-1700000000.dat"

@@ -130,11 +130,11 @@ def test_load_files_decides_a_100s_block_from_the_file_size(
     decode and block split, traced on the file's length alone)."""
     asked = {}
 
-    def port_load(path, station="", dtype=torch.float32, device=None,
+    def port_load(paths, stations=None, dtype=torch.float32, device=None,
                   diag=None, ring=None):
-        asked.setdefault("port", []).append(dtype)
+        asked.setdefault("port", []).extend([dtype] * len(paths))
         z = torch.zeros(2, 1, dtype=dtype)
-        return DatCapture(z, z, z, path, station)
+        return [DatCapture(z, z, z, p, st) for p, st in zip(paths, stations)]
 
     def jax_load(path, station="", dtype=jnp.float32):
         asked.setdefault("jax", []).append(dtype)
@@ -148,7 +148,7 @@ def test_load_files_decides_a_100s_block_from_the_file_size(
         eligible[n_stations] = min_block_samples
         return port_eligible(self, n_stations, min_block_samples)
 
-    monkeypatch.setattr(tprocessor, "load_dat", port_load)
+    monkeypatch.setattr(tprocessor, "load_window", port_load)
     monkeypatch.setattr(tprocessor.TDOAProcessor, "_fused_eligible", spy)
     monkeypatch.setattr(jprocessor, "load_dat", jax_load)
     monkeypatch.setattr(jplatform, "on_tpu", lambda: True)

@@ -232,8 +232,8 @@ def test_no_timer_creates_no_cuda_event(files, monkeypatch, path):
     assert np.all(np.isfinite(call(tp, files).corrected_tdoa_samples))
 
 
-BATCH_KEYS = {"read_s", "h2d_s", "h2d_bytes", "staged_chunks",
-              "pinned_allocs"}
+BATCH_KEYS = {"read_s", "read_busy_s", "readers", "h2d_s", "h2d_bytes",
+              "staged_chunks", "pinned_allocs"}
 OVERLAP_KEYS = {"chunk_segs", "n_chunks", "gather_s", "wait_s", "h2d_bytes",
                 "transfer_stream_s"}
 
@@ -377,8 +377,9 @@ def test_cli_trace_alone_labels_the_stages(files, capsys, tmp_path, run):
 
 
 @pytest.mark.parametrize("run,lines", [
-    ("process_files", ["file read", "copy wait", "bytes to the card",
-                       "ring chunks", "pinned allocs"]),
+    ("process_files", ["file read", "reads summed", "copy wait",
+                       "bytes to the card", "readers", "ring chunks",
+                       "pinned allocs"]),
     ("process_files_overlapped", ["gather", "pinned wait",
                                   "bytes to the card", "chunks"]),
 ])
@@ -412,11 +413,13 @@ def test_range_label_is_ascii(name, label):
 
 
 @pytest.mark.parametrize("diag,want", [
-    ({"read_s": 0.2, "h2d_s": 0.05, "h2d_bytes": 360_000_000,
-      "staged_chunks": 24, "pinned_allocs": 0},
+    ({"read_s": 0.2, "read_busy_s": 0.7, "readers": 4, "h2d_s": 0.05,
+      "h2d_bytes": 360_000_000, "staged_chunks": 24, "pinned_allocs": 0},
      ["  file read               200.0 ms",
+      "  reads summed            700.0 ms",
       "  copy wait                50.0 ms",
       "  bytes to the card    360000000 B  (1.44 GB/s)",
+      "  readers              4",
       "  ring chunks          24",
       "  pinned allocs        0"]),
     ({"chunk_segs": 96, "n_chunks": 5, "gather_s": 0.09, "wait_s": 0.001,
