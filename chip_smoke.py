@@ -11,19 +11,16 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. build   — the three hand-written kernels from ``tdoa_tpu_torch/csrc/``
              (one nvcc per source, started together);
 3. kernels — each kernel against its plain torch version on the card
-             (kernel 1: 3 stations, K = 4, DC sums on, bf16, at 16
-             segments and at a 10 s block's 443 segments, whose banks
-             span many chunks (the resident branch; at 443 segments
-             also forced onto the streamed branch, which must give its
-             outputs bitwise), and 12 stations × 5 segments × K = 2, the
-             streamed branch (one item's accumulators a CTA while the
-             segments stream past), and at the streaming
+             (kernel 1, one item's accumulators a CTA while the
+             segments stream past: 3 stations, K = 4, DC sums on, bf16,
+             at 16 segments and at a 10 s block's 443 segments, and 12
+             stations × 5 segments × K = 2, and at the streaming
              shapes: one bank over 96 segments and over 59 segments (a
              capture's short last chunk), each on the overlapped
              ingest's 9 rows and on a tail session's 3; at phase 11's
              shapes: 12 stations × 443 segments × K = 4 (66 pairs in one
-             launch, the streamed branch at full length; also forced
-             into 2 tiles, bitwise the single launch), 16 and 24 stations
+             launch at full length; also forced into 2 tiles, bitwise
+             the single launch), 16 and 24 stations
              pair-tiled (2 and 6 launches), and the overlapped ingest's
              stacked rows of 12, 16 and 24 stations (198, 360 and 828
              pairs: a launch per 12-row block, 2 tiles per 16-row
@@ -32,9 +29,8 @@ Phases, each printing its own lines; any failure exits non-zero:
              step's 36 stacked f32 rows of 12 stations (a launch per
              12-row block) at a 2-rank chunk's 220 segments, one bank,
              and at its comparator's 440 segments, K = 4; at phase 12's
-             (a 100 s block: 1479 segments): 3 stations × K = 4 (the
-             resident branch; forced onto the streamed branch, bitwise
-             the same), 12 stations × K = 4 (streamed), and the block's
+             (a 100 s block: 1479 segments): 3 and 12 stations × K = 4,
+             and the block's
              short last chunk of 39 segments on 9 and 3 rows and on 12
              stations' 36 stacked rows; 24 stations × K = 4 (6 tiles)
              and the last chunk on their 72 stacked rows (18 launches);
@@ -64,8 +60,8 @@ Phases, each printing its own lines; any failure exits non-zero:
              larger): CUDA events around a loop of wrapper calls
              (``ms``, the host's share included where it is the slower
              side), and the kernel's own device time per call from
-             ``torch.profiler`` (``device_ms``); every kernel-1 entry
-             names the branch its launches took;
+             ``torch.profiler`` (``device_ms``; kernel 1's two stages
+             summed);
 4. slice   — a synthesized 3-station 30 s capture (three 10 s blocks of
              20 M samples, ``lat-lon-table.csv`` geometry, an FM-like
              source, per-station clock offsets, noise) written as u8
@@ -356,14 +352,16 @@ def _time_ms(fn, iters: int) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def _device_ms(fn, kernel: str, iters: int, tries: int = 3):
-    """The device time per launch of the CUDA kernel whose name contains
-    ``kernel`` (each wrapper call launches it once; the wrapper's other
-    ops are left out), from a ``torch.profiler`` trace of ``iters``
-    calls after a warm-up. Divided by the launches the trace holds: the
-    profiler can drop events of a cycle, and now and then a whole
-    trace's. A trace that holds none is taken again, up to ``tries``
-    traces; after that the time is None ("not measured", printed)."""
+def _device_ms(fn, kernel: str, iters: int, per_call: int = 1,
+               tries: int = 3):
+    """The device time per wrapper call of the CUDA kernels whose names
+    contain ``kernel`` (each call launches ``per_call`` of them; the
+    wrapper's other ops are left out), from a ``torch.profiler`` trace
+    of ``iters`` calls after a warm-up: the mean launch's time, times
+    ``per_call``. Divided by the launches the trace holds: the profiler
+    can drop events of a cycle, and now and then a whole trace's. A
+    trace that holds none is taken again, up to ``tries`` traces; after
+    that the time is None ("not measured", printed)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -379,7 +377,7 @@ def _device_ms(fn, kernel: str, iters: int, tries: int = 3):
                 if kernel in e.key and e.device_time_total > 0]
         if seen:
             return (sum(e.device_time_total for e in seen)
-                    / sum(e.count for e in seen) / 1e3)
+                    / sum(e.count for e in seen) / 1e3 * per_call)
     print(f"device time of {kernel}: not measured (the profiler saw none "
           f"of its launches in {tries} traces)")
     return None
@@ -512,33 +510,25 @@ def phase_kernels(dev):
             x[:, s] += 0.5 * torch.roll(x[:, 0], 11 * s - 70, dims=-1)
         return (0.3 * x + 0.01).to(torch.bfloat16).contiguous()
 
-    # Kernel 1 at the stated check shape (16 segments: one chunk), at the
-    # main path's (a 10 s block is 443 segments: chunks of bank_run
-    # segments from each of the banks 111/111/111/110, every CTA keeping
-    # its items' accumulators in shared memory across the chunks: the
-    # resident branch; forced onto the streamed branch, it must give the
-    # same outputs bitwise), and at 12 stations (66 pairs, 172 KB of
-    # accumulators an item: the streamed branch, one item a CTA while
-    # the bank's segments stream past). Each is launched twice: the
-    # outputs must be bitwise equal.
+    # Kernel 1 at the stated check shape (16 segments), at the main
+    # path's (a 10 s block is 443 segments in the banks 111/111/111/110),
+    # and at 12 stations (66 pairs, 172 KB of accumulators an item); each
+    # CTA holds one item while the bank's segments stream past. Each is
+    # launched twice: the outputs must be bitwise equal.
     # The streaming shapes come last: one bank (K = 1) over the stacked
     # 9 rows × 9 pairs of a default chunk and of a capture's short last
     # chunk, and the same two chunks over a tail session's 3 rows.
     k1_abs, k1_rel, k1_cfg = 0.0, 0.0, {}
     stream_x, stream_err = {}, {}
     # Shapes that no path launches (a check shape: 12 stations × 5
-    # segments): their branch, time, bound and plain time ride in the
-    # main entry, which the launch count needs no path for.
-    also_checked, forced = [], {}
-    for shape in ((3, 16, K, 3), BATCH_SHAPE, (12, 5, 2, 66),
-                  *STREAM_SHAPES):
+    # segments): their time, bound and plain time ride in the main
+    # entry, which the launch count needs no path for.
+    also_checked, check_shape = [], (12, 5, 2, 66)
+    for shape in ((3, 16, K, 3), BATCH_SHAPE, check_shape, *STREAM_SHAPES):
         n_st, n_seg, kb, _ = shape
         x = block(n_seg, n_st)
         pn = _pair_list(n_st, 3 if kb == 1 else 0)
-        cfg = corr_accum.kernel_config(n_st, pn, True, kb)
-        run = corr_accum.bank_run(n_st, kb, n_seg)
-        cfg.update(run=run, chunks=int(corr_accum.chunk_plan(
-            n_seg, kb, run).shape[0]))
+        cfg = corr_accum.kernel_config(n_st, pn, True)
         got = corr_accum.accumulate_banks(x, pn, kb, True)
         again = corr_accum.accumulate_banks(x, pn, kb, True)
         want = corr_accum.accumulate_banks_plain(x, pn, kb, True)
@@ -564,19 +554,7 @@ def phase_kernels(dev):
                                f"stations, {n_seg} segments")
         if shape == BATCH_SHAPE:
             x443, got443 = x, got
-            alt = corr_accum.accumulate_banks(x, pn, kb, True,
-                                              force_streamed=True)
-            torch.cuda.synchronize()
-            forced["bitwise"] = _same(alt, got)
-            print(f"  forced onto the streamed branch: bitwise the "
-                  f"{cfg['branch']} launch: {forced['bitwise']}")
-            if cfg["branch"] != "resident" or not forced["bitwise"]:
-                raise RuntimeError("corr_accum: the streamed branch differs "
-                                   "from the resident launch at 3 stations")
-            forced["ms"] = _time_ms(lambda: corr_accum.accumulate_banks(
-                x443, pn, kb, True, force_streamed=True), 5)
-            del alt
-        elif cfg["branch"] == "streamed":
+        elif shape == check_shape:
             also_checked.append(_entry(
                 f"corr_accum[{n_st}x{n_seg},K={kb},m={len(pn)}]",
                 *K1_SRC, shape, a_err,
@@ -584,7 +562,7 @@ def phase_kernels(dev):
                 lambda: corr_accum.accumulate_banks_plain(  # noqa: B023
                     x, pn, kb, True),  # noqa: B023
                 "corr_accum_kernel", _k1_bound(n_st, len(pn), n_seg, kb), 5,
-                launches_per_call=2, branch="streamed"))
+                launches_per_call=2))
         del want, again
     del x, got
 
@@ -666,7 +644,7 @@ def phase_kernels(dev):
     k2_call = lambda: zoom_probe.loo_zoom_windows(  # noqa: E731
         cross_g, psd_g, pairs, coarse, nseg)
     k1_ms = _time_ms(k1_call, 5)
-    k1_dev = _device_ms(k1_call, "corr_accum_kernel", 5)
+    k1_dev = _device_ms(k1_call, "corr_accum_kernel", 5, 2)
     k1_plain = _time_ms(lambda: corr_accum.accumulate_banks_plain(
         x443, pairs, K, True), 2)
     k2_ms = _time_ms(k2_call, 20)
@@ -677,8 +655,7 @@ def phase_kernels(dev):
     b1 = _k1_bound(3, len(pairs), 443, K)
     b2 = _k2_bound(K, m, n_st, F)
     print(f"time corr_accum [3 st, 443 seg, K={K}]: kernel {k1_ms:.3f} ms "
-          f"(device time {_dev_str(k1_dev, 3)}; forced onto the streamed "
-          f"branch {forced['ms']:.3f} ms), plain {k1_plain:.3f} ms, "
+          f"(device time {_dev_str(k1_dev, 3)}), plain {k1_plain:.3f} ms, "
           f"bound {b1['bound_ms']:.4f} ms "
           f"({b1['bound_by']}: {b1['bytes'] / 1e6:.1f} MB, "
           f"{b1['ops'] / 1e9:.2f} GFLOP)")
@@ -695,7 +672,7 @@ def phase_kernels(dev):
         pn = _pair_list(n_s, 3)
         call = lambda: corr_accum.accumulate_banks(xs, pn, kb, True)  # noqa: E731
         ms = _time_ms(call, 10)
-        dev_ms = _device_ms(call, "corr_accum_kernel", 10)
+        dev_ms = _device_ms(call, "corr_accum_kernel", 10, 2)
         plain = _time_ms(lambda: corr_accum.accumulate_banks_plain(
             xs, pn, kb, True), 2)
         bs = _k1_bound(n_s, len(pn), n_seg_s, kb)
@@ -714,7 +691,6 @@ def phase_kernels(dev):
              "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
              "bound_ms": bs["bound_ms"], "bound_by": bs["bound_by"],
              "library_ms": None, "bitwise_deterministic": True,
-             "branch": k1_cfg[f"{n_s} st, {n_seg_s} seg, K={kb}"]["branch"],
              "launch": k1_cfg[f"{n_s} st, {n_seg_s} seg, K={kb}"]})
         del xs
     k3 = _kernel3(dev, g)
@@ -727,9 +703,7 @@ def phase_kernels(dev):
          "ms": k1_ms, "device_ms": k1_dev, "plain_ms": k1_plain,
          "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
          "library_ms": None, "redesigned": True,
-         "bitwise_deterministic": True, "branch": "resident",
-         "forced_streamed_bitwise_equal": forced["bitwise"],
-         "forced_streamed_ms": forced["ms"],
+         "bitwise_deterministic": True,
          "launch": k1_cfg, "also_checked": also_checked},
         {"name": "zoom_probe", "route": "cuda",
          "source": "tdoa_tpu_torch/csrc/zoom_probe.cu",
@@ -860,18 +834,15 @@ def _k1_block(dev, g, n_seg: int, n_st: int, dtype):
 
 
 def _entry(name, source, replaces, shape, err, call, plain_call, kernel,
-           bound, iters, launches_per_call=1, branch=None):
+           bound, iters, launches_per_call=1):
     """A ``kernels`` entry for one kernel at one shape: its check's error,
     its time (event loop and profiler device time per call: the sum of
     its ``launches_per_call`` device launches) beside the plain
-    version's and the bound, and kernel 1's ``branch``. Prints one
-    line."""
+    version's and the bound. Prints one line."""
     ms = _time_ms(call, iters)
-    dev_ms = _device_ms(call, kernel, iters)
-    if dev_ms is not None:
-        dev_ms *= launches_per_call
+    dev_ms = _device_ms(call, kernel, iters, launches_per_call)
     plain = _time_ms(plain_call, 2)
-    print(f"time {name}{f' ({branch} branch)' if branch else ''}: kernel "
+    print(f"time {name}: kernel "
           f"{ms:.4f} ms (device time {_dev_str(dev_ms, 4)}), "
           f"plain {plain:.3f} ms, bound {bound['bound_ms']:.5f} ms "
           f"({bound['bound_by']}: {bound['bytes'] / 1e6:.2f} MB, "
@@ -880,8 +851,7 @@ def _entry(name, source, replaces, shape, err, call, plain_call, kernel,
             "replaces": replaces, "shape": list(shape), "max_abs_err": err,
             "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
-            "library_ms": None, "bitwise_deterministic": True,
-            **({"branch": branch} if branch else {})}
+            "library_ms": None, "bitwise_deterministic": True}
 
 
 K1_SRC = ("tdoa_tpu_torch/csrc/corr_accum.cu",
@@ -927,8 +897,8 @@ def _later_shapes(dev, g):
         x = _k1_block(dev, g, n_seg, rows, dtype)
         pn = _pair_list(rows, block)
         keys = _k1_launch_keys(rows, n_seg, kb, pn, sums, dev)
-        # The streamed branch launches stage 1 once a row block (its
-        # tiles share it) and stage 2 once a tile.
+        # Stage 1 runs once a row block (its tiles share it), stage 2
+        # once a tile.
         blocks = {(r0, r1) for r0, r1, _, _ in corr_accum.plan_tiles(
             pn, rows, sums, corr_accum.smem_optin(dev))}
         got = corr_accum.accumulate_banks(x, pn, kb, sums)
@@ -941,7 +911,7 @@ def _later_shapes(dev, g):
         del want, again
         name = (f"corr_accum[{rows}x{n_seg},K={kb},"
                 f"{'f32' if f32 else f'm={len(pn)}'}]")
-        cfg = corr_accum.kernel_config(rows, pn, sums, kb, not f32)
+        cfg = corr_accum.kernel_config(rows, pn, sums, not f32)
         print(f"corr_accum [{rows} rows, {len(pn)} pairs, {n_seg} seg, "
               f"K={kb}, {'f32' if f32 else 'bf16, sums'}]: launches {keys}"
               f"; largest launch {cfg}"
@@ -957,29 +927,12 @@ def _later_shapes(dev, g):
                                                  max_pairs=NET_FORCED[3])
             torch.cuda.synchronize()
             equal = _same(forced, got)
-            print(f"  forced into tiles of {NET_FORCED[3]} pairs "
-                  f"({cfg['branch']} branch): bitwise the untiled launch: "
-                  f"{equal}")
+            print(f"  forced into tiles of {NET_FORCED[3]} pairs: bitwise "
+                  f"the untiled launch: {equal}")
             if not equal:
                 raise RuntimeError(f"{name}: 2 tiles differ from one launch")
             extra["forced_2_tiles_bitwise_equal"] = True
             del forced
-        if (rows, n_seg, kb) == WINDOW_FORCED:
-            forced = corr_accum.accumulate_banks(x, pn, kb, sums,
-                                                 force_streamed=True)
-            torch.cuda.synchronize()
-            equal = _same(forced, got)
-            print(f"  forced onto the streamed branch: bitwise the "
-                  f"{cfg['branch']} launch: {equal}")
-            if cfg["branch"] != "resident" or not equal:
-                raise RuntimeError(f"{name}: the streamed branch differs "
-                                   f"from the resident launch")
-            del forced
-            extra.update(forced_streamed_bitwise_equal=True,
-                         forced_streamed_ms=_time_ms(
-                             lambda: corr_accum.accumulate_banks(  # noqa: B023
-                                 x, pn, kb, sums,  # noqa: B023
-                                 force_streamed=True), 3))
         del got
         entry = _entry(
             name, *k1_src, (rows, n_seg, kb, len(pn)), a_err,
@@ -989,9 +942,7 @@ def _later_shapes(dev, g):
             "corr_accum_kernel",
             _k1_bound(rows, len(pn), n_seg, kb, 4 if f32 else 2, sums),
             10 if f32 and rows <= 9 else 3,
-            launches_per_call=len(keys) + (
-                len(blocks) if cfg["branch"] == "streamed" else 0),
-            branch=cfg["branch"])
+            launches_per_call=len(keys) + len(blocks))
         entry.update(launch_keys=[list(k) for k in keys], tiles=len(keys),
                      max_rel_err_row_peak=r_err, **extra)
         entries.append(entry)
@@ -1082,8 +1033,7 @@ def _later_shapes(dev, g):
 
 # The network phase's kernel shapes, checked in phase 3 by
 # ``_later_shapes``: kernel 1 over a 10 s block (443 segments, K = 4) of
-# 12 stations (66 pairs in one launch: the streamed branch at full
-# length), 16 and 24 stations (pair-tiled), and over the overlapped
+# 12 stations (66 pairs in one launch at full length), 16 and 24 stations (pair-tiled), and over the overlapped
 # ingest's stacked rows (3 blocks of n_st rows, each block's pairs in
 # one launch or in tiles) of 12, 16 and 24 stations at a default chunk
 # and at a block's short last chunk (K = 1); kernel 2 on the split-σ
@@ -1115,9 +1065,7 @@ NET_FORCED = (12, 443, 4, 33)
 # MAX_DURATION_S, 100 s): three blocks of 66,666,666 samples, 1479 whole
 # kernel segments each (28,842 samples of ragged tail dropped). Kernel 1
 # there (rows, segments, banks, rows a block): the batch banks of 3
-# stations (the resident branch, 93 chunks; forced onto the streamed
-# branch, bitwise the same) and of 12 (66 pairs, the streamed branch),
-# and a block's short last chunk (1479 = 15·96 + 39) on the overlapped
+# stations and of 12 (66 pairs), and a block's short last chunk (1479 = 15·96 + 39) on the overlapped
 # ingest's 9 stacked rows, a tail session's 3 and 12 stations' 36 stacked
 # rows (the 96-segment chunks are the 30 s window's shapes); kernel 3 on
 # the FM path's 9 channels of a 100 s block. Scene A: 24 stations' batch
@@ -1136,7 +1084,6 @@ WINDOW_K1 = ((3, 1479, 4, 3), (12, 1479, 4, 12), (9, 39, 1, 3),
              (72, 39, 1, 24))
 WINDOW_SHARD_K1 = ((9, 1479, 1, 3), (9, 739, 1, 3), (9, 369, 1, 3),
                    (9, 1479, 4, 3), (9, 1478, 4, 3), (9, 1476, 4, 3))
-WINDOW_FORCED = (3, 1479, 4)
 WINDOW_K3_SHAPES = ((9, WINDOW_BLOCK, FM_DECIM), (4, WINDOW_BLOCK, FM_DECIM))
 
 

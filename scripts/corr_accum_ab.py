@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import json
 import subprocess
 import sys
@@ -34,15 +35,21 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 SEED = 20261017
 # name: (rows, segments, banks, rows a block (0: all pairs), f32, sums).
-# The batch path's 10 s block (443 segments, K = 4, bf16, DC sums) at 3
-# (the resident branch), 5, 8, 12, 16 (2 tiles) and 24 stations (6
-# tiles); the overlapped ingest's and tail session's stacked rows (K = 1,
-# a default chunk of 96 segments and a block's last of 59) at 3 and 12
-# stations; the 12-station sharded step's f32 rows without DC sums (a
+# The batch path's 10 s block (443 segments, K = 4, bf16, DC sums) at 3,
+# 5, 8, 12, 16 (2 tiles) and 24 stations (6 tiles), and its 100 s block
+# (1479 segments) at 3; the overlapped ingest's stacked rows (K = 1, a
+# default chunk of 96 segments, a 10 s block's last of 59 and a 100 s
+# block's last of 39) at 3 and 12 stations; a tail session's 3 rows at
+# 96 and 59; the 12-station sharded step's f32 rows without DC sums (a
 # rank's 220 segments at K = 1, the comparator's 440 at K = 4).
 SHAPES = {
     "3st-443-K4": (3, 443, 4, 0, False, True),
+    "3st-1479-K4": (3, 1479, 4, 0, False, True),
     "9x3-96-K1": (9, 96, 1, 3, False, True),
+    "9x3-59-K1": (9, 59, 1, 3, False, True),
+    "9x3-39-K1": (9, 39, 1, 3, False, True),
+    "3st-96-K1": (3, 96, 1, 0, False, True),
+    "3st-59-K1": (3, 59, 1, 0, False, True),
     "5st-443-K4": (5, 443, 4, 0, False, True),
     "8st-443-K4": (8, 443, 4, 0, False, True),
     "12st-443-K4": (12, 443, 4, 0, False, True),
@@ -88,7 +95,11 @@ def worker(tree: Path, names: list, iters: int) -> None:
         x = (0.3 * x + 0.01).to(torch.float32 if f32 else torch.bfloat16)
         x = x.contiguous()
         pn = _pairs(rows, block)
-        cfg = corr_accum.kernel_config(rows, pn, sums, kb, not f32)
+        # A tree from before the launch shape stopped depending on the
+        # banks takes them.
+        banks = ([kb] if "n_banks" in inspect.signature(
+            corr_accum.kernel_config).parameters else [])
+        cfg = corr_accum.kernel_config(rows, pn, sums, *banks, not f32)
 
         def call():
             return corr_accum.accumulate_banks(x, pn, kb, sums)

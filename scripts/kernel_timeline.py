@@ -3,23 +3,19 @@
 
     python3 scripts/kernel_timeline.py [--kernels 1 2 3] [--stations 3 12]
 
-Each kernel is one launch whose phases a profiler cannot tell apart
-(kernel 1's resident branch, ``csrc/corr_accum.cu``, and kernel 2,
-``csrc/zoom_probe.cu``, are cooperative launches with grid-wide barriers
-between the phases; kernel 1's streamed branch is two launches, the
-second interleaving row fetches, transforms and sums; kernel 3,
-``csrc/fm_demod.cu``, has a CTA-wide barrier between its two). This
-script builds the kernels with ``-DTDOA_TIMELINE``, which compiles their
-``%globaltimer`` stamps (``TDOA_TL`` in the sources), and runs them
-through their wrappers at the main path's shapes:
+A profiler sees each kernel's launches but not the phases inside them
+(kernel 1, ``csrc/corr_accum.cu``, is two launches, the second
+interleaving row fetches, transforms and sums; kernel 2,
+``csrc/zoom_probe.cu``, is a cooperative launch with grid-wide barriers
+between its phases; kernel 3, ``csrc/fm_demod.cu``, has a CTA-wide
+barrier between its two). This script builds the kernels with
+``-DTDOA_TIMELINE``, which compiles their ``%globaltimer`` stamps
+(``TDOA_TL`` in the sources), and runs them through their wrappers at
+the main path's shapes:
 
 - kernel 1 (443 segments, K = 4, bf16, DC sums, all pairs of each
   ``--stations`` count, or where one launch does not hold them the
-  first tile of ``plan_tiles``, launched alone): at 3 stations (the
-  resident
-  branch), for the first and the last CTA, the median stage-1 time,
-  stage-2 time and barrier wait of a phase, the prologue and the final
-  store; from 4 stations (the streamed branch), the spans of its two
+  first tile of ``plan_tiles``, launched alone): the spans of its two
   launches (first CTA's start to last CTA's end) and, for stage 2's CTA
   0, the time it spends fetching and transforming rows, accumulating
   and storing items, over its rounds;
@@ -46,32 +42,12 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
-TL_PH = 128  # phases kernel 1 stamps (csrc/corr_accum.cu)
-TL_S = 8  # the streamed branch's stamps (csrc/corr_accum.cu)
+TL_S = 8  # kernel 1's stamps (csrc/corr_accum.cu)
 PAIRS = ((0, 1), (0, 2), (1, 2))
 
 
 def _us(ns) -> float:
     return float(ns) / 1e3
-
-
-def _k1_rows(a, n_ph):
-    """Per-CTA summaries of kernel 1's stamps (a: [2, TL_PH + 1, 4] of
-    phase start, stage-1 ns, stage-2 ns, phase end; row TL_PH: kernel
-    start, store start, end)."""
-    rows = []
-    for slot, who in ((0, "first CTA"), (1, "last CTA")):
-        p = a[slot, :min(n_ph, TL_PH)]
-        start, store, end = a[slot, TL_PH, :3]
-        wait = p[:-1, 3] - p[:-1, 0] - p[:-1, 1] - p[:-1, 2]
-        rows.append({
-            "cta": who, "kernel_us": _us(end - start),
-            "prologue_us": _us(p[0, 0] - start), "store_us": _us(end - store),
-            "stage1_us": _us(np.median(p[:-1, 1])),
-            "stage2_us": _us(np.median(p[1:, 2])),
-            "barrier_us": _us(np.median(wait)),
-        })
-    return rows
 
 
 def _kernel3(lib, dev, g) -> None:
@@ -116,40 +92,25 @@ def _kernel1(lib, dev, g, n_st: int = 3) -> None:
     r0, r1, lo, hi = tiles[0]
     x = x[:, r0:r1]
     pairs = [(i - r0, j - r0) for i, j in pairs[lo:hi]]
-    cfg = corr_accum.kernel_config(r1 - r0, pairs, True, 4)
-    buf = (ctypes.c_ulonglong * (2 * (TL_PH + 1) * 4 + TL_S))()
+    cfg = corr_accum.kernel_config(r1 - r0, pairs, True)
+    buf = (ctypes.c_ulonglong * TL_S)()
     for _ in range(2):
         corr_accum.accumulate_banks(x, pairs, 4, True)
         torch.cuda.synchronize()
-        # Each read resets the streamed stamps: the second run's remain.
+        # Each read resets the stamps: the second run's remain.
         if lib.tdoa_corr_accum_timeline(ctypes.addressof(buf)) != 0:
             raise RuntimeError("could not read kernel 1's stamps")
-    if cfg["branch"] == "streamed":
-        s = np.array(buf, np.int64)[2 * (TL_PH + 1) * 4:]
-        rounds = max(int(s[7]), 1)
-        print(f"corr_accum [{n_st} st, 443 seg, K=4, streamed branch; "
-              f"tile 1 of {len(tiles)}: {r1 - r0} rows x {len(pairs)} "
-              f"pairs, stage-1 grid "
-              f"{cfg['stage1_grid']}, stage-2 grid {cfg['grid']}]: stage 1 "
-              f"span {_us(s[1] - s[0]):.1f} us, stage 2 span "
-              f"{_us(s[3] - s[2]):.1f} us, gap {_us(s[2] - s[1]):.1f} us; "
-              f"stage-2 CTA 0 over {int(s[7])} rounds: fetch+transform "
-              f"{_us(s[4]):.1f} us ({_us(s[4] / rounds):.2f} a round), "
-              f"accumulate {_us(s[5]):.1f} us ({_us(s[5] / rounds):.2f} a "
-              f"round), store {_us(s[6]):.1f} us")
-        return
-    run = corr_accum.bank_run(n_st, 4, 443)
-    n_ph = corr_accum.chunk_plan(443, 4, run).shape[0] + 1
-    a = np.array(buf, np.int64)[:2 * (TL_PH + 1) * 4].reshape(
-        2, TL_PH + 1, 4)
-    for row in _k1_rows(a, n_ph):
-        print(f"corr_accum [{n_st} st, 443 seg, K=4, run {run}, {n_ph} "
-              f"phases, resident branch] "
-              f"{row['cta']}: kernel {row['kernel_us']:.1f} us (prologue "
-              f"{row['prologue_us']:.1f}, store {row['store_us']:.1f}); "
-              f"median a phase: stage 1 {row['stage1_us']:.2f} us, stage 2 "
-              f"{row['stage2_us']:.2f} us, barrier wait "
-              f"{row['barrier_us']:.2f} us")
+    s = np.array(buf, np.int64)
+    rounds = max(int(s[7]), 1)
+    print(f"corr_accum [{n_st} st, 443 seg, K=4; tile 1 of {len(tiles)}: "
+          f"{r1 - r0} rows x {len(pairs)} pairs, stage-1 grid "
+          f"{cfg['stage1_grid']}, stage-2 grid {cfg['grid']}]: stage 1 "
+          f"span {_us(s[1] - s[0]):.1f} us, stage 2 span "
+          f"{_us(s[3] - s[2]):.1f} us, gap {_us(s[2] - s[1]):.1f} us; "
+          f"stage-2 CTA 0 over {int(s[7])} rounds: fetch+transform "
+          f"{_us(s[4]):.1f} us ({_us(s[4] / rounds):.2f} a round), "
+          f"accumulate {_us(s[5]):.1f} us ({_us(s[5] / rounds):.2f} a "
+          f"round), store {_us(s[6]):.1f} us")
 
 
 def _kernel2(lib, dev, g) -> None:

@@ -15,7 +15,7 @@ split σ). Beside it, the same blocks through the segmented route
 
 Each station count prints one JSON line: steady latency (median of 5
 runs, each ended by a device sync), sustained latency (5 runs queued,
-one sync, per run), kernel 1's tiles, branch, launches and device time
+one sync, per run), kernel 1's tiles, launches and device time
 per run, kernel 2's device time per run (``torch.profiler``), the
 segmented route's steady latency, each route's peak device memory of a
 run (the blocks included) and largest corrected-TDOA error against the
@@ -167,8 +167,6 @@ def _kernel_route(blocks, device) -> dict:
     return {
         "k1_tiles": len(tiles), "k1_tile_pairs": [hi - lo for *_, lo, hi
                                                   in tiles],
-        "k1_branch": corr_accum.kernel_config(n_st, pairs, True, 4,
-                                              device=device)["branch"],
         "k1_launches_per_run": launches,
         "steady_latency_s": steady, "sustained_latency_s": sustained,
         "k1_device_ms_per_run": dev["corr_accum"],

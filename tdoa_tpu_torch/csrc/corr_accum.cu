@@ -19,16 +19,14 @@
 // What bounds it on the H100. At 3 stations a 10 s block is 8.2 GFLOP
 // of f32 FFT and accumulation (0.12 ms at 67 TFLOP/s) against 255 MB of
 // input and output (0.08 ms at 3.35 TB/s); the four-step hand-off
-// between the stages is 512 KB per station and segment, 1.36 GB per
-// block. The first port wrote it to a 64 MB device scratch (larger than
-// the 50 MB L2, so it round-tripped HBM), ran each 256-point transform
-// as 8 radix-2 stages behind 8 barriers with half the threads idle in
-// every other round, and gave stage 2 one CTA per (row, bank) walking
-// its bank's segments one at a time: 3.2 ms, barrier- and latency-bound.
-// Keeping the accumulators on chip caps the CTAs at two per SM (16
-// warps), so what is left is latency: every load is issued one step
-// ahead of its use. From 4 stations at K = 4 a CTA cannot hold its
-// items' accumulators for the whole launch: the streamed branch below.
+// between the stages is 512 KB per station and segment, 0.70 GB a
+// block, written once and read back once. The first port wrote it to a
+// 64 MB device scratch, ran each 256-point transform as 8 radix-2
+// stages behind 8 barriers with half the threads idle in every other
+// round, and gave stage 2 one CTA per (row, bank) walking its bank's
+// segments one at a time: 3.2 ms, barrier- and latency-bound. Keeping an item's
+// accumulators on chip caps the CTAs at two per SM (16 warps), so what
+// is left is latency: every load is issued one step ahead of its use.
 //
 // What this design does about it.
 //  * Every 256-point transform is 16 x 16: a radix-16 pass in one
@@ -41,57 +39,43 @@
 //    16 lanes of a stage-1 store write 128 contiguous bytes, and the 16
 //    lanes that transform the row in stage 2 read it as 16 runs of 128
 //    contiguous bytes. (Columns stored in pairs, so that stage 2 reads
-//    16 bytes a lane, measured slower in the streamed branch: a
-//    stage-1 store then fills half of each sector.)
-//  * An item is one (bank, row k1): its accumulators are n_slots rows
-//    of 256 f32 (bins k1 + 256*k2). One footprint formula, smem_bytes,
-//    picks one of two branches and, where not even one item fits a CTA
-//    (the pair list is then tiled by the host), tells the routing gate
-//    (fits_device) that the kernel cannot run the shape.
-//  * The resident branch, where every CTA holds all of its items (3
-//    stations: 15 KB an item; 8 items a CTA at K = 4). ONE cooperative
-//    launch per block; every CTA is resident. The segments go in chunks
-//    given by a plan from the host (chunk_plan in
-//    ops/kernels/corr_accum.py: chunk c takes the same run of segments
-//    from every bank). Phase p runs stage 1 of chunk p into one of two
-//    L2-sized scratch buffers and stage 2 of chunk p - 1 from the
-//    other; one grid-wide barrier separates the phases, so the hand-off
-//    stays in L2 instead of HBM. Each CTA owns a fixed run of items;
-//    stage 2 transforms a round of (item, segment) tuples, all
-//    stations, spread over 16 lane groups, then thread t adds bin t into
-//    the items' accumulators, which stay in shared memory from the
-//    first segment to the last and reach the outputs once.
-//  * The streamed branch, where they do not (from 4 stations at K = 4;
-//    12 stations with DC sums: 172 KB an item, one item a CTA). Here
-//    the hand-off streams and the accumulators stay: one launch runs
-//    stage 1 of the whole block (the plan's one chunk) into one scratch
-//    in HBM, n_st x 512 KB a segment (2.7 GB at 12 stations and 443
-//    segments, 5.6 GB at 24); a second gives each CTA one item at a
-//    time (items cta, cta + grid, ...: CTAs that run together hold
-//    neighbouring rows, so their stores to the true-frequency outputs
-//    meet in the same sectors), zeroes its accumulators in shared
-//    memory, streams its bank's segments past them in rounds as above,
-//    and writes them to the outputs once. Stage 1 depends on the rows
-//    alone, so the host launches it once for all pair tiles of a row
-//    block (13 stations and up). Its bound on the H100 is the
-//    hand-off's round trip (2 x 2.7 GB at 12 stations, 1.6 ms at 3.35
-//    TB/s, against 0.68 ms of f32 operations), and 213,712 B of shared
-//    memory a CTA at 12 stations: one CTA (8 warps) per SM in stage 2,
-//    whose sums are then paced by shared-memory traffic (two rows and
-//    two accumulators a pair and a segment).
+//    16 bytes a lane, measured slower: a stage-1 store then fills half
+//    of each sector.)
+//  * Two launches a block. Stage 1 transforms every segment of every
+//    station into one scratch in HBM, n_st x 512 KB a segment (0.70 GB
+//    at 3 stations and 443 segments, 2.7 GB at 12, 5.6 GB at 24). Stage
+//    2 gives each CTA one item, a (bank, row k1), at a time (items cta,
+//    cta + grid, ...: CTAs that run together hold neighbouring rows, so
+//    their stores to the true-frequency outputs meet in the same
+//    sectors): its accumulators, n_slots rows of 256 f32 (bins k1 +
+//    256*k2), are zeroed in shared memory, its bank's segments stream
+//    past in rounds of tuples (a segment, all stations), spread over 16
+//    lane groups, thread t adds bin t into the accumulators, and they
+//    reach the outputs once. Stage 1 depends on the rows alone, so the
+//    host launches it once for all pair tiles of a row block (13
+//    stations and up). One footprint formula, smem_bytes, says where not
+//    even one item fits a CTA: the host then tiles the pair list, and
+//    the routing gate (fits_device) reads that the kernel cannot run
+//    the shape.
+//  * Its bound on the H100 is the hand-off's round trip (2 x 2.7 GB at
+//    12 stations, 1.6 ms at 3.35 TB/s, against 0.68 ms of f32
+//    operations), and 213,712 B of shared memory a CTA at 12 stations:
+//    one CTA (8 warps) per SM in stage 2, whose sums are then paced by
+//    shared-memory traffic (two rows and two accumulators a pair and a
+//    segment). At 3 stations it replaced one cooperative launch whose
+//    CTAs kept all of their items on chip while L2-sized chunks of the
+//    hand-off passed, behind a grid-wide barrier a chunk: 0.91 against
+//    1.08 ms at 443 segments, 3.0 against 3.5 ms at 1479, bitwise the
+//    same outputs.
 //  * Loads run one step ahead: a stage-1 unit's input is fetched while
-//    the previous unit computes (in the resident branch, the first of a
-//    phase before the grid barrier), a stage-2 round's rows while the
+//    the previous unit computes, a stage-2 round's rows while the
 //    previous round accumulates.
 //  * No atomics on data: every sum runs in segment order, so two
-//    launches give bitwise-equal outputs, and both branches run the
-//    same transforms and the same sums: a shape forced onto the
-//    streamed branch gives the resident launch's outputs bitwise. All
-//    arithmetic is f32 (input bf16 or f32). The twiddles come from
-//    256-entry tables of sincospif on exactly representable arguments;
-//    the stage-1 twiddle of exponent e = k1*c is the product of the
-//    entries for e >> 8 and e & 255 (one rounding more than a direct
-//    sincospif).
+//    launches give bitwise-equal outputs. All arithmetic is f32 (input
+//    bf16 or f32). The twiddles come from 256-entry tables of sincospif
+//    on exactly representable arguments; the stage-1 twiddle of
+//    exponent e = k1*c is the product of the entries for e >> 8 and
+//    e & 255 (one rounding more than a direct sincospif).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -100,7 +84,7 @@
 #include <mutex>
 #include <vector>
 
-#include "grid_sync.cuh"
+#include "grid_sync.cuh"  // tdoa::now_ns and TDOA_TL: the timeline stamps
 
 namespace {
 
@@ -116,17 +100,14 @@ constexpr int SLOT = 16 * 17 + 1;  // float2 per transform buffer (padded)
 // BLOCKS_PER_SM) holds a thread to 128 of them, 2 x 256 x 128 = the
 // SM's 64K.
 constexpr int BLOCKS_PER_SM = 2;
-// The streamed branch's most tuples a round (4 stations: 4, 3
-// stations forced onto it: 5); s2_sum is unrolled for each count.
+// Stage 2's most tuples a round (4 stations: 4, 3 or fewer: 5); s2_sum
+// is unrolled for each count.
 constexpr int S2_MAX_NT = 5;
 
 #ifdef TDOA_TIMELINE
-constexpr int TL_PH = 128;  // phases stamped; row TL_PH: start, store, end
-// [first CTA, last CTA][phase][start, stage-1 ns, stage-2 ns, end]
-__device__ unsigned long long tl_k1[2][TL_PH + 1][4];
-// The streamed branch's last launch: stage 1's first CTA start and last
-// CTA end, stage 2's the same (over all CTAs), then CTA 0 of stage 2:
-// ns fetching and transforming, ns accumulating, ns storing, rounds.
+// The last launch pair: stage 1's first CTA start and last CTA end,
+// stage 2's the same (over all CTAs), then CTA 0 of stage 2: ns fetching
+// and transforming, ns accumulating, ns storing, rounds.
 constexpr int TL_S = 8;
 __device__ unsigned long long tl_k1s[TL_S] = {~0ull, 0, ~0ull, 0, 0, 0, 0, 0};
 #endif
@@ -243,18 +224,17 @@ __host__ __device__ inline int x_slots(int n_st) {
 
 __host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
 
-// Shared memory of a CTA holding the accumulators of n_res items:
+// Shared memory of a stage-2 CTA, which holds one item's accumulators:
 // tw, tw2, twl [R] float2 | xbuf [x_slots][SLOT] float2 | flags
-// [x_slots] int | pairs [2m] int | acc [n_res][n_slots][R] f32 (int
-// arrays padded to 16 B).
-__host__ __device__ inline int smem_bytes(int n_st, int m, int track,
-                                          int n_res) {
+// [x_slots] int | pairs [2m] int | acc [n_slots][R] f32 (int arrays
+// padded to 16 B).
+__host__ __device__ inline int smem_bytes(int n_st, int m, int track) {
   return 3 * R * 8 + x_slots(n_st) * SLOT * 8 + 4 * pad4(x_slots(n_st)) +
-         4 * pad4(2 * m) + n_res * n_slots(n_st, m, track) * R * 4;
+         4 * pad4(2 * m) + n_slots(n_st, m, track) * R * 4;
 }
 
-// Shared memory of a streamed-branch stage-1 CTA: the twiddle tables
-// and the 16 column slots.
+// Shared memory of a stage-1 CTA: the twiddle tables and the 16 column
+// slots.
 __host__ __device__ inline int smem_s1_bytes() {
   return 3 * R * 8 + GROUPS * SLOT * 8;
 }
@@ -265,12 +245,10 @@ struct Params {
   long long st_stride;  // elements between stations
   int n_st, m, track, n_banks;
   const int* pairs;     // [m, 2]
-  const int* plan;      // [n_chunks, n_banks * run]: segment or -1
-  int n_chunks, run;
-  float2* scratch;      // [n_st][n_banks * run][F]: 2 buffers (resident),
-                        // 1 holding the whole block (streamed, 1 chunk)
-  unsigned* bar;        // grid-barrier counter, 0 at launch (resident)
-  int ipc;              // items per CTA (resident)
+  const int* plan;      // [n_banks * run]: bank b's slots b * run ..
+                        // hold its segments in order, -1 past its end
+  int run;              // slots a bank: the longest bank's segments
+  float2* scratch;      // [n_st][n_banks * run][F]: stage 1's hand-off
   float2* cross;        // [n_banks, m, F]
   float* psd;           // [n_banks, n_st, F]
   float2* sums;         // [n_banks, n_st, F] when track
@@ -296,7 +274,7 @@ struct Raw1 {
   bool ok;  // the unit exists and its segment slot holds a segment
 };
 
-// Stage-1 unit u of a chunk: (station, segment slot, 16-column tile).
+// Stage-1 unit u: (station, segment slot, 16-column tile).
 __device__ __forceinline__ void unit_of(int u, int S, int& st, int& sl,
                                         int& tile) {
   tile = u & 15;
@@ -305,15 +283,15 @@ __device__ __forceinline__ void unit_of(int u, int S, int& st, int& sl,
 }
 
 template <typename T>
-__device__ __forceinline__ void s1_fetch(const Params& P, int chunk, int u,
+__device__ __forceinline__ void s1_fetch(const Params& P, int u,
                                          Raw1<T>& raw) {
   const int S = P.n_banks * P.run;
   raw.ok = false;
-  if (chunk >= P.n_chunks || u >= P.n_st * S * 16) return;
+  if (u >= P.n_st * S * 16) return;
   int st, sl, tile;
   unit_of(u, S, st, sl, tile);
-  const int seg = __ldg(P.plan + (long long)chunk * S + sl);
-  if (seg < 0) return;  // a bank shorter than this chunk
+  const int seg = __ldg(P.plan + sl);
+  if (seg < 0) return;  // past its bank's end
   raw.ok = true;
   const int t = threadIdx.x;
   const T* xr = static_cast<const T*>(P.xr);
@@ -328,14 +306,14 @@ __device__ __forceinline__ void s1_fetch(const Params& P, int chunk, int u,
   }
 }
 
-// Stage 1 of unit u into the chunk's scratch buffer `dst`. Thread
-// (col = t & 15, n2 = t >> 4) runs the first radix-16 pass down its
-// column over rows 16*n1 + n2 (rows >= 176 are the zero padding), the
-// CTA exchanges through shared memory, thread (col, k1 = t >> 4) runs
-// the second pass and applies exp(-2*pi*i*k*c/65536).
+// Stage 1 of unit u into the scratch. Thread (col = t & 15, n2 = t >>
+// 4) runs the first radix-16 pass down its column over rows 16*n1 + n2
+// (rows >= 176 are the zero padding), the CTA exchanges through shared
+// memory, thread (col, k1 = t >> 4) runs the second pass and applies
+// exp(-2*pi*i*k*c/65536).
 template <typename T>
 __device__ __forceinline__ void s1_compute(const Params& P, int u,
-                                           const Raw1<T>& raw, float2* dst,
+                                           const Raw1<T>& raw,
                                            const float2* tw,
                                            const float2* tw2,
                                            const float2* twl, float2* xbuf) {
@@ -360,7 +338,7 @@ __device__ __forceinline__ void s1_compute(const Params& P, int u,
 #pragma unroll
   for (int n2 = 0; n2 < 16; ++n2) v[n2] = buf[hi + 17 * n2];
   fft16(v);
-  float2* out = dst + ((long long)st * S + sl) * FFT_LEN + c;
+  float2* out = P.scratch + ((long long)st * S + sl) * FFT_LEN + c;
 #pragma unroll
   for (int k2 = 0; k2 < 16; ++k2) {
     const int k = hi + 16 * k2, e = k * c;  // e < 65536
@@ -370,120 +348,33 @@ __device__ __forceinline__ void s1_compute(const Params& P, int u,
   __syncthreads();  // xbuf is reused by the next unit
 }
 
-// Stage-2 rounds of a resident-branch CTA. A tuple tau (counted from
-// the CTA's first item) is (item j = tau / run, segment slot l = tau %
-// run). A round takes at most tpr tuples: whole items, ipr of them,
-// where an item's run fits a round, else one item's tuples in rpi
-// rounds.
-struct Rounds {
-  int ipr, rpi, n;
-};
-
-__device__ __forceinline__ Rounds rounds_of(const Params& P, int n_mine,
-                                            int tpr) {
-  Rounds rs;
-  rs.ipr = max(1, tpr / P.run);
-  rs.rpi = (P.run + tpr - 1) / tpr;
-  rs.n = (n_mine + rs.ipr - 1) / rs.ipr * rs.rpi;
-  return rs;
-}
-
-__device__ __forceinline__ void round_at(const Params& P, const Rounds& rs,
-                                         int r, int n_mine, int tpr,
-                                         int& tau0, int& nt) {
-  const int g = r / rs.rpi, sub = r - g * rs.rpi;
-  const int j0 = g * rs.ipr, j1 = min(n_mine, j0 + rs.ipr);
-  tau0 = j0 * P.run + sub * tpr;
-  nt = min(tpr, (j1 - j0) * P.run - sub * tpr);
-}
-
-// Loads into v the row of transform tr = (tuple tau0 + tr / n_st,
-// station tr % n_st) of a round of the chunk in `src` (zeros past the
-// round's transforms). Returns whether the tuple's segment slot holds a
+// Loads into v the row of transform tr = (tuple l0 + tr / n_st,
+// station tr % n_st) of a round of item `item`, whose tuples are its
+// bank's segment slots l0 .. l0 + nt - 1 (zeros past the round's
+// transforms). Returns whether the tuple's segment slot holds a
 // segment: past a bank's end it does not, and its row is never summed.
-__device__ __forceinline__ bool s2_fetch(const Params& P, const float2* src,
-                                         const int* plan_c, int item0,
-                                         int tau0, int nt, int tr,
-                                         float2 (&v)[16]) {
+__device__ __forceinline__ bool s2_fetch(const Params& P, int item, int l0,
+                                         int nt, int tr, float2 (&v)[16]) {
   const int n_st = P.n_st, run = P.run, S = P.n_banks * run;
   const bool act = tr < nt * n_st;
   const int q = act ? tr / n_st : 0, st = tr - q * n_st;
-  const int tau = tau0 + q, item = item0 + tau / run;
-  const int sl = (item / R) * run + tau % run;
+  const int sl = (item / R) * run + l0 + q;
   const float2* row =
-      src + ((long long)st * S + sl) * FFT_LEN + (item % R) * R;
+      P.scratch + ((long long)st * S + sl) * FFT_LEN + (item % R) * R;
   const int l16 = threadIdx.x & 15;
 #pragma unroll
   for (int n1 = 0; n1 < 16; ++n1)
     v[n1] = act ? __ldcg(row + 16 * n1 + l16) : make_float2(0.f, 0.f);
-  return act && __ldg(plan_c + sl) >= 0;
+  return act && __ldg(P.plan + sl) >= 0;
 }
 
-// Thread t adds bin t of a round's transformed tuples (xbuf, flags) into
-// the accumulators of their items, in tuple order (a round holds at
-// most 32 tuples: tpr <= x_slots / n_st). Item j's block is
-// acc + j * n_slots * R.
-__device__ __forceinline__ void s2_accumulate(const Params& P, int tau0,
-                                              int nt, float* acc,
-                                              const float2* xbuf,
-                                              const int* flags,
-                                              const int* pr) {
-  const int n_st = P.n_st, m = P.m, run = P.run, t = threadIdx.x;
-  const int jstride = n_slots(n_st, m, P.track) * R;
-  const int pos = (t & 15) + 17 * (t >> 4);
-  unsigned fm = 0;  // bit q: tuple q holds a segment
-  for (int q = 0; q < nt; ++q) fm |= (unsigned)flags[q] << q;
-  int j = tau0 / run, l = tau0 - j * run;
-  for (int q0 = 0; q0 < nt;) {
-    const int q1 = min(nt, q0 + run - l);  // this item's tuples
-    float* a_cr = acc + j * jstride;
-    float* a_ci = a_cr + m * R;
-    float* a_psd = a_ci + m * R;
-    float* a_sr = a_psd + n_st * R;
-    float* a_si = a_sr + n_st * R;
-    for (int st = 0; st < n_st; ++st) {
-      float ps = a_psd[st * R + t];
-      float sr = P.track ? a_sr[st * R + t] : 0.f;
-      float si = P.track ? a_si[st * R + t] : 0.f;
-      for (int q = q0; q < q1; ++q) {
-        if (!((fm >> q) & 1u)) continue;
-        const float2 x = xbuf[(q * n_st + st) * SLOT + pos];
-        ps += x.x * x.x + x.y * x.y;
-        sr += x.x;
-        si += x.y;
-      }
-      a_psd[st * R + t] = ps;
-      if (P.track) {
-        a_sr[st * R + t] = sr;
-        a_si[st * R + t] = si;
-      }
-    }
-    for (int p = 0; p < m; ++p) {
-      const int i = pr[2 * p], jj = pr[2 * p + 1];
-      float cr = a_cr[p * R + t], ci = a_ci[p * R + t];
-      for (int q = q0; q < q1; ++q) {
-        if (!((fm >> q) & 1u)) continue;
-        const float2 xi = xbuf[(q * n_st + i) * SLOT + pos];
-        const float2 xj = xbuf[(q * n_st + jj) * SLOT + pos];
-        cr += xj.x * xi.x + xj.y * xi.y;
-        ci += xj.y * xi.x - xj.x * xi.y;
-      }
-      a_cr[p * R + t] = cr;
-      a_ci[p * R + t] = ci;
-    }
-    q0 = q1;
-    ++j;
-    l = 0;
-  }
-}
-
-// The streamed branch's sums of a round whose first NT tuples hold a
-// segment (a bank's slots past its end come last in its run, so the
-// others are never summed): s2_accumulate's sums in the same order and
-// the same arithmetic, unrolled over the tuples and four pairs at a
-// time, with no aliasing between the accumulators, the transformed rows
-// and the pair list, so the loads of several pairs are in flight at
-// once.
+// Thread t adds bin t of a round's transformed tuples (xbuf), the
+// first NT of which hold a segment (a bank's slots past its end come
+// last in its run, so the others are never summed), into the item's
+// accumulators, in tuple order: unrolled over the tuples and four pairs
+// at a time, with no aliasing between the accumulators, the transformed
+// rows and the pair list, so the loads of several pairs are in flight
+// at once.
 template <int NT>
 __device__ __forceinline__ void s2_sum(const Params& P,
                                        float* __restrict__ acc,
@@ -531,10 +422,10 @@ __device__ __forceinline__ void s2_sum(const Params& P,
   }
 }
 
-// The streamed branch's last step for an item: its accumulators to the
-// outputs (bin t of row `row` of bank b is true frequency row + 256*t).
-// Thread t stores bin t: the CTAs that run beside this one store the
-// neighbouring rows' bins, so the sectors of the outputs fill together.
+// Stage 2's last step for an item: its accumulators to the outputs
+// (bin t of row `row` of bank b is true frequency row + 256*t). Thread t
+// stores bin t: the CTAs that run beside this one store the neighbouring
+// rows' bins, so the sectors of the outputs fill together.
 __device__ __forceinline__ void store_item(const Params& P, const float* a,
                                            int item) {
   const int n_st = P.n_st, m = P.m, t = threadIdx.x;
@@ -575,138 +466,8 @@ __device__ __forceinline__ void init_tables(float2* tw, float2* tw2,
   __syncthreads();
 }
 
-// The resident branch's last step: every item's accumulators to the
-// outputs. Consecutive threads take consecutive items at one bin, so a
-// warp writes runs of n_mine adjacent output elements.
-__device__ __forceinline__ void store_items(const Params& P, const float* acc,
-                                           int item0, int n_mine) {
-  const int n_st = P.n_st, m = P.m;
-  const int nsl = n_slots(n_st, m, P.track);
-  const long long F = FFT_LEN;
-  __syncthreads();
-  for (int e = threadIdx.x; e < n_mine * R; e += THREADS) {
-    const int j = e % n_mine, tb = e / n_mine, item = item0 + j;
-    const int b = item / R;
-    const long long bin = item % R + (long long)R * tb;
-    const float* a = acc + j * nsl * R + tb;
-    for (int p = 0; p < m; ++p) {
-      P.cross[((long long)b * m + p) * F + bin] =
-          make_float2(a[p * R], a[(m + p) * R]);
-    }
-    for (int st = 0; st < n_st; ++st) {
-      P.psd[((long long)b * n_st + st) * F + bin] = a[(2 * m + st) * R];
-      if (P.track) {
-        P.sums[((long long)b * n_st + st) * F + bin] = make_float2(
-            a[(2 * m + n_st + st) * R], a[(2 * m + 2 * n_st + st) * R]);
-      }
-    }
-  }
-}
-
-// The resident branch: the whole block in one cooperative launch; phase
-// p = 0 .. n_chunks runs stage 1 of chunk p into scratch buffer p & 1
-// and stage 2 of chunk p - 1 from buffer (p - 1) & 1, then a grid-wide
-// barrier.
-template <typename T>
-__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
-corr_accum_kernel(Params P) {
-  extern __shared__ float4 smem_raw[];
-  const int n_st = P.n_st, run = P.run, S = P.n_banks * run;
-  const int xs = x_slots(n_st);
-  float2* tw = reinterpret_cast<float2*>(smem_raw);  // exp(-2 pi i e/256)
-  float2* tw2 = tw + R;   // [k1][n2]: exp(-2 pi i n2 k1/256)
-  float2* twl = tw2 + R;  // exp(-2 pi i e/65536), e < 256, at swz(e)
-  float2* xbuf = twl + R;
-  int* flags = reinterpret_cast<int*>(xbuf + xs * SLOT);
-  int* pr = flags + pad4(xs);
-  float* acc = reinterpret_cast<float*>(pr + pad4(2 * P.m));
-
-  const int t = threadIdx.x, G = gridDim.x, cta = blockIdx.x;
-  const int l16 = t & 15;
-  const int nsl = n_slots(n_st, P.m, P.track);
-  const int n_items = R * P.n_banks;
-  const int item0 = cta * P.ipc;
-  const int n_mine = max(0, min(P.ipc, n_items - item0));
-  const int tpr = xs / n_st;  // tuples per round
-  const int n_iter = (xs + GROUPS - 1) / GROUPS;  // transforms per group
-  const Rounds rs = rounds_of(P, n_mine, tpr);
-  const int nr = rs.n;
-  const int slot0 = 2 * (t >> 5) + ((t >> 4) & 1);  // this group's
-  const long long buf_len = (long long)n_st * S * FFT_LEN;
-  const int n_units = n_st * S * 16;
-  TDOA_TL(const int tl = t != 0 ? -1 : cta == 0 ? 0 : cta == G - 1 ? 1 : -1;
-          if (tl >= 0) tl_k1[tl][TL_PH][0] = tdoa::now_ns();
-          unsigned long long T0 = 0, D1 = 0, D2 = 0;)
-
-  for (int e = t; e < 2 * P.m; e += THREADS) pr[e] = P.pairs[e];
-  for (int e = t; e < n_mine * nsl * R; e += THREADS) acc[e] = 0.f;
-  init_tables(tw, tw2, twl);
-
-  Raw1<T> raw;
-  s1_fetch<T>(P, 0, cta, raw);
-  for (int ph = 0; ph <= P.n_chunks; ++ph) {
-    const int c = ph - 1;  // the chunk of stage 2
-    TDOA_TL(T0 = tdoa::now_ns();)
-    const float2* src = P.scratch + (c & 1) * buf_len;
-    const int* plan_c = P.plan + (long long)c * S;
-    float2 v[16];
-    bool ok = false;
-    int tau0 = 0, nt = 0;
-    if (ph >= 1 && nr > 0) {
-      round_at(P, rs, 0, n_mine, tpr, tau0, nt);
-      ok = s2_fetch(P, src, plan_c, item0, tau0, nt, slot0, v);
-    }
-
-    if (ph < P.n_chunks) {
-      float2* dst = P.scratch + (ph & 1) * buf_len;
-      for (int u = cta; u < n_units; u += G) {
-        const Raw1<T> cur = raw;
-        s1_fetch<T>(P, ph, u + G, raw);
-        if (cur.ok) s1_compute<T>(P, u, cur, dst, tw, tw2, twl, xbuf);
-      }
-    }
-
-    TDOA_TL(D1 = tdoa::now_ns() - T0;)
-    if (ph >= 1) {
-      for (int r = 0; r < nr; ++r) {
-        const int n_tr = nt * n_st;
-        for (int i = 0; i < n_iter; ++i) {
-          const int tr = slot0 + GROUPS * i;
-          if (i > 0) ok = s2_fetch(P, src, plan_c, item0, tau0, nt, tr, v);
-          fft256_row(v, xbuf + tr * SLOT, tw2, l16, tr < n_tr);
-          if (l16 == 0 && tr < n_tr && tr % n_st == 0) flags[tr / n_st] = ok;
-        }
-        const int cur_tau0 = tau0, cur_nt = nt;
-        if (r + 1 < nr) {
-          round_at(P, rs, r + 1, n_mine, tpr, tau0, nt);
-          ok = s2_fetch(P, src, plan_c, item0, tau0, nt, slot0, v);
-        }
-        __syncthreads();
-        s2_accumulate(P, cur_tau0, cur_nt, acc, xbuf, flags, pr);
-        __syncthreads();  // xbuf and flags are refilled by the next round
-      }
-    }
-    TDOA_TL(D2 = tdoa::now_ns() - T0 - D1;)
-    if (ph < P.n_chunks) {
-      s1_fetch<T>(P, ph + 1, cta, raw);
-      tdoa::grid_sync(P.bar, (unsigned)G * (ph + 1));
-    }
-    TDOA_TL(if (tl >= 0 && ph < TL_PH) {
-      tl_k1[tl][ph][0] = T0;
-      tl_k1[tl][ph][1] = D1;
-      tl_k1[tl][ph][2] = D2;
-      tl_k1[tl][ph][3] = tdoa::now_ns();
-    })
-  }
-  TDOA_TL(if (tl >= 0) tl_k1[tl][TL_PH][1] = tdoa::now_ns();)
-  store_items(P, acc, item0, n_mine);
-  TDOA_TL(__syncthreads();
-          if (tl >= 0) tl_k1[tl][TL_PH][2] = tdoa::now_ns();)
-}
-
-// The streamed branch, stage 1: every (station, segment slot, 16-column
-// tile) unit of the plan's one chunk into the one scratch buffer, each
-// unit's input fetched while the previous unit computes.
+// Stage 1: every (station, segment slot, 16-column tile) unit into the
+// scratch, each unit's input fetched while the previous unit computes.
 template <typename T>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 corr_accum_kernel_s1(Params P) {
@@ -720,21 +481,20 @@ corr_accum_kernel_s1(Params P) {
   TDOA_TL(if (threadIdx.x == 0) atomicMin(&tl_k1s[0], tdoa::now_ns());)
   init_tables(tw, tw2, twl);
   Raw1<T> raw;
-  s1_fetch<T>(P, 0, blockIdx.x, raw);
+  s1_fetch<T>(P, blockIdx.x, raw);
   for (int u = blockIdx.x; u < n_units; u += G) {
     const Raw1<T> cur = raw;
-    s1_fetch<T>(P, 0, u + G, raw);
-    if (cur.ok) s1_compute<T>(P, u, cur, P.scratch, tw, tw2, twl, xbuf);
+    s1_fetch<T>(P, u + G, raw);
+    if (cur.ok) s1_compute<T>(P, u, cur, tw, tw2, twl, xbuf);
   }
   TDOA_TL(if (threadIdx.x == 0) atomicMax(&tl_k1s[1], tdoa::now_ns());)
 }
 
-// The streamed branch, stage 2: CTA cta owns the items cta, cta + G, ...
-// one at a time. An item's accumulators are zeroed in shared memory,
-// its bank's segment slots (the plan's one chunk, P.run of them) stream
-// past in rounds of tpr tuples — the next round's rows fetched while
-// this one accumulates, across the items' boundaries too — and reach
-// the outputs once.
+// Stage 2: CTA cta owns the items cta, cta + G, ... one at a time. An
+// item's accumulators are zeroed in shared memory, its bank's segment
+// slots (P.run of them) stream past in rounds of tpr tuples — the next
+// round's rows fetched while this one accumulates, across the items'
+// boundaries too — and reach the outputs once.
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 corr_accum_kernel_s2(Params P) {
   extern __shared__ float4 smem_raw[];
@@ -769,15 +529,13 @@ corr_accum_kernel_s2(Params P) {
   int item = cta, l0 = 0, nt = min(tpr, run);
   float2 v[16];
   bool ok = false;
-  if (nr > 0)
-    ok = s2_fetch(P, P.scratch, P.plan, item, l0, nt, slot0, v);
+  if (nr > 0) ok = s2_fetch(P, item, l0, nt, slot0, v);
   for (int r = 0; r < nr; ++r) {
     TDOA_TL(T0 = tdoa::now_ns();)
     const int n_tr = nt * n_st;
     for (int i = 0; i < n_iter; ++i) {
       const int tr = slot0 + GROUPS * i;
-      if (i > 0)
-        ok = s2_fetch(P, P.scratch, P.plan, item, l0, nt, tr, v);
+      if (i > 0) ok = s2_fetch(P, item, l0, nt, tr, v);
       fft256_row(v, xbuf + tr * SLOT, tw2, l16, tr < n_tr);
       if (l16 == 0 && tr < n_tr && tr % n_st == 0) flags[tr / n_st] = ok;
     }
@@ -789,7 +547,7 @@ corr_accum_kernel_s2(Params P) {
         item += G;
       }
       nt = min(tpr, run - l0);
-      ok = s2_fetch(P, P.scratch, P.plan, item, l0, nt, slot0, v);
+      ok = s2_fetch(P, item, l0, nt, slot0, v);
     }
     __syncthreads();
     TDOA_TL(const unsigned long long T1 = tdoa::now_ns(); D1 += T1 - T0;)
@@ -823,10 +581,6 @@ corr_accum_kernel_s2(Params P) {
 }
 
 template <typename T>
-const void* kernel_fn() {
-  return reinterpret_cast<const void*>(&corr_accum_kernel<T>);
-}
-template <typename T>
 const void* s1_fn() {
   return reinterpret_cast<const void*>(&corr_accum_kernel_s1<T>);
 }
@@ -834,24 +588,19 @@ const void* s2_fn() {
   return reinterpret_cast<const void*>(&corr_accum_kernel_s2);
 }
 
-// A launch shape: the branch (0 resident, 1 streamed), the grid (the
-// resident launch's, or the streamed branch's stage 2), CTAs per SM,
-// items per CTA, dynamic shared memory bytes, and the streamed branch's
-// stage-1 grid (0 in the resident branch).
+// A launch shape: stage 2's grid, its CTAs per SM and dynamic shared
+// memory bytes, and stage 1's grid.
 struct Shape {
-  int streamed, grid, bps, ipc, smem, grid1;
+  int grid, bps, smem, grid1;
 };
 
-// The launch shape on the current device: the resident branch at the
-// most CTAs per SM (up to BLOCKS_PER_SM) at which every CTA holds its
-// items' accumulators, else (or with force_streamed) the streamed
-// branch, one item's accumulators a CTA. Opts the kernels into the
-// shared memory they need. Returns 0 or a cudaError_t
-// (cudaErrorInvalidConfiguration when not even one item fits a CTA:
-// the kernel cannot run this shape on this device).
-int choose(int n_st, int m, int track, int n_banks, int is_bf16,
-           int force_streamed, Shape* out) {
-  const void* res = is_bf16 ? kernel_fn<unsigned short>() : kernel_fn<float>();
+// The launch shape on the current device: stage 1 at the CTAs per SM
+// its registers and shared memory allow, stage 2 at the most (up to
+// BLOCKS_PER_SM) at which each CTA holds one item's accumulators. Opts
+// the kernels into the shared memory they need. Returns 0 or a
+// cudaError_t (cudaErrorInvalidConfiguration when not even one item
+// fits a CTA: the kernel cannot run this shape on this device).
+int choose(int n_st, int m, int track, int is_bf16, Shape* out) {
   const void* s1 = is_bf16 ? s1_fn<unsigned short>() : s1_fn<float>();
   const void* s2 = s2_fn();
   int dev, n_sm, optin;
@@ -861,7 +610,7 @@ int choose(int n_st, int m, int track, int n_banks, int is_bf16,
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
-  for (const void* fn : {res, s1, s2}) {
+  for (const void* fn : {s1, s2}) {
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                optin);
@@ -871,38 +620,25 @@ int choose(int n_st, int m, int track, int n_banks, int is_bf16,
                                (int)cudaSharedmemCarveoutMaxShared);
   }
   if (e != cudaSuccess) return (int)e;
-  const int n_items = R * n_banks;
-  for (int streamed = force_streamed ? 1 : 0; streamed <= 1; ++streamed) {
-    int grid1 = 0;
-    if (streamed) {
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&grid1, s1, THREADS,
-                                                        smem_s1_bytes());
-      if (e != cudaSuccess) return (int)e;
-      grid1 *= n_sm;
-      if (grid1 < 1) return (int)cudaErrorInvalidConfiguration;
-    }
-    for (int bps = BLOCKS_PER_SM; bps >= 1; --bps) {
-      const int grid = bps * n_sm;
-      const int ipc = (n_items + grid - 1) / grid;
-      const int smem = smem_bytes(n_st, m, track, streamed ? 1 : ipc);
-      if (smem > optin) continue;
-      int fit = 0;
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &fit, streamed ? s2 : res, THREADS, smem);
-      if (e != cudaSuccess) return (int)e;
-      if (fit >= bps) {
-        *out = Shape{streamed, grid, bps, ipc, smem, grid1};
-        return 0;
-      }
-    }
+  int per_sm1 = 0, per_sm2 = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm1, s1, THREADS,
+                                                    smem_s1_bytes());
+  if (e != cudaSuccess) return (int)e;
+  const int smem = smem_bytes(n_st, m, track);
+  if (smem <= optin) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm2, s2, THREADS,
+                                                      smem);
+    if (e != cudaSuccess) return (int)e;
   }
-  return (int)cudaErrorInvalidConfiguration;
+  const int bps = per_sm2 < BLOCKS_PER_SM ? per_sm2 : BLOCKS_PER_SM;
+  if (per_sm1 < 1 || bps < 1) return (int)cudaErrorInvalidConfiguration;
+  *out = Shape{bps * n_sm, bps, smem, per_sm1 * n_sm};
+  return 0;
 }
 
 // choose, computed once per device and shape.
-int shape_for(int n_st, int m, int track, int n_banks, int is_bf16,
-              int force_streamed, Shape* out) {
-  constexpr int NK = 7;
+int shape_for(int n_st, int m, int track, int is_bf16, Shape* out) {
+  constexpr int NK = 5;
   struct Entry {
     int key[NK];
     Shape shape;
@@ -912,7 +648,7 @@ int shape_for(int n_st, int m, int track, int n_banks, int is_bf16,
   int dev;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  const int key[NK] = {dev, n_st, m, track, n_banks, is_bf16, force_streamed};
+  const int key[NK] = {dev, n_st, m, track, is_bf16};
   std::lock_guard<std::mutex> lock(mu);
   for (const Entry& c : cache) {
     bool hit = true;
@@ -922,7 +658,7 @@ int shape_for(int n_st, int m, int track, int n_banks, int is_bf16,
       return 0;
     }
   }
-  const int err = choose(n_st, m, track, n_banks, is_bf16, force_streamed, out);
+  const int err = choose(n_st, m, track, is_bf16, out);
   if (err != 0) return err;
   Entry c;
   for (int i = 0; i < NK; ++i) c.key[i] = key[i];
@@ -934,49 +670,38 @@ int shape_for(int n_st, int m, int track, int n_banks, int is_bf16,
 }  // namespace
 
 // The launch shape tdoa_corr_accum takes on the current device: out =
-// {streamed, grid, CTAs per SM, items per CTA, shared memory bytes,
-// stage-1 grid}. force_streamed (tests) takes the streamed branch where
-// the resident one would run. Returns 0, cudaErrorInvalidConfiguration
-// where the kernel cannot run the shape on this device (the routing
-// gate fits_device), or another cudaError_t.
-extern "C" int tdoa_corr_accum_config(int n_st, int m, int track, int n_banks,
-                                      int is_bf16, int force_streamed,
+// {stage-2 grid, its CTAs per SM, its shared memory bytes, stage-1
+// grid}. Returns 0, cudaErrorInvalidConfiguration where the kernel
+// cannot run the shape on this device (the routing gate fits_device),
+// or another cudaError_t.
+extern "C" int tdoa_corr_accum_config(int n_st, int m, int track, int is_bf16,
                                       int* out) {
   Shape sh;
-  const int e =
-      shape_for(n_st, m, track, n_banks, is_bf16, force_streamed, &sh);
+  const int e = shape_for(n_st, m, track, is_bf16, &sh);
   if (e != 0) return e;
-  out[0] = sh.streamed;
-  out[1] = sh.grid;
-  out[2] = sh.bps;
-  out[3] = sh.ipc;
-  out[4] = sh.smem;
-  out[5] = sh.grid1;
+  out[0] = sh.grid;
+  out[1] = sh.bps;
+  out[2] = sh.smem;
+  out[3] = sh.grid1;
   return 0;
 }
 
 // Accumulate one capture on `stream` in the shape tdoa_corr_accum_config
-// gives: the resident branch in one cooperative launch (plan of
-// n_chunks chunks, two scratch buffers), the streamed branch in two
-// launches (the plan's one chunk holds every segment: n_chunks must be
-// 1; one scratch buffer). With reuse_stage1 the streamed branch skips
-// its stage 1: `scratch` already holds the hand-off of these rows and
-// this plan (another pair tile's launch over the same rows wrote it).
-// Returns 0 or the cudaError_t of the refused launch (a grid that
-// cannot be resident is refused, never shrunk).
+// gives: stage 1 into `scratch`, then stage 2. `plan` holds n_banks *
+// run segment slots (bank b's segments in order from slot b * run, -1
+// past its end). With reuse_stage1 stage 1 is skipped: `scratch`
+// already holds the hand-off of these rows and this plan (another pair
+// tile's launch over the same rows wrote it). Returns 0 or the
+// cudaError_t of the refused launch.
 extern "C" int tdoa_corr_accum(const void* xr, const void* xi, int is_bf16,
                                long long st_stride, int n_st,
                                const int* pairs, int m, int n_banks,
-                               int track, const int* plan, int n_chunks,
-                               int run, int force_streamed, int reuse_stage1,
-                               void* scratch, void* bar, void* cross,
+                               int track, const int* plan, int run,
+                               int reuse_stage1, void* scratch, void* cross,
                                void* psd, void* sums, void* stream) {
   Shape sh;
-  const int err =
-      shape_for(n_st, m, track, n_banks, is_bf16, force_streamed, &sh);
+  const int err = shape_for(n_st, m, track, is_bf16, &sh);
   if (err != 0) return err;
-  if (sh.streamed ? n_chunks != 1 : reuse_stage1 != 0)
-    return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   Params P;
   P.xr = xr;
@@ -988,45 +713,30 @@ extern "C" int tdoa_corr_accum(const void* xr, const void* xi, int is_bf16,
   P.n_banks = n_banks;
   P.pairs = pairs;
   P.plan = plan;
-  P.n_chunks = n_chunks;
   P.run = run;
   P.scratch = static_cast<float2*>(scratch);
-  P.bar = static_cast<unsigned*>(bar);
-  P.ipc = sh.ipc;
   P.cross = static_cast<float2*>(cross);
   P.psd = static_cast<float*>(psd);
   P.sums = static_cast<float2*>(sums);
   void* args[] = {&P};
   cudaError_t e;
-  if (sh.streamed) {
-    if (!reuse_stage1) {
-      e = cudaLaunchKernel(is_bf16 ? s1_fn<unsigned short>() : s1_fn<float>(),
-                           dim3(sh.grid1), dim3(THREADS), args,
-                           (size_t)smem_s1_bytes(), s);
-      if (e != cudaSuccess) return (int)e;
-    }
-    e = cudaLaunchKernel(s2_fn(), dim3(sh.grid), dim3(THREADS), args,
-                         (size_t)sh.smem, s);
+  if (!reuse_stage1) {
+    e = cudaLaunchKernel(is_bf16 ? s1_fn<unsigned short>() : s1_fn<float>(),
+                         dim3(sh.grid1), dim3(THREADS), args,
+                         (size_t)smem_s1_bytes(), s);
     if (e != cudaSuccess) return (int)e;
-    return (int)cudaGetLastError();
   }
-  e = cudaMemsetAsync(bar, 0, sizeof(unsigned), s);
-  if (e != cudaSuccess) return (int)e;
-  const void* fn = is_bf16 ? kernel_fn<unsigned short>() : kernel_fn<float>();
-  e = cudaLaunchCooperativeKernel(fn, dim3(sh.grid), dim3(THREADS), args,
-                                  (size_t)sh.smem, s);
+  e = cudaLaunchKernel(s2_fn(), dim3(sh.grid), dim3(THREADS), args,
+                       (size_t)sh.smem, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 #ifdef TDOA_TIMELINE
-// The last launches' stamps: tl_k1 (the resident branch) then tl_k1s
-// (the streamed branch), as laid out above; tl_k1s is reset for the
-// next streamed launch.
+// The last launch pair's stamps (tl_k1s, as laid out above), then reset
+// for the next launch pair.
 extern "C" int tdoa_corr_accum_timeline(unsigned long long* out) {
-  cudaError_t e = cudaMemcpyFromSymbol(out, tl_k1, sizeof(tl_k1));
-  if (e == cudaSuccess)
-    e = cudaMemcpyFromSymbol(out + sizeof(tl_k1) / 8, tl_k1s, sizeof(tl_k1s));
+  cudaError_t e = cudaMemcpyFromSymbol(out, tl_k1s, sizeof(tl_k1s));
   const unsigned long long init[TL_S] = {~0ull, 0, ~0ull, 0, 0, 0, 0, 0};
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(tl_k1s, init, sizeof(init));
   return (int)e;

@@ -1,6 +1,5 @@
-// Grid-wide barrier for the kernels that run as one cooperative launch
-// (corr_accum.cu, zoom_probe.cu), and the timeline stamps of all three
-// kernels.
+// Grid-wide barrier for the kernel that runs as one cooperative launch
+// (zoom_probe.cu), and the timeline stamps of all three kernels.
 #pragma once
 
 #include <cuda_runtime.h>

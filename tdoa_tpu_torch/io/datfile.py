@@ -109,16 +109,6 @@ def ring_readers() -> int:
     return max(1, min(RING_READERS, len(os.sched_getaffinity(0)) - 1))
 
 
-def _read_exactly(f, view: memoryview) -> None:
-    """Fill ``view`` from the unbuffered file ``f``."""
-    got = 0
-    while got < len(view):
-        n = f.readinto(view[got:])
-        if not n:
-            raise EOFError(f"{f.name}: ended {len(view) - got} bytes early")
-        got += n
-
-
 def _pread_exactly(fd: int, view: memoryview, offset: int, name: str,
                    total: int) -> None:
     """Fill ``view`` from the open file ``fd`` at ``offset``, which the
@@ -430,7 +420,8 @@ def load_window(paths: Sequence[str], stations: Optional[Sequence[str]] = None,
                 for i, (f, n) in enumerate(zip(opened, sizes)):
                     raw = torch.empty(n, dtype=torch.uint8, device=device)
                     t0 = time.perf_counter()
-                    _read_exactly(f, memoryview(raw.numpy()))
+                    _pread_exactly(f.fileno(), memoryview(raw.numpy()), 0,
+                                   f.name, n)
                     read_s += time.perf_counter() - t0
                     decode(i, raw)
                 counts = {"read_s": read_s, "read_busy_s": read_s,

@@ -126,14 +126,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         i,                  # n_st
         p, i,               # pairs [m, 2] int32 (device), m
         i, i,               # n_banks, track_sums
-        p, i, i,            # chunk plan [n_chunks, n_banks*run] int32, n_chunks, run
-        i, i,               # force the streamed branch, reuse its stage 1
-        p, p,               # scratch 2 or 1 x [n_st, n_banks*run, F] float2, barrier int32
+        p, i,               # slot plan [n_banks*run] int32, run
+        i,                  # reuse stage 1
+        p,                  # scratch [n_st, n_banks*run, F] float2
         p, p, p,            # cross float2 [K, m, F], psd [K, n_st, F], sums float2
         p,                  # stream
     ]
     lib.tdoa_corr_accum.restype = i
-    lib.tdoa_corr_accum_config.argtypes = [i, i, i, i, i, i, p]  # ..., n_banks, bf16, force streamed, out[6]
+    lib.tdoa_corr_accum_config.argtypes = [i, i, i, i, p]  # n_st, m, track, bf16, out[4]
     lib.tdoa_corr_accum_config.restype = i
     lib.tdoa_zoom_probe.argtypes = [
         p, p,               # cross_g float2 [K, m, F], psd_g [K, n_st, F]

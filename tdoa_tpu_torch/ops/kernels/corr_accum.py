@@ -12,24 +12,19 @@ order. ``_finalize_banks`` then folds in the DC removal
 
 The CUDA kernel (``csrc/corr_accum.cu``) computes the transform in its
 own body (four-step 256×256 with 16×16 register FFTs, f32 arithmetic on
-bf16 or f32 input). One (bank, row) item's accumulators are
-``n_slots`` rows of 256 f32, and ``branch_of`` (a mirror of the
-kernel's own ``choose``) picks how they meet the segments. Where every
-CTA holds all of its items in shared memory for the whole block (3
-stations), the *resident* branch runs one cooperative launch: the
-segments go in chunks (``chunk_plan``), the four-step hand-off between
-the two stages through two L2-sized scratch buffers. Where they do not
-(from 4 stations at K = 4), the *streamed* branch writes stage 1 of the
-whole block to one scratch in HBM (``scratch_plan``) and gives each CTA
-one item at a time, whose accumulators stay in shared memory while the
-bank's segments stream past and reach the outputs once.
+bf16 or f32 input) in two launches: stage 1 writes the four-step
+hand-off of the whole block to one scratch in HBM (``scratch_bytes``;
+``slot_plan`` lays out the banks' segments in it), and stage 2 gives
+each CTA one (bank, row) item at a time, whose accumulators (``n_slots``
+rows of 256 f32) stay in shared memory while the bank's segments stream
+past and reach the outputs once.
 ``accumulate_banks`` is the wrapper: a CUDA tensor launches the kernel
 (or raises), a CPU tensor takes ``accumulate_banks_plain``, the same
 sums with ``torch.fft`` — also what the kernel is held against on the
 card.
 
 Pair tiling (the counterpart of the reference's pair chunks,
-``tdoa_tpu/ops/pallas/corr_accum.py:497-538``): a streamed-branch CTA
+``tdoa_tpu/ops/pallas/corr_accum.py:497-538``): a stage-2 CTA
 holds one item's accumulators in shared memory, so from 13 stations
 (all pairs, DC sums) no launch holds the whole pair list.
 ``plan_tiles`` sizes tiles by the kernel's own footprint formula
@@ -55,17 +50,11 @@ SEG_ROWS = 176  # data rows per segment; the other 80 rows are zero padding
 FFT_LEN = R * R  # 65536
 SEG_LEN = SEG_ROWS * R  # 45056
 
-# Each of the resident branch's two scratch buffers (the stage-1 spectra
-# of one chunk) is held to this many bytes, so that both together stay
-# near the H100's 50 MB L2: 3 stations × 4 banks × 4 segments. Two 12 MB
-# buffers measured slower (more phases, each ending in a grid-wide
-# barrier).
-SCRATCH_BUF_BYTES = 24 << 20
 # The segments of the longest block a capture holds (a 100 s window in
 # three blocks): the overlapped ingest's gate (``fits_device``) counts
-# the streamed branch's scratch, which grows with the chunk, at this
-# length, so that one verdict holds for every chunk of a process; the
-# batch route counts it at the block's own length.
+# the kernel's scratch, which grows with the chunk, at this length, so
+# that one verdict holds for every chunk of a process; the batch route
+# counts it at the block's own length.
 MAX_BLOCK_SEGS = 1480
 # The kernel's transform-buffer constants (csrc/corr_accum.cu: GROUPS,
 # SLOT), for the footprint mirror below.
@@ -80,25 +69,24 @@ def n_slots(n_st: int, m: int, track: bool) -> int:
     return 2 * m + n_st * (3 if track else 1)
 
 
-def smem_bytes(n_st: int, m: int, track: bool, n_res: int = 1) -> int:
-    """Shared memory of a CTA holding ``n_res`` items' accumulators:
-    the twiddle tables, the transform buffers and their flags, the pair
-    list and the accumulators — the kernel's own formula
+def smem_bytes(n_st: int, m: int, track: bool) -> int:
+    """Shared memory of a stage-2 CTA, which holds one item's
+    accumulators: the twiddle tables, the transform buffers and their
+    flags, the pair list and the accumulators — the kernel's own formula
     (``smem_bytes`` in ``csrc/corr_accum.cu``), mirrored here for the
-    tile planner and ``branch_of``: a resident-branch CTA holds all of
-    its items, a streamed-branch stage-2 CTA one (``n_res`` = 1);
-    ``launch_bytes`` holds the mirror and the library to each other."""
+    tile planner; ``launch_bytes`` holds the mirror and the library to
+    each other."""
     def pad4(n):
         return (n + 3) & ~3
 
     xs = max(n_st, _GROUPS)
     return (3 * R * 8 + xs * _SLOT * 8 + 4 * pad4(xs) + 4 * pad4(2 * m)
-            + n_res * n_slots(n_st, m, track) * R * 4)
+            + n_slots(n_st, m, track) * R * 4)
 
 
 def max_tile_pairs(n_st: int, track: bool, optin: int) -> int:
     """The most pairs one launch over ``n_st`` rows holds: one item's
-    accumulators (a streamed-branch CTA's) within ``optin`` bytes of
+    accumulators (a stage-2 CTA's) within ``optin`` bytes of
     shared memory; 0 where the per-station rows alone exceed it. On the
     H100 (232,448 B opt-in) that is all 66 pairs of 12 stations with DC
     sums (213,712 B), 60 at 16 stations, 46 at 24."""
@@ -109,33 +97,11 @@ def max_tile_pairs(n_st: int, track: bool, optin: int) -> int:
     return m
 
 
-def branch_of(n_st: int, m: int, track: bool, n_banks: int, optin: int,
-              n_sm: int) -> str:
-    """The branch the kernel's ``choose`` takes for a launch of ``m``
-    pairs over ``n_st`` rows in ``n_banks`` banks on a card of ``n_sm``
-    SMs: ``"resident"`` where one CTA a SM holds all of its items'
-    accumulators within ``optin`` bytes, else ``"streamed"``."""
-    ipc = -(-R * n_banks // n_sm)
-    return ("resident" if smem_bytes(n_st, m, track, ipc) <= optin
-            else "streamed")
-
-
-def scratch_plan(branch: str, n_st: int, n_banks: int,
-                 n_seg: int) -> Tuple[int, int]:
-    """(run, buffers) of a launch's scratch, each buffer ``n_st`` ×
-    ``n_banks`` × ``run`` stage-1 spectra of 512 KB: the resident
-    branch's two L2-sized chunk buffers (``bank_run``), or the streamed
-    branch's one buffer holding the whole block (its plan's one chunk:
-    the longest bank's run)."""
-    if branch == "resident":
-        return bank_run(n_st, n_banks, n_seg), 2
-    return -(-n_seg // n_banks), 1
-
-
-def scratch_bytes(branch: str, n_st: int, n_banks: int, n_seg: int) -> int:
-    """Device bytes of a launch's scratch (``scratch_plan``)."""
-    run, bufs = scratch_plan(branch, n_st, n_banks, n_seg)
-    return bufs * n_st * n_banks * run * FFT_LEN * 8
+def scratch_bytes(n_st: int, n_banks: int, n_seg: int) -> int:
+    """Device bytes of a launch's scratch: stage 1's 512 KB spectrum of
+    every station and segment slot (``slot_plan``: each bank as long as
+    the longest)."""
+    return n_st * n_banks * -(-n_seg // n_banks) * FFT_LEN * 8
 
 
 @functools.lru_cache(maxsize=8)
@@ -143,13 +109,6 @@ def smem_optin(device) -> int:
     """The opt-in shared memory a block may use on CUDA ``device``."""
     return int(torch.cuda.get_device_properties(
         device).shared_memory_per_block_optin)
-
-
-@functools.lru_cache(maxsize=8)
-def sm_count(device) -> int:
-    """The streaming multiprocessors of CUDA ``device``."""
-    return int(torch.cuda.get_device_properties(
-        device).multi_processor_count)
 
 
 def plan_tiles(pairs, n_st: int, track: bool, optin=None,
@@ -301,72 +260,50 @@ def accumulate_banks_plain(x: torch.Tensor, pairs, n_banks: int,
     return cross, psd, sums
 
 
-def bank_run(n_st: int, n_banks: int, n_seg: int) -> int:
-    """Segments each bank gives one chunk of the resident branch: as
-    many as keep a scratch buffer (all stations of the chunk's segments)
-    within SCRATCH_BUF_BYTES, at least one, at most the longest bank."""
-    per_run = n_st * n_banks * FFT_LEN * 8
-    return max(1, min(SCRATCH_BUF_BYTES // per_run, -(-n_seg // n_banks)))
-
-
-def chunk_plan(n_seg: int, n_banks: int, run: int) -> np.ndarray:
-    """The kernel's schedule: int32 [n_chunks, n_banks·run], row c
-    holding the segments of chunk c — for each bank (``bank_bounds``)
-    its next ``run`` segments in order, −1 past the bank's end. The
-    streamed branch's run is the longest bank: one chunk."""
+def slot_plan(n_seg: int, n_banks: int) -> np.ndarray:
+    """The kernel's segment slots: int32 [n_banks·run], ``run`` the
+    longest bank's segments; bank k (``bank_bounds``) lists its segments
+    in order from slot k·run, −1 past its end."""
     b = bank_bounds(n_seg, n_banks)
-    n_chunks = -(-max(np.diff(b)) // run)
-    plan = np.full((n_chunks, n_banks, run), -1, np.int32)
+    run = -(-n_seg // n_banks)
+    plan = np.full((n_banks, run), -1, np.int32)
     for k in range(n_banks):
-        flat = np.full(n_chunks * run, -1, np.int32)
-        flat[:b[k + 1] - b[k]] = np.arange(b[k], b[k + 1])
-        plan[:, k] = flat.reshape(n_chunks, run)
-    return plan.reshape(n_chunks, n_banks * run)
+        plan[k, :b[k + 1] - b[k]] = np.arange(b[k], b[k + 1])
+    return plan.reshape(-1)
 
 
-def _launch_shape(n_st, m, track_sums, n_banks, bf16, device,
-                  force_streamed=False):
+def _launch_shape(n_st, m, track_sums, bf16, device):
     """(CUDA error, shape) of the kernel's launch on ``device``, as the
-    built library chooses it (once per device and shape): the branch,
-    the grid (the streamed branch's stage 2), CTAs per SM, (bank, row)
-    items per CTA, shared memory per CTA, and the streamed branch's
-    stage-1 grid (0 for the resident branch)."""
+    built library chooses it (once per device and shape): stage 2's
+    grid, its CTAs per SM and shared memory per CTA, and stage 1's
+    grid."""
     from tdoa_tpu_torch.ops.kernels import _build
 
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 4)()
     with torch.cuda.device(device):
         err = _build.load().tdoa_corr_accum_config(
-            n_st, m, int(track_sums), n_banks, int(bf16),
-            int(force_streamed), out)
-    v = [int(x) for x in out]
-    return err, {"branch": "streamed" if v[0] else "resident",
-                 **dict(zip(("grid", "blocks_per_sm", "items_per_cta",
-                             "smem_bytes", "stage1_grid"), v[1:]))}
+            n_st, m, int(track_sums), int(bf16), out)
+    return err, dict(zip(("grid", "blocks_per_sm", "smem_bytes",
+                          "stage1_grid"), (int(x) for x in out)))
 
 
-def kernel_config(n_st: int, pairs, track_sums: bool, n_banks: int,
-                  bf16: bool = True, device=None) -> dict:
+def kernel_config(n_st: int, pairs, track_sums: bool, bf16: bool = True,
+                  device=None) -> dict:
     """The launches the kernel takes on ``device`` (default: the current
     card) for ``pairs`` over ``n_st`` rows, as ``accumulate_banks`` runs
     them (the tiles of ``plan_tiles``): the launch of the largest tile —
-    its ``branch`` (``"resident"``: every CTA keeps all of its items'
-    accumulators in shared memory for the whole block, in one
-    cooperative launch; ``"streamed"``: stage 1 of the whole block into
-    an HBM scratch, then each CTA holds one item's accumulators at a
-    time while the bank's segments stream past), the grid, CTAs per SM,
-    (bank, row) items per CTA, shared memory per CTA and the streamed
-    branch's stage-1 grid — with ``tiles`` (launches), ``rows`` and
-    ``m_tile`` (the largest tile's rows and pairs)."""
+    stage 2's grid, its CTAs per SM and shared memory per CTA, and stage
+    1's grid — with ``tiles`` (launches), ``rows`` and ``m_tile`` (the
+    largest tile's rows and pairs)."""
     dev = torch.device("cuda", torch.cuda.current_device()) \
         if device is None else torch.device(device)
     tiles = _tiles(pairs_key(pairs), n_st, track_sums, smem_optin(dev), None)
     rows, m_tile = max(_launch_shapes(tiles),
                        key=lambda s: smem_bytes(*s, track_sums))
-    err, cfg = _launch_shape(rows, m_tile, track_sums, n_banks, bf16, dev)
+    err, cfg = _launch_shape(rows, m_tile, track_sums, bf16, dev)
     if err != 0:
         raise RuntimeError(f"corr_accum has no launch for {rows} rows, "
-                           f"{m_tile} pairs, {n_banks} banks: CUDA error "
-                           f"{err}")
+                           f"{m_tile} pairs: CUDA error {err}")
     return {**cfg, "tiles": len(tiles), "rows": rows, "m_tile": m_tile}
 
 
@@ -376,8 +313,8 @@ def _launch_shapes(tiles) -> list:
 
 
 @functools.lru_cache(maxsize=64)
-def _device_plan(n_seg: int, n_banks: int, run: int, device) -> torch.Tensor:
-    return torch.from_numpy(chunk_plan(n_seg, n_banks, run)).to(device)
+def _device_plan(n_seg: int, n_banks: int, device) -> torch.Tensor:
+    return torch.from_numpy(slot_plan(n_seg, n_banks)).to(device)
 
 
 def launch_bytes(n_st: int, pairs, track_sums: bool, n_banks: int,
@@ -386,11 +323,11 @@ def launch_bytes(n_st: int, pairs, track_sums: bool, n_banks: int,
     of ``n_seg`` segments in ``n_banks`` banks on ``device``, as
     ``accumulate_banks`` launches them (the tiles of ``plan_tiles`` at
     the device's opt-in shared memory): the largest launch's scratch
-    (``scratch_bytes``; the streamed branch's grows with the block), the
-    bank accumulators and, where the list is tiled, the tiles' outputs
-    beside them. None where no launch holds one pair. Every tile's
-    launch must have a shape and a branch: the footprint mirror plans
-    them, and where the built library disagrees this raises."""
+    (``scratch_bytes``, which grows with the block), the bank
+    accumulators and, where the list is tiled, the tiles' outputs beside
+    them. None where no launch holds one pair. Every tile's launch must
+    have a shape: the footprint mirror plans them, and where the built
+    library refuses one this raises."""
     key = pairs_key(pairs)
     optin = smem_optin(device)
     try:
@@ -399,16 +336,12 @@ def launch_bytes(n_st: int, pairs, track_sums: bool, n_banks: int,
         return None
     scratch = 0
     for rows, m_tile in _launch_shapes(tiles):
-        err, cfg = _launch_shape(rows, m_tile, track_sums, n_banks, True,
-                                 device)
-        mirror = branch_of(rows, m_tile, track_sums, n_banks, optin,
-                           sm_count(device))
-        if err != 0 or cfg["branch"] != mirror:
+        err, _ = _launch_shape(rows, m_tile, track_sums, True, device)
+        if err != 0:
             raise RuntimeError(
                 f"corr_accum launch shape for {rows} rows, {m_tile} pairs: "
-                f"CUDA error {err}, branch {cfg.get('branch')} (the "
-                f"footprint mirror says it fits, branch {mirror})")
-        scratch = max(scratch, scratch_bytes(mirror, rows, n_banks, n_seg))
+                f"CUDA error {err} (the footprint mirror says it fits)")
+        scratch = max(scratch, scratch_bytes(rows, n_banks, n_seg))
     acc = n_banks * FFT_LEN * (8 * len(key) + 4 * n_st
                                + (8 * n_st if track_sums else 0))
     return scratch + acc + (acc if len(tiles) > 1 else 0)
@@ -418,7 +351,7 @@ def fits_device(n_st: int, pairs, track_sums: bool, n_banks: int,
                 device: torch.device) -> bool:
     """Whether the kernel runs ``pairs`` over ``n_st`` rows on
     ``device``: some launch holds the pairs and the device's free
-    memory holds ``launch_bytes`` with the streamed scratch counted at
+    memory holds ``launch_bytes`` with the scratch counted at
     ``MAX_BLOCK_SEGS``, the longest block a capture holds (the
     overlapped ingest's gate, one verdict for every chunk)."""
     need = launch_bytes(n_st, pairs, track_sums, n_banks, device,
@@ -427,41 +360,36 @@ def fits_device(n_st: int, pairs, track_sums: bool, n_banks: int,
 
 
 def accumulate_banks(x: torch.Tensor, pairs, n_banks: int = 1,
-                     track_sums: bool = False, max_pairs=None,
-                     force_streamed: bool = False):
+                     track_sums: bool = False, max_pairs=None):
     """Raw banked accumulators of planar ``x`` [2, n_st, N] (bf16 or
     f32; N truncated to whole segments): (cross c64 [K, m, F], psd f32
     [K, n_st, F], sums c64 [K, n_st, F] or None), true frequency order.
 
     The pair list goes in the tiles of ``plan_tiles`` (on a card: as many
     pairs a launch as its shared memory holds; ``max_pairs`` forces the
-    tile size and ``force_streamed`` the streamed branch where the
-    resident one would run, for tests and the smoke), each tile one
-    call below; the
+    tile size, for tests and the smoke), each tile one call below; the
     cross banks are stitched along the pair axis, PSD and sums taken
     from each row block's first tile. CPU tensors take the plain torch
     version per tile; CUDA tensors launch ``csrc/corr_accum.cu`` per
     tile (a launch that fails raises) and count each launch in
     ``accumulate_banks.launches`` and, by ``(rows, segments, banks,
-    pairs)``, in ``accumulate_banks.launch_shapes``. The streamed
-    branch's stage 1 depends on the rows alone, so the tiles of one row
-    block after its first reuse the first one's hand-off."""
+    pairs)``, in ``accumulate_banks.launch_shapes``. Stage 1 depends on
+    the rows alone, so the tiles of one row block after its first reuse
+    the first one's hand-off."""
     n_st, _, _ = _check_input(x, pairs)
     key = pairs_key(pairs)
     optin = None if x.device.type == "cpu" else smem_optin(x.device)
     tiles = _tiles(key, n_st, track_sums, optin, max_pairs)
     if len(tiles) == 1:
-        return _accumulate_tile(x, key, n_banks, track_sums,
-                                force_streamed)[:3]
+        return _accumulate_tile(x, key, n_banks, track_sums)[:3]
     cross, psd, sums = [], [], []
-    stage1 = None  # the streamed hand-off of the current row block
+    stage1 = None  # the stage-1 hand-off of the current row block
     for t, (r0, r1, lo, hi) in enumerate(tiles):
         sub = tuple((i - r0, j - r0) for i, j in key[lo:hi])
         if t > 0 and r0 != tiles[t - 1][0]:
             stage1 = None
         c, p, s, stage1 = _accumulate_tile(x[:, r0:r1], sub, n_banks,
-                                           track_sums, force_streamed,
-                                           stage1)
+                                           track_sums, stage1)
         cross.append(c)
         if t == 0 or r0 != tiles[t - 1][0]:  # a row block's first tile
             psd.append(p)
@@ -476,14 +404,12 @@ def _tiles(key, n_st, track, optin, max_pairs) -> tuple:
 
 
 def _accumulate_tile(x: torch.Tensor, pairs, n_banks: int,
-                     track_sums: bool, force_streamed: bool = False,
-                     stage1=None):
+                     track_sums: bool, stage1=None):
     """One tile: the plain version for a CPU tensor, one call of the
-    kernel for a CUDA tensor (or an error): the resident branch's
-    launch, or the streamed branch's two — its stage 1 skipped where
-    ``stage1`` (an earlier tile's hand-off of the same rows, segments
-    and banks) is given. Returns (cross, psd, sums, the streamed
-    hand-off or None)."""
+    kernel for a CUDA tensor (or an error): its two launches, stage 1
+    skipped where ``stage1`` (an earlier tile's hand-off of the same
+    rows, segments and banks) is given. Returns (cross, psd, sums, the
+    stage-1 hand-off or None)."""
     if x.device.type == "cpu":
         return (*accumulate_banks_plain(x, pairs, n_banks, track_sums), None)
     from tdoa_tpu_torch.ops.kernels import _build
@@ -499,15 +425,11 @@ def _accumulate_tile(x: torch.Tensor, pairs, n_banks: int,
     dev = x.device
     bf16 = x.dtype == torch.bfloat16
     pairs_d = device_pairs(pairs, dev)
-    branch = _branch(n_st, m, track_sums, n_banks, bf16, dev, force_streamed)
-    run, bufs = scratch_plan(branch, n_st, n_banks, n_seg)
-    plan = _device_plan(n_seg, n_banks, run, dev)
-    size = bufs * n_st * n_banks * run * FFT_LEN * 2
-    reuse = (branch == "streamed" and stage1 is not None
-             and stage1.numel() == size)
+    plan = _device_plan(n_seg, n_banks, dev)
+    size = scratch_bytes(n_st, n_banks, n_seg) // 4
+    reuse = stage1 is not None and stage1.numel() == size
     scratch = stage1 if reuse else torch.empty(size, dtype=torch.float32,
                                                device=dev)
-    bar = torch.empty(1, dtype=torch.int32, device=dev)
     cross = torch.empty(n_banks, m, FFT_LEN, dtype=torch.complex64, device=dev)
     psd = torch.empty(n_banks, n_st, FFT_LEN, dtype=torch.float32, device=dev)
     sums = (torch.empty(n_banks, n_st, FFT_LEN, dtype=torch.complex64,
@@ -516,9 +438,8 @@ def _accumulate_tile(x: torch.Tensor, pairs, n_banks: int,
         ctypes.c_void_p(x[0].data_ptr()), ctypes.c_void_p(x[1].data_ptr()),
         int(bf16), int(x.stride(1)), n_st,
         ctypes.c_void_p(pairs_d.data_ptr()), m, n_banks, int(track_sums),
-        ctypes.c_void_p(plan.data_ptr()), int(plan.shape[0]), run,
-        int(force_streamed), int(reuse),
-        ctypes.c_void_p(scratch.data_ptr()), ctypes.c_void_p(bar.data_ptr()),
+        ctypes.c_void_p(plan.data_ptr()), plan.numel() // n_banks,
+        int(reuse), ctypes.c_void_p(scratch.data_ptr()),
         ctypes.c_void_p(cross.data_ptr()), ctypes.c_void_p(psd.data_ptr()),
         ctypes.c_void_p(0 if sums is None else sums.data_ptr()),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
@@ -528,23 +449,11 @@ def _accumulate_tile(x: torch.Tensor, pairs, n_banks: int,
                            f"({n_st} rows, {m} pairs, {n_banks} banks)")
     accumulate_banks.launches += 1
     accumulate_banks.launch_shapes[(n_st, n_seg, n_banks, m)] += 1
-    return cross, psd, sums, scratch if branch == "streamed" else None
+    return cross, psd, sums, scratch
 
 
 accumulate_banks.launches = 0
 accumulate_banks.launch_shapes = collections.Counter()
-
-
-@functools.lru_cache(maxsize=256)
-def _branch(n_st, m, track_sums, n_banks, bf16, device, force_streamed):
-    """The branch the library runs for one launch shape (its scratch
-    differs), asked once per shape and device."""
-    err, cfg = _launch_shape(n_st, m, track_sums, n_banks, bf16, device,
-                             force_streamed)
-    if err != 0:
-        raise RuntimeError(f"corr_accum has no launch for {n_st} rows, {m} "
-                           f"pairs, {n_banks} banks: CUDA error {err}")
-    return cfg["branch"]
 
 
 def _finalize_banks(cross, psd, sums, pairs, seg_g, remove_dc: bool,

@@ -2309,6 +2309,29 @@ class TDOAProcessor:
             device=self.device,
         )
 
+    def _stations_of(self, dat_paths: Sequence[str]) -> List[str]:
+        """The station of each capture file, from its name; raises
+        ``FileNotFoundError`` for a missing file and ``ValueError`` for a
+        name that matches no station or a second file of one station."""
+        known = self.stations.names
+        stations: List[str] = []
+        for path in dat_paths:
+            if not os.path.exists(path):
+                raise FileNotFoundError(f"capture file not found: {path}")
+            st = station_from_filename(path, known)
+            if st is None:
+                raise ValueError(
+                    f"cannot infer station from filename: {path} "
+                    f"(known stations: {', '.join(known)})"
+                )
+            if st in stations:
+                raise ValueError(
+                    f"two capture files resolve to station '{st}' "
+                    f"(second: {path}); pass one file per station"
+                )
+            stations.append(st)
+        return stations
+
     def process_files_overlapped(
         self, dat_paths: Sequence[str]
     ) -> TDOAResult:
@@ -2320,23 +2343,8 @@ class TDOAProcessor:
         multi-emitter need whole blocks on device and raise)."""
         self.ingest_diag.clear()
         captures: Dict[str, HostCapture] = {}
-        known = self.stations.names
         with self._stage("mmap"):
-            for path in dat_paths:
-                if not os.path.exists(path):
-                    raise FileNotFoundError(
-                        f"capture file not found: {path}")
-                st = station_from_filename(path, known)
-                if st is None:
-                    raise ValueError(
-                        f"cannot infer station from filename: {path} "
-                        f"(known stations: {', '.join(known)})"
-                    )
-                if st in captures:
-                    raise ValueError(
-                        f"two capture files resolve to station '{st}' "
-                        f"(second: {path}); pass one file per station"
-                    )
+            for st, path in zip(self._stations_of(dat_paths), dat_paths):
                 raw = np.memmap(path, dtype=np.uint8, mode="r")
                 if raw.size < 6:
                     raise ValueError(f"capture too short: {path}")
@@ -2380,25 +2388,8 @@ class TDOAProcessor:
         )
         dtype = torch.bfloat16 if fused else torch.float32
         captures: Dict[str, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
-        known = self.stations.names
         with self._stage("load+decode"):
-            stations = []
-            for path in dat_paths:
-                if not os.path.exists(path):
-                    raise FileNotFoundError(
-                        f"capture file not found: {path}")
-                st = station_from_filename(path, known)
-                if st is None:
-                    raise ValueError(
-                        f"cannot infer station from filename: {path} "
-                        f"(known stations: {', '.join(known)})"
-                    )
-                if st in stations:
-                    raise ValueError(
-                        f"two capture files resolve to station '{st}' "
-                        f"(second: {path}); pass one file per station"
-                    )
-                stations.append(st)
+            stations = self._stations_of(dat_paths)
             if self.device.type == "cuda" and self._ring is None:
                 self._ring = _ChunkRing(self.device)
             for cap in load_window(dat_paths, stations, dtype, self.device,

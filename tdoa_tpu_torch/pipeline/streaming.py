@@ -124,8 +124,8 @@ def _kernel_fits(n_st: int, pairs: tuple, remove_dc: bool,
     """``fits_device``'s verdict on kernel 1 as a single bank, taken once
     per shape and card and kept: every chunk of a stream then goes the
     way its first chunk went (a state never mixes the two accumulators,
-    and no chunk queries the free memory of the card; the streamed
-    branch's scratch, which grows with the chunk, is counted at the
+    and no chunk queries the free memory of the card; the kernel's
+    scratch, which grows with the chunk, is counted at the
     longest block a capture holds). A later chunk that the card cannot
     hold raises from the kernel's wrapper."""
     from tdoa_tpu_torch.ops.kernels.corr_accum import fits_device

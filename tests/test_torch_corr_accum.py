@@ -23,13 +23,11 @@ from tdoa_tpu_torch.ops.corr import correlate_pairs_fused
 from tdoa_tpu_torch.ops.kernels import corr_accum
 from tdoa_tpu_torch.ops.kernels.corr_accum import (
     FFT_LEN,
-    SCRATCH_BUF_BYTES,
     SEG_LEN,
     accumulate_banks,
     accumulate_cross_spectra,
     bank_bounds,
-    bank_run,
-    chunk_plan,
+    slot_plan,
 )
 
 PAIRS = ((0, 1), (0, 2), (1, 2))
@@ -119,41 +117,17 @@ def test_bank_bounds_match_split_bounds(n_seg, K):
         n_seg, K, SEG_LEN)
 
 
-@pytest.mark.parametrize("n_seg", [5, 16, 100, 443, 1480])
+@pytest.mark.parametrize("n_seg", [5, 16, 96, 100, 443, 1480])
 @pytest.mark.parametrize("K", [1, 2, 4])
-def test_chunk_plan_covers_every_segment_once(n_seg, K):
-    """The kernel's schedule: chunk c holds, for every bank, its next
-    `run` segments in order, −1 only past the bank's end; over the
-    chunks every segment of every bank appears exactly once, in the
-    bank's order (1480 segments is the 100 s maximum capture). Checked
-    at the run the kernel takes (3 stations) and at 1 and 7."""
-    b = bank_bounds(n_seg, K)
-    for run in sorted({bank_run(3, K, n_seg), 1, 7}):
-        plan = chunk_plan(n_seg, K, run)
-        assert plan.dtype == np.int32
-        assert plan.shape == (-(-max(np.diff(b)) // run), K * run)
-        per_bank = plan.reshape(plan.shape[0], K, run)
-        for k in range(K):
-            flat = per_bank[:, k].reshape(-1)
-            n = b[k + 1] - b[k]
-            np.testing.assert_array_equal(flat[:n], np.arange(b[k], b[k + 1]))
-            assert (flat[n:] == -1).all()
-        got = np.sort(plan[plan >= 0])
-        np.testing.assert_array_equal(got, np.arange(n_seg))
-
-
-@pytest.mark.parametrize("n_seg", [5, 96, 443, 1480])
-@pytest.mark.parametrize("K", [1, 2, 4])
-def test_streamed_plan_is_one_chunk_of_every_segment(n_seg, K):
-    """The streamed branch's schedule (``scratch_plan``'s run, the
-    longest bank): ONE chunk in which every bank lists all of its
-    segments once, in order, −1 only past its end; its one scratch
-    buffer holds every segment of every station. The resident branch
-    keeps its two chunk buffers at ``bank_run``."""
-    run, bufs = corr_accum.scratch_plan("streamed", 12, K, n_seg)
-    assert bufs == 1 and run == -(-n_seg // K)
-    plan = chunk_plan(n_seg, K, run)
-    assert plan.shape == (1, K * run)
+def test_slot_plan_lists_every_segment_once(n_seg, K):
+    """The kernel's segment slots: each bank as long as the longest
+    (``run``), listing all of its segments once, in order, −1 only past
+    its end; over the banks every segment appears exactly once (1480
+    segments is the 100 s maximum capture). The one scratch holds every
+    slot of every station."""
+    plan = slot_plan(n_seg, K)
+    run = -(-n_seg // K)
+    assert plan.dtype == np.int32 and plan.shape == (K * run,)
     b = bank_bounds(n_seg, K)
     per_bank = plan.reshape(K, run)
     for k in range(K):
@@ -161,21 +135,9 @@ def test_streamed_plan_is_one_chunk_of_every_segment(n_seg, K):
         np.testing.assert_array_equal(per_bank[k, :n],
                                       np.arange(b[k], b[k + 1]))
         assert (per_bank[k, n:] == -1).all()
-    assert corr_accum.scratch_bytes("streamed", 12, K, n_seg) \
+    np.testing.assert_array_equal(np.sort(plan[plan >= 0]), np.arange(n_seg))
+    assert corr_accum.scratch_bytes(12, K, n_seg) \
         == 12 * K * run * FFT_LEN * 8
-    assert corr_accum.scratch_plan("resident", 3, K, n_seg) == (
-        bank_run(3, K, n_seg), 2)
-
-
-@pytest.mark.parametrize("n_st,K", [(3, 4), (3, 1), (12, 2)])
-def test_bank_run_keeps_a_scratch_buffer_in_its_bound(n_st, K):
-    """A chunk's stage-1 spectra (all stations of n_banks·run segments)
-    stay within SCRATCH_BUF_BYTES unless one segment a bank already
-    exceeds it; the run never passes the longest bank."""
-    for n_seg in (K, 443, 1480):
-        run = bank_run(n_st, K, n_seg)
-        assert 1 <= run <= -(-n_seg // K)
-        assert run == 1 or n_st * K * run * FFT_LEN * 8 <= SCRATCH_BUF_BYTES
 
 
 def test_timeline_build_has_its_own_hash():
@@ -246,18 +208,6 @@ def test_cpu_tensors_take_the_plain_version():
     assert accumulate_banks.launches == before
 
 
-def test_forcing_the_streamed_branch_on_the_cpu_is_the_plain_version():
-    """``force_streamed`` picks a branch of the CUDA kernel: a CPU tensor
-    still takes the plain version, bitwise, and launches nothing."""
-    x = torch.from_numpy(fm_block(3, 2 * SEG_LEN, [0, 3, -2], seed=4))
-    before = accumulate_banks.launches
-    forced = accumulate_banks(x, PAIRS, 2, True, force_streamed=True)
-    plain = corr_accum.accumulate_banks_plain(x, PAIRS, 2, True)
-    assert accumulate_banks.launches == before
-    for a, b in zip(forced, plain):
-        assert torch.equal(a, b)
-
-
 def _all_pairs(n_st):
     return tuple((i, j) for i in range(n_st) for j in range(i + 1, n_st))
 
@@ -270,7 +220,6 @@ def _stacked_pairs(n_st, blocks=3):
 
 
 H100_SMEM_OPTIN = 232_448  # cudaDevAttrMaxSharedMemoryPerBlockOptin
-H100_SMS = 132
 
 
 @pytest.mark.parametrize("layout", ["all pairs of 5", "3 stacked blocks"])
@@ -338,35 +287,33 @@ def test_tile_capacity_on_the_h100(n_st, stacked, tiles):
     assert corr_accum.smem_bytes(13, 78, True) > H100_SMEM_OPTIN
 
 
-@pytest.mark.parametrize("n_st,rows,K,sums,branch", [
-    (3, 3, 4, True, "resident"), (4, 4, 4, True, "streamed"),
-    (5, 5, 4, True, "streamed"), (8, 8, 4, True, "streamed"),
-    (12, 12, 4, True, "streamed"), (13, 13, 4, True, "streamed"),
-    (16, 16, 4, True, "streamed"), (24, 24, 4, True, "streamed"),
-    (3, 9, 1, True, "resident"), (12, 36, 1, True, "streamed"),
-    (16, 48, 1, True, "streamed"), (24, 72, 1, True, "streamed"),
-    (12, 36, 1, False, "streamed"), (12, 36, 4, False, "streamed")])
-def test_branch_on_the_h100(n_st, rows, K, sums, branch):
-    """At the H100's opt-in limit and 132 SMs, the footprint mirror
-    gives every launch of the tile plan its branch: the resident one at
-    3 stations (K = 4, and the overlapped ingest's 9 stacked rows at
-    K = 1), the streamed one from 4 stations at K = 4 — each tile of 13,
-    16 and 24 stations too — and on the stacked rows (K = 1) and the
-    sharded step's 12-row blocks (f32, no DC sums; K = 1 and 4) of 12 to
-    24 stations. A streamed launch holds one item a CTA, so its tiles
-    are the planner's: every launch fits the limit with ``n_res`` = 1."""
-    pairs = _all_pairs(n_st) if rows == n_st else _stacked_pairs(n_st)
+@pytest.mark.parametrize("n_st,rows,K,sums,n_seg", [
+    (3, 3, 4, True, 443), (4, 4, 4, True, 443), (5, 5, 4, True, 443),
+    (8, 8, 4, True, 443), (12, 12, 4, True, 443), (13, 13, 4, True, 443),
+    (16, 16, 4, True, 443), (24, 24, 4, True, 443),
+    (3, 9, 1, True, 96), (3, 9, 1, True, 59), (3, 9, 1, True, 39),
+    (3, 3, 1, True, 96), (3, 3, 1, True, 59), (3, 3, 1, True, 39),
+    (12, 36, 1, True, 96), (16, 48, 1, True, 96), (24, 72, 1, True, 96),
+    (12, 36, 1, False, 220), (12, 36, 4, False, 440)])
+def test_one_item_a_cta_fits_on_the_h100(n_st, rows, K, sums, n_seg):
+    """At the H100's opt-in limit every launch of the tile plan holds one
+    item's accumulators a CTA: 3 to 24 stations at K = 4 (13, 16 and 24
+    stations in tiles), the overlapped ingest's stacked rows and a tail
+    session's 3 rows at K = 1 over a default chunk (96 segments) and
+    the last chunks of a 10 s and a 100 s block (59, 39), and the
+    sharded step's 12-row blocks (f32, no DC sums). Each row block's
+    scratch holds every station's segment slots, each bank as long as
+    the longest."""
+    pairs = (_stacked_pairs(n_st) if rows == 3 * n_st
+             else _all_pairs(n_st))
     plan = corr_accum.plan_tiles(pairs, rows, sums, H100_SMEM_OPTIN)
     for r0, r1, lo, hi in plan:
-        assert corr_accum.branch_of(r1 - r0, hi - lo, sums, K,
-                                    H100_SMEM_OPTIN, H100_SMS) == branch
-        assert corr_accum.smem_bytes(r1 - r0, hi - lo, sums, 1) \
+        assert corr_accum.smem_bytes(r1 - r0, hi - lo, sums) \
             <= H100_SMEM_OPTIN
-    # One CTA a SM would need ceil(256·K / 132) items: 8 at K = 4.
-    items = -(-256 * K // H100_SMS)
-    rows_tile, m_tile = max((r1 - r0, hi - lo) for r0, r1, lo, hi in plan)
-    resident = corr_accum.smem_bytes(rows_tile, m_tile, sums, items)
-    assert (resident <= H100_SMEM_OPTIN) == (branch == "resident")
+        slots = slot_plan(n_seg, K)
+        assert (slots >= 0).sum() == n_seg
+        assert corr_accum.scratch_bytes(r1 - r0, K, n_seg) \
+            == (r1 - r0) * slots.size * FFT_LEN * 8
 
 
 def test_tile_planner_refuses_what_no_launch_holds():
@@ -382,21 +329,19 @@ def h100_gate(monkeypatch):
     """The kernel route's gates as on an H100 with 80 GB free, without a
     card: the opt-in limit, the free memory, and the built library's
     launch search (``choose()`` in csrc/corr_accum.cu, checked against
-    the mirror on the card by ``fits_device``) stood in by the footprint
-    mirror. Records every launch shape the gates ask about."""
+    the mirror on the card by ``launch_bytes``) stood in by the
+    footprint mirror. Records every launch shape the gates ask about."""
     from tdoa_tpu_torch.pipeline import processor as tproc
     from tdoa_tpu_torch.pipeline import streaming as ts
 
     asked = []
 
-    def launch_shape(rows, m, track, n_banks, bf16, device):
-        asked.append((rows, m, n_banks))
+    def launch_shape(rows, m, track, bf16, device):
+        asked.append((rows, m))
         fits = corr_accum.smem_bytes(rows, m, track) <= H100_SMEM_OPTIN
-        return (0 if fits else 9), {"branch": corr_accum.branch_of(
-            rows, m, track, n_banks, H100_SMEM_OPTIN, H100_SMS)}
+        return (0 if fits else 9), {}
 
     monkeypatch.setattr(corr_accum, "smem_optin", lambda d: H100_SMEM_OPTIN)
-    monkeypatch.setattr(corr_accum, "sm_count", lambda d: H100_SMS)
     monkeypatch.setattr(corr_accum, "_launch_shape", launch_shape)
     monkeypatch.setattr(torch.cuda, "mem_get_info", lambda d: (80 << 30,
                                                                80 << 30))
@@ -424,7 +369,7 @@ def test_overlapped_geometry_takes_the_kernel_at_h100_optin(h100_gate, n_st,
     plan = corr_accum.plan_tiles(pairs, 3 * n_st, True, H100_SMEM_OPTIN)
     assert len(plan) == tiles
     assert sorted(set(h100_gate)) == sorted(
-        {(n_st, hi - lo, 1) for _, _, lo, hi in plan})
+        {(n_st, hi - lo) for _, _, lo, hi in plan})
 
 
 @pytest.mark.parametrize("n_st", [3, 12, 13, 16, 24])
@@ -445,7 +390,7 @@ def test_batch_route_takes_the_kernel_at_h100_optin(h100_gate, n_st):
     tiles = corr_accum.plan_tiles(_all_pairs(n_st), n_st, True,
                                   H100_SMEM_OPTIN)
     assert (len(tiles) > 1) == (n_st > 12)
-    assert {(r, k) for r, k, _ in h100_gate} == {
+    assert set(h100_gate) == {
         (n_st, hi - lo) for _, _, lo, hi in tiles}
     assert sum(hi - lo for *_, lo, hi in tiles) == m
 
@@ -463,47 +408,33 @@ def test_kernel_gate_refuses_what_no_launch_holds(h100_gate):
     assert h100_gate == []
 
 
-@pytest.mark.parametrize("n_st,K", [(3, 4), (12, 4), (24, 4), (36, 1)])
+@pytest.mark.parametrize("n_st,K,stacked", [
+    (3, 4, False), (12, 4, False), (24, 4, False), (12, 1, True),
+    (3, 1, False), (3, 1, True)])
 def test_kernel_gate_counts_the_streamed_scratch(h100_gate, monkeypatch,
-                                                 n_st, K):
-    """``fits_device`` counts the largest launch's scratch at the longest
-    block a capture holds (1480 segments): the resident branch's two
-    L2-sized chunk buffers at 3 stations, the streamed branch's whole
-    block from 4 (18.6 GB a tile at 24 stations, K = 4; 9.3 GB for a
-    12-row block of the stacked rows at K = 1), beside the bank
-    accumulators and the tiles' outputs. A card with one byte less free
-    than that is refused."""
+                                                 n_st, K, stacked):
+    """``fits_device`` counts the largest launch's scratch, the whole
+    block's stage-1 hand-off, at the longest block a capture holds (1480
+    segments: 2.3 GB at 3 stations, K = 4; 18.6 GB a tile at 24
+    stations; 7.0 GB on the overlapped ingest's 9 stacked rows of 3
+    stations and 9.3 GB for a 12-row block of 12 stations' at K = 1),
+    beside the bank accumulators and the tiles' outputs. A card with one
+    byte less free than that is refused."""
     card = torch.device("cuda", 0)
-    pairs = _all_pairs(n_st) if n_st <= 24 else _stacked_pairs(n_st // 3)
-    tiles = corr_accum.plan_tiles(pairs, n_st, True, H100_SMEM_OPTIN)
+    rows_all = 3 * n_st if stacked else n_st
+    pairs = _stacked_pairs(n_st) if stacked else _all_pairs(n_st)
+    tiles = corr_accum.plan_tiles(pairs, rows_all, True, H100_SMEM_OPTIN)
     rows = max(r1 - r0 for r0, r1, _, _ in tiles)
-    branch = "resident" if n_st == 3 else "streamed"
-    scratch = corr_accum.scratch_bytes(branch, rows, K,
-                                       corr_accum.MAX_BLOCK_SEGS)
-    if branch == "streamed":
-        assert scratch == rows * K * (-(-1480 // K)) * FFT_LEN * 8
-    else:
-        assert scratch <= 2 * SCRATCH_BUF_BYTES
-    acc = K * FFT_LEN * (8 * len(pairs) + 12 * n_st)
+    scratch = corr_accum.scratch_bytes(rows, K, corr_accum.MAX_BLOCK_SEGS)
+    assert scratch == rows * K * (-(-1480 // K)) * FFT_LEN * 8
+    acc = K * FFT_LEN * (8 * len(pairs) + 12 * rows_all)
     need = scratch + acc + (acc if len(tiles) > 1 else 0)
     monkeypatch.setattr(torch.cuda, "mem_get_info",
                         lambda d: (need + 1, 80 << 30))
-    assert corr_accum.fits_device(n_st, pairs, True, K, card)
+    assert corr_accum.fits_device(rows_all, pairs, True, K, card)
     monkeypatch.setattr(torch.cuda, "mem_get_info",
                         lambda d: (need, 80 << 30))
-    assert not corr_accum.fits_device(n_st, pairs, True, K, card)
-
-
-def test_kernel_gate_raises_where_the_library_takes_another_branch(
-        h100_gate, monkeypatch):
-    """One formula decides the branch: where the built library's choice
-    differs from the footprint mirror's, the gate raises instead of
-    sizing the scratch for the wrong branch."""
-    monkeypatch.setattr(corr_accum, "_launch_shape",
-                        lambda *a: (0, {"branch": "resident"}))
-    with pytest.raises(RuntimeError, match="branch resident"):
-        corr_accum.fits_device(12, _all_pairs(12), True, 4,
-                               torch.device("cuda", 0))
+    assert not corr_accum.fits_device(rows_all, pairs, True, K, card)
 
 
 WINDOW_BLOCK = 66_666_666  # a 100 s capture's block: 1479 kernel segments
@@ -523,39 +454,47 @@ def _on_card(**cfg):
     return proc
 
 
-@pytest.mark.parametrize("n_st,n_seg", [
-    (3, 443), (3, 1479), (12, 443), (12, 1479), (24, 443), (24, 1479)])
+@pytest.mark.parametrize("n_st,n_seg,K,stacked", [
+    (3, 443, 4, False), (3, 1479, 4, False), (12, 443, 4, False),
+    (12, 1479, 4, False), (24, 443, 4, False), (24, 1479, 4, False),
+    (3, 96, 1, False), (3, 59, 1, False), (3, 96, 1, True),
+    (3, 59, 1, True), (3, 39, 1, True)])
 def test_launch_bytes_count_the_streamed_scratch_at_the_blocks_segments(
-        h100_gate, n_st, n_seg):
+        h100_gate, n_st, n_seg, K, stacked):
     """Kernel 1's launch bytes grow with the block exactly as its largest
-    launch's scratch does (from 4 stations the streamed branch's
-    hand-off of the whole block), so the batch route counts 5.6 GB of
-    scratch at 24 stations × 443 segments, where the gate once counted
-    1480 segments (18.6 GB) whatever the block."""
+    launch's scratch, the hand-off of the whole block, does: the batch
+    route counts 0.70 GB of scratch at 3 stations × 443 segments, 2.33
+    GB at 1479, and 5.6 GB at 24 stations × 443, where the gate once
+    counted 1480 segments (18.6 GB) whatever the block; a tail session's
+    3 rows and the overlapped ingest's 9 stacked rows at K = 1 count
+    their chunk's."""
     card = torch.device("cuda", 0)
-    pairs = _all_pairs(n_st)
-    tiles = corr_accum.plan_tiles(pairs, n_st, True, H100_SMEM_OPTIN)
+    rows_all = 3 * n_st if stacked else n_st
+    pairs = _stacked_pairs(n_st) if stacked else _all_pairs(n_st)
+    tiles = corr_accum.plan_tiles(pairs, rows_all, True, H100_SMEM_OPTIN)
     rows = max(r1 - r0 for r0, r1, _, _ in tiles)
-    branch = "resident" if n_st == 3 else "streamed"
-    grown = (corr_accum.launch_bytes(n_st, pairs, True, 4, card, n_seg)
-             - corr_accum.launch_bytes(n_st, pairs, True, 4, card, 1))
-    assert grown == (corr_accum.scratch_bytes(branch, rows, 4, n_seg)
-                     - corr_accum.scratch_bytes(branch, rows, 4, 1))
+    grown = (corr_accum.launch_bytes(rows_all, pairs, True, K, card, n_seg)
+             - corr_accum.launch_bytes(rows_all, pairs, True, K, card, 1))
+    scratch = corr_accum.scratch_bytes(rows, K, n_seg)
+    assert grown == scratch - corr_accum.scratch_bytes(rows, K, 1)
+    if (n_st, K, stacked) == (3, 4, False):
+        assert scratch == (698_351_616 if n_seg == 443 else 2_327_838_720)
     if n_st == 24:
-        assert (corr_accum.scratch_bytes(branch, rows, 4, n_seg)
-                < (6e9 if n_seg == 443 else 19e9))
+        assert scratch < (6e9 if n_seg == 443 else 19e9)
 
 
 @pytest.mark.parametrize("n_st,block,lo", [
     (3, WINDOW_BLOCK, False), (12, WINDOW_BLOCK, False),
     (24, WINDOW_BLOCK, False), (24, 443 * SEG_LEN, False),
-    (3, WINDOW_BLOCK, True)])
+    (3, WINDOW_BLOCK, True), (3, 443 * SEG_LEN, False),
+    (3, 443 * SEG_LEN, True)])
 def test_batch_route_with_ample_memory_takes_the_kernel(h100_gate, n_st,
                                                         block, lo):
     """With 80 GB free every network of 3 to 24 stations, at 10 and 100 s,
     with and without LO compensation, takes the kernel route, whose need
-    is the smaller and grows with the block; the verdict records the
-    free memory it saw."""
+    (at 3 stations the whole block's stage-1 scratch among it) is the
+    smaller and grows with the block; the verdict records the free
+    memory it saw."""
     proc = _on_card(lo_compensation="auto" if lo else "off")
     v = proc.batch_route(n_st, block)
     assert v.route == "pallas" and v.free_bytes == 80 << 30
@@ -689,24 +628,21 @@ def _cuda_case(n_st, n_seg, stacked, device):
 @pytest.mark.parametrize("n_st,n_seg,K,stacked", [
     (3, 16, 4, False), (3, 100, 4, False), (12, 5, 2, False),
     (3, 443, 4, False), (5, 443, 4, False), (16, 443, 4, False),
-    (24, 443, 4, False), (12, 96, 1, True)])
+    (24, 443, 4, False), (12, 96, 1, True), (3, 96, 1, True)])
 def test_cuda_kernel_matches_plain(cuda_sm90, n_st, n_seg, K, stacked):
-    """The CUDA kernel against its plain version on the card: 3
-    stations, K = 4, sums on, bf16, at 16 segments (one chunk), at 100
-    and at a 10 s block's 443 segments (the resident branch: chunks of
-    corr_accum.bank_run segments a bank, each CTA keeping its items'
-    accumulators on chip from chunk to chunk); the streamed branch (one
-    item's accumulators a CTA while the bank's segments stream past) at
-    12 stations (66 pairs: 172 KB an item), at 5 stations over a 10 s
-    block, at 16 and 24 stations over a 10 s block, pair-tiled (2 and 6
-    launches), and on the overlapped ingest's 36 stacked rows of 12
-    stations (K = 1, 3 launches of 12 rows × 66 pairs); within 1e-4 of
-    each row's peak magnitude (f32 FFTs, different summation orders)."""
+    """The CUDA kernel (one item's accumulators a CTA while the bank's
+    segments stream past) against its plain version on the card: 3
+    stations, K = 4, sums on, bf16, at 16 segments, at 100 and at a 10 s
+    block's 443 segments; 12 stations (66 pairs: 172 KB an item), 5
+    stations over a 10 s block, 16 and 24 stations over a 10 s block,
+    pair-tiled (2 and 6 launches), and the overlapped ingest's stacked
+    rows at K = 1: 36 of 12 stations (3 launches of 12 rows × 66 pairs)
+    and 9 of 3 stations (one launch); within 1e-4 of each row's peak
+    magnitude (f32 FFTs, different summation orders)."""
     x, pairs = _cuda_case(n_st, n_seg, stacked, cuda_sm90)
     rows = 3 * n_st if stacked else n_st
-    cfg = corr_accum.kernel_config(rows, pairs, True, K)
-    assert cfg["branch"] == ("resident" if n_st == 3 else "streamed")
-    assert cfg["tiles"] == (3 if stacked else
+    cfg = corr_accum.kernel_config(rows, pairs, True)
+    assert cfg["tiles"] == ({3: 1, 12: 3}[n_st] if stacked else
                             {3: 1, 5: 1, 12: 1, 16: 2, 24: 6}[n_st])
     before = accumulate_banks.launches
     got = accumulate_banks(x, pairs, K, True)
@@ -721,10 +657,11 @@ def test_cuda_kernel_matches_plain(cuda_sm90, n_st, n_seg, K, stacked):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_st,n_seg,K,stacked", [
     (3, 100, 4, False), (12, 5, 2, False), (5, 443, 4, False),
-    (16, 443, 4, False), (24, 443, 4, False), (12, 96, 1, True)])
+    (16, 443, 4, False), (24, 443, 4, False), (12, 96, 1, True),
+    (3, 96, 1, True)])
 def test_cuda_kernel_is_deterministic(cuda_sm90, n_st, n_seg, K, stacked):
     """No float atomics: two launches on the same input give bitwise-
-    equal outputs, in both branches and tiled."""
+    equal outputs, untiled and tiled."""
     x, pairs = _cuda_case(n_st, n_seg, stacked, cuda_sm90)
     a = accumulate_banks(x, pairs, K, True)
     b = accumulate_banks(x, pairs, K, True)
@@ -751,29 +688,3 @@ def test_cuda_tiles_are_bitwise_the_single_launch(cuda_sm90, n_st, stacked,
     assert accumulate_banks.launches - before == (3 if stacked else 2)
     for u, v in zip(tiled, one):
         assert torch.equal(u, v)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("rows,n_seg,K,stacked,f32", [
-    (3, 443, 4, False, False), (3, 100, 2, False, True),
-    (9, 96, 1, True, False)])
-def test_cuda_streamed_branch_is_bitwise_the_resident_launch(
-        cuda_sm90, rows, n_seg, K, stacked, f32):
-    """Both branches run the same transforms and the same sums in
-    segment order: 3 stations (and the overlapped ingest's 9 stacked
-    rows) forced onto the streamed branch give the resident launch's
-    outputs bitwise, bf16 with DC sums and f32 without."""
-    x, pairs = _cuda_case(rows // 3 if stacked else rows, n_seg, stacked,
-                          cuda_sm90)
-    if f32:
-        x = x.float()
-    sums = not f32
-    assert corr_accum.kernel_config(rows, pairs, sums, K,
-                                    not f32)["branch"] == "resident"
-    resident = accumulate_banks(x, pairs, K, sums)
-    before = accumulate_banks.launches
-    streamed = accumulate_banks(x, pairs, K, sums, force_streamed=True)
-    torch.cuda.synchronize()
-    assert accumulate_banks.launches == before + 1
-    for u, v in zip(streamed, resident):
-        assert (u is None and v is None) or torch.equal(u, v)

@@ -6,7 +6,7 @@ the JAX package's where it has a counterpart, on the CPU:
 - the sharded step's chunk plan and split groups of a 100 s block over
   1, 2 and 4 ranks on both routes (the reference's inline arithmetic,
   ``tdoa_tpu/parallel/mesh.py:76-100,165-167``);
-- kernel 1's tiles, branches and streamed scratch at 24 stations × 1479
+- kernel 1's tiles, their fit and scratch at 24 stations × 1479
   segments (scene A's batch) and on the 72 stacked rows of a 100 s
   block's 39-segment last chunk (its overlapped ingest), at the H100's
   opt-in limit;
@@ -22,7 +22,6 @@ import torch
 
 from test_torch_corr_accum import (  # noqa: F401 (a fixture)
     H100_SMEM_OPTIN,
-    H100_SMS,
     h100_gate,
 )
 
@@ -84,30 +83,29 @@ def test_chunk_plan_of_a_100s_block_matches_the_reference(route, seg_len, d,
 
 
 def test_kernel1_plans_at_24_stations_and_100s(h100_gate):
-    """At the H100's opt-in limit and 132 SMs: 24 stations' 276 pairs
-    over a 100 s block take 6 tiles of 46 on the streamed branch, one
-    stage 1 of 18.6 GB for the whole block; the overlapped ingest's 72
+    """At the H100's opt-in limit: 24 stations' 276 pairs over a 100 s
+    block take 6 tiles of 46, one item a CTA, behind one stage 1 of 18.6
+    GB for the whole block; the overlapped ingest's 72
     stacked rows (828 pairs) take 18 launches of 24 rows × 46, whose
     39-segment last chunk needs 0.49 GB of scratch a row block. The
     batch verdict counts the block's own scratch."""
     pairs = [(i, j) for i in range(24) for j in range(i + 1, 24)]
     tiles = corr_accum.plan_tiles(pairs, 24, True, H100_SMEM_OPTIN)
     assert [(r0, r1, hi - lo) for r0, r1, lo, hi in tiles] == [(0, 24, 46)] * 6
-    assert {corr_accum.branch_of(24, 46, True, K, H100_SMEM_OPTIN, H100_SMS)
-            for K in (1, 4)} == {"streamed"}
-    assert corr_accum.scratch_plan("streamed", 24, 4, SEGS) == (370, 1)
-    assert corr_accum.scratch_bytes("streamed", 24, 4, SEGS) == \
+    assert corr_accum.smem_bytes(24, 46, True) <= H100_SMEM_OPTIN
+    assert corr_accum.slot_plan(SEGS, 4).shape == (4 * 370,)
+    assert corr_accum.scratch_bytes(24, 4, SEGS) == \
         24 * 4 * 370 * FFT_LEN * 8
     stacked = [(b * 24 + i, b * 24 + j) for b in range(3) for i, j in pairs]
     plan = corr_accum.plan_tiles(stacked, 72, True, H100_SMEM_OPTIN)
     assert len(plan) == 18
     assert {(r1 - r0, hi - lo) for r0, r1, lo, hi in plan} == {(24, 46)}
-    assert corr_accum.scratch_bytes("streamed", 24, 1, 39) == \
+    assert corr_accum.scratch_bytes(24, 1, 39) == \
         24 * 39 * FFT_LEN * 8
     card = torch.device("cuda", 0)
     acc = 4 * FFT_LEN * (8 * 276 + 12 * 24)
     assert corr_accum.launch_bytes(24, pairs, True, 4, card, SEGS) == \
-        corr_accum.scratch_bytes("streamed", 24, 4, SEGS) + 2 * acc
+        corr_accum.scratch_bytes(24, 4, SEGS) + 2 * acc
 
 
 def test_overlapped_ingest_at_24_stations_and_100s(h100_gate):
