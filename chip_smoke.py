@@ -8,7 +8,7 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. device  — CUDA with compute capability 9.0, versions, card name and
              power limit, TF32 off;
-2. build   — the three hand-written kernels from ``tdoa_tpu_torch/csrc/``
+2. build   — the four hand-written kernels from ``tdoa_tpu_torch/csrc/``
              (one nvcc per source, started together);
 3. kernels — each kernel against its plain torch version on the card
              (kernel 1, one item's accumulators a CTA while the
@@ -53,7 +53,10 @@ Phases, each printing its own lines; any failure exits non-zero:
              66,666,666 samples, D = 8, the FM path's 100 s blocks (rows
              off the 16-byte grid), and 4 channels of them, the audio
              match's; no path may
-             launch it at a shape not checked here), each launched twice
+             launch it at a shape not checked here); kernel 4 (the LM
+             solve) at the cells' solves, 9 starts in 2D over 3 and 276
+             pairs (3 and 24 stations; every start that both versions
+             converge within 0.5 m and 0.05 m rms), each launched twice
              on the same input (the outputs must be bitwise equal), then
              each timed at the main path's shapes beside its bound (bytes
              over 3.35 TB/s or f32 operations over 67 TFLOP/s, the
@@ -61,13 +64,15 @@ Phases, each printing its own lines; any failure exits non-zero:
              (``ms``, the host's share included where it is the slower
              side), and the kernel's own device time per call from
              ``torch.profiler`` (``device_ms``; kernel 1's two stages
-             summed);
+             summed); kernel 4 also as the whole ``solve_fix``, beside
+             the plain loop's ``solve_fix`` on the CPU (host clock);
 4. slice   — a synthesized 3-station 30 s capture (three 10 s blocks of
              20 M samples, ``lat-lon-table.csv`` geometry, an FM-like
              source, per-station clock offsets, noise) written as u8
              ``.dat`` files and run through ``TDOAProcessor.process_files``
              on three paths, each run twice (warm-up, then timed with
-             every launch count set to 0 just before it):
+             every launch count set to 0 just before it; each path's
+             solves launch kernel 4):
              the fused IQ path (kernels 1 and 2; within 0.5 sample /
              200 m of the truth), ``accumulator="xla"`` (the segmented
              correlator and kernel 2, not kernel 1; 0.5 sample / 200 m)
@@ -694,6 +699,7 @@ def phase_kernels(dev):
              "launch": k1_cfg[f"{n_s} st, {n_seg_s} seg, K={kb}"]})
         del xs
     k3 = _kernel3(dev, g)
+    k4 = _kernel4(dev)
     return [
         {"name": "corr_accum", "route": "cuda",
          "source": "tdoa_tpu_torch/csrc/corr_accum.cu",
@@ -715,6 +721,7 @@ def phase_kernels(dev):
          "library_ms": None, "redesigned": True,
          "bitwise_deterministic": True},
         *k3,
+        *k4,
         *streaming,
         *_later_shapes(dev, g),
     ]
@@ -817,6 +824,149 @@ def _kernel3(dev, g):
              "bound_ms": b3["bound_ms"], "bound_by": b3["bound_by"],
              "library_ms": None, "redesigned": True})
     del x, inputs
+    return entries
+
+
+# Kernel 4's shapes (starts, pairs, dimensions): every shape the paths
+# launch. The multistart's 9 starts in 2D at the pairs of 3 to 6
+# stations (the slice, the Monte Carlo networks, 5 with one left out),
+# of 12, 14, 16 and 24 stations and of each with one left out; one
+# start at 3 pairs (the stream service's tracker, ``parallel.dryrun``);
+# the 3D instantiation (``solve_z``) at 3 and 276 pairs. The cells'
+# shapes, K4_TIMED, are timed in entries of their own; the others ride
+# in the first entry's ``also_checked``.
+K4_TIMED = ((9, 3, 2), (9, 276, 2))
+K4_SHAPES = K4_TIMED + tuple(
+    (9, n * (n - 1) // 2, 2) for n in (4, 5, 6, 11, 12, 13, 14, 15, 16, 23)
+) + ((1, 3, 2), (9, 3, 3), (9, 276, 3))
+K4_POS_TOL = 0.5  # m, tests/test_torch_solve.py's fix tolerance
+K4_RMS_TOL = 0.05  # m, its candidates' rms tolerance
+K4_STRAY_RMS = 50.0  # m: above it a start is an unconverged stray
+
+
+def _k4_bound(S: int, m: int, iters: int = 40) -> dict:
+    """Kernel 4's bytes and operations (its bound is neither: the chain
+    of ``iters`` dependent iterations): the packed input read once, the
+    output written once; ~60 operations a pair a pass, ``iters`` + 1
+    passes a start."""
+    return _bound(4 * (8 * m + 4 * S) + 16 * S, 60 * m * S * (iters + 1))
+
+
+def _host_ms(fn, iters: int) -> float:
+    """Median host-clock time of ``fn()`` over ``iters`` calls, in ms,
+    after a warm-up (for work that runs on the CPU alone)."""
+    import statistics
+
+    fn()
+    ts = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(ts)
+
+
+def _kernel4(dev):
+    """Kernel 4 against its plain version (``solve_tdoa_enu``'s loop on
+    CPU tensors) at K4_SHAPES: the multistart's S starts, unsorted, over
+    the TDOAs of KEVO (2 ns of noise, weights in [0.5, 1]) at the first
+    n stations of NET24_STATIONS (the 3 of ``lat-lon-table.csv`` first),
+    m = n(n - 1)/2. Every start that both versions converge within
+    K4_POS_TOL and K4_RMS_TOL, ``solve_fix``'s candidates as many and
+    its fix within K4_POS_TOL, two launches bitwise equal; as in
+    ``tests/test_torch_lm_solve.py``, in 3D the positions are held
+    horizontally (the up-coordinate of a flat network lies in a valley
+    a few metres long) and at 3 stations not at all (it is unobservable
+    there: a start's point drifts along the valley), the rms is. Then, at
+    K4_TIMED: the wrapper (one copy in, the launch, one copy out, waited
+    for) with CUDA events, the kernel's device time, and the whole
+    ``solve_fix`` on the card, beside the plain ``solve_tdoa_enu`` and
+    ``solve_fix`` on the CPU (host clock)."""
+    import numpy as np
+    import torch
+
+    from tdoa_tpu_torch.cli.simulator import DEFAULT_TGT_TX
+    from tdoa_tpu_torch.geo import lla_to_ecef, lla_to_enu, network_origin
+    from tdoa_tpu_torch.ops.kernels.lm_solve import lm_solve
+    from tdoa_tpu_torch.solve import multilateration as ml
+    from tdoa_tpu_torch.utils.constants import SPEED_OF_LIGHT
+
+    rng = np.random.default_rng(SEED)
+    entries, also_checked = [], []
+    for S, m, n_dim in K4_SHAPES:
+        n = int(round((1 + (1 + 8 * m) ** 0.5) / 2))
+        lla = np.array([s[1:] for s in NET24_STATIONS[:n]])
+        pairs = ml.station_pairs(n)
+        d = np.linalg.norm(lla_to_ecef(lla) - lla_to_ecef(
+            np.array(DEFAULT_TGT_TX)), axis=-1)
+        tdoa = ((d[pairs[:, 1]] - d[pairs[:, 0]]) / SPEED_OF_LIGHT
+                + 2e-9 * rng.standard_normal(m))
+        w = rng.uniform(0.5, 1.0, m)
+        enu = torch.from_numpy(
+            lla_to_enu(lla, network_origin(lla)).astype(np.float32))
+        pt = torch.from_numpy(pairs.astype(np.int64))
+        rd = torch.from_numpy((tdoa * SPEED_OF_LIGHT).astype(np.float32))
+        wt = torch.from_numpy(w.astype(np.float32))
+        starts = ml.multistart_starts(enu, S)
+        kw = dict(weights=wt, x0=starts, solve_z=n_dim == 3)
+        x_p, r_p = ml.solve_tdoa_enu(enu, pt, rd, **kw)
+        x_k, r_k = ml.solve_tdoa_enu(enu, pt, rd, device=dev, **kw)
+        again = ml.solve_tdoa_enu(enu, pt, rd, device=dev, **kw)
+        same = _same((x_k, r_k), again)
+        conv = (r_p < K4_STRAY_RMS) & (r_k < K4_STRAY_RMS)
+        held = 3 if n_dim == 2 else 0 if m == 3 else 2  # coordinates
+        pos_err = float((x_k[conv, :held] - x_p[conv, :held]).norm(
+            dim=-1).max())
+        rms_err = float((r_k[conv] - r_p[conv]).abs().max())
+        fkw = dict(weights=w, solve_z=n_dim == 3, n_starts=S)
+        fix_p = ml.solve_fix(lla, tdoa, **fkw)
+        fix_k = ml.solve_fix(lla, tdoa, device=dev, **fkw)
+        fix_err = float(np.linalg.norm(fix_k.enu[:held] - fix_p.enu[:held]))
+        n_cand = (len(fix_k.candidates_rms), len(fix_p.candidates_rms))
+        name = f"lm_solve[{S}x{m},{n_dim}d]"
+        print(f"{name}: {int(conv.sum())} of {S} starts converged in both; "
+              f"max |kernel - plain| {pos_err:.3e} m over {held} "
+              f"coordinates (tol {K4_POS_TOL:g}), "
+              f"rms {rms_err:.3e} m (tol {K4_RMS_TOL:g}); solve_fix "
+              f"candidates {n_cand[0]} / {n_cand[1]}, fix {fix_err:.3e} m "
+              f"apart; two launches bitwise equal: {same}")
+        if not (bool(conv[0]) and pos_err < K4_POS_TOL
+                and rms_err < K4_RMS_TOL and fix_err < K4_POS_TOL
+                and n_cand[0] == n_cand[1] and same):
+            raise RuntimeError(f"{name} disagrees with its plain version")
+        checked = {"name": name, "shape": [S, m, n_dim],
+                   "max_abs_err": pos_err, "max_rms_err": rms_err,
+                   "fix_err_m": fix_err}
+        if (S, m, n_dim) not in K4_TIMED:
+            also_checked.append(checked)
+            continue
+        si, sj = enu[pt[:, 0]], enu[pt[:, 1]]
+        call = lambda: lm_solve(si, sj, rd, wt, starts, 40, n_dim, dev)  # noqa: E731,B023
+        ms = _time_ms(call, 50)
+        dev_ms = _device_ms(call, "lm_solve_kernel", 50)
+        fix_ms = _time_ms(lambda: ml.solve_fix(  # noqa: B023
+            lla, tdoa, weights=w, device=dev), 20)  # noqa: B023
+        plain = _host_ms(lambda: ml.solve_tdoa_enu(  # noqa: B023
+            enu, pt, rd, weights=wt, x0=starts), 10)  # noqa: B023
+        plain_fix = _host_ms(lambda: ml.solve_fix(  # noqa: B023
+            lla, tdoa, weights=w), 10)  # noqa: B023
+        b = _k4_bound(S, m)
+        print(f"time {name}: wrapper {ms:.4f} ms (device time "
+              f"{_dev_str(dev_ms, 4)}), solve_fix {fix_ms:.4f} ms; plain "
+              f"solve_tdoa_enu {plain:.3f} ms, solve_fix {plain_fix:.3f} ms "
+              f"(CPU); bytes and operations {b['bound_ms']:.6f} ms "
+              f"({b['bytes']} B, {b['ops'] / 1e6:.2f} MFLOP): bound by the "
+              f"40 dependent iterations")
+        entries.append({
+            **checked, "route": "cuda",
+            "source": "tdoa_tpu_torch/csrc/lm_solve.cu",
+            "replaces": "none: the jitted LM loop of "
+                        "tdoa_tpu/solve/multilateration.py:39",
+            "ms": ms, "device_ms": dev_ms, "solve_fix_ms": fix_ms,
+            "plain_ms": plain, "plain_solve_fix_ms": plain_fix,
+            "bound_ms": b["bound_ms"], "bound_by": "latency",
+            "library_ms": None, "bitwise_deterministic": True})
+    entries[0]["also_checked"] = also_checked
     return entries
 
 
@@ -1227,20 +1377,23 @@ def _synthesize(dev, out_dir: Path, lo_ppm=None, mover_enu=None,
 # TDOA bound in samples, fix bound in m, kernels that must launch,
 # kernels that must not).
 PATHS = (
-    ("fused IQ", {}, 0.5, 200.0, ("corr_accum", "zoom_probe"), ()),
+    ("fused IQ", {}, 0.5, 200.0, ("corr_accum", "zoom_probe", "lm_solve"),
+     ()),
     ("segmented IQ (accumulator=xla)", {"accumulator": "xla"}, 0.5, 200.0,
-     ("zoom_probe",), ("corr_accum", "fm_demod")),
+     ("zoom_probe", "lm_solve"), ("corr_accum", "fm_demod")),
     ("FM (mode=fm)", {"mode": "fm", "fm_decim": FM_DECIM}, 16.0, 4000.0,
-     ("fm_demod",), ("corr_accum",)),
+     ("fm_demod", "lm_solve"), ("corr_accum",)),
 )
 
 
 def _counters():
     from tdoa_tpu_torch.ops.kernels import corr_accum, fm_demod, zoom_probe
+    from tdoa_tpu_torch.ops.kernels.lm_solve import lm_solve
 
     return {"corr_accum": corr_accum.accumulate_banks,
             "zoom_probe": zoom_probe.loo_zoom_windows,
-            "fm_demod": fm_demod.fm_demod_decimate}
+            "fm_demod": fm_demod.fm_demod_decimate,
+            "lm_solve": lm_solve}
 
 
 def _reset_counts(counters):
@@ -1253,15 +1406,15 @@ def _reset_counts(counters):
 # Each kernel's launches by shape: kernel 1 by (rows, segments, banks,
 # pairs) of each launch (a tile's, where the pair list is tiled), kernel
 # 2 by (banks, pairs, FFT length), kernel 3 by (channels, samples,
-# decimation).
+# decimation), kernel 4 by (starts, pairs, dimensions).
 SHAPE_KEYS = {"corr_accum": "k1_shapes", "zoom_probe": "k2_shapes",
-              "fm_demod": "k3_shapes"}
+              "fm_demod": "k3_shapes", "lm_solve": "k4_shapes"}
 
 
 def _read_counts(counters):
     """(launches by kernel, {"k1_shapes": ..., "k2_shapes": ...,
-    "k3_shapes": ...}: each kernel's launches by shape) since the
-    reset."""
+    "k3_shapes": ..., "k4_shapes": ...}: each kernel's launches by
+    shape) since the reset."""
     return ({k: fn.launches for k, fn in counters.items()},
             {SHAPE_KEYS[k]: {str(sh): v for sh, v in fn.launch_shapes.items()}
              for k, fn in counters.items()})
@@ -4414,7 +4567,8 @@ def main() -> int:
                                     + CAL_K2_SHAPES + NET_K2_SHAPES
                                     + NET_SHARD_K2_SHAPES)),
                "k3_shapes": set(map(str, K3_SHAPES + CAL_K3_SHAPES
-                                    + WINDOW_K3_SHAPES))}
+                                    + WINDOW_K3_SHAPES)),
+               "k4_shapes": set(map(str, K4_SHAPES))}
     for p, r in paths.items():
         for key, ok in checked.items():
             if set(r[key]) - ok:

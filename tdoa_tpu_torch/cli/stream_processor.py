@@ -326,7 +326,8 @@ def main(argv=None) -> int:
                     )
             tracker_order = order
             tracker = TargetTracker(table.lla_array(tracker_order),
-                        process_sigma_v=args.process_sigma_v)
+                        process_sigma_v=args.process_sigma_v,
+                        device=proc.device)
             tracker.load_state_dict(st.get("tracks", {}))
             emitter_seq = int(st.get("emitter_seq", 0))
             emitter_refs = {
@@ -521,7 +522,8 @@ def main(argv=None) -> int:
                 )
             tracker_order = res.station_names
             tracker = TargetTracker(table.lla_array(tracker_order),
-                        process_sigma_v=args.process_sigma_v)
+                        process_sigma_v=args.process_sigma_v,
+                        device=proc.device)
             # Refs live in the old station set's pair basis; a match
             # against them after a geometry change would be meaningless.
             emitter_refs.clear()

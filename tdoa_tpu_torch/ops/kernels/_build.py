@@ -158,6 +158,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         p,                  # stream
     ]
     lib.tdoa_fm_demod.restype = i
+    lib.tdoa_lm_solve.argtypes = [
+        p,                  # in: [m] pairs as 2 float4, then [S] starts float4
+        i, i, i, i,         # m, S, n_dim, iters
+        p,                  # out float4 [S]: x, y, z, rms
+        p,                  # stream
+    ]
+    lib.tdoa_lm_solve.restype = i
 
 
 def load(defines: Sequence[str] = ()) -> ctypes.CDLL:

@@ -127,7 +127,8 @@ def dryrun_multichip(n_ranks: int, device=None) -> dict:
     stations_enu = torch.tensor(
         [[0.0, 0.0, 0.0], [8000.0, 2000.0, 10.0], [3000.0, 9000.0, -5.0]])
     rd = single3[0].float().cpu() * (299792458.0 / 2e6)
-    pos, _ = solve_tdoa_enu(stations_enu, torch.as_tensor(pairs3), rd)
+    pos, _ = solve_tdoa_enu(stations_enu, torch.as_tensor(pairs3), rd,
+                            device=dev)
     say(f"dryrun_multichip solver fix ENU {pos.numpy().round(1)}")
 
     # The 5-station scene (10 pairs) at the largest mesh.

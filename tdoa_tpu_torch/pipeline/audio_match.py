@@ -522,6 +522,7 @@ def match_captures(
         fix = solve_fix(
             lla, corrected / fs, weights=weights, pair_idx=pairs,
             solve_z=cfg.solve_z, tdoa_sigma_s=sigma / fs,
+            device=processor.device,
         )
         val_warns, score = _cross_validation(
             corrected, sigma, pairwise, fix, names, pairs, fs

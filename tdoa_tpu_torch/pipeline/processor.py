@@ -65,6 +65,7 @@ from tdoa_tpu_torch.ops.corr import (
     resolve_seg,
 )
 from tdoa_tpu_torch.ops.kernels.fm_demod import fm_demod_decimate
+from tdoa_tpu_torch.ops.kernels.lm_solve import lm_solve
 from tdoa_tpu_torch.solve.ghost import DECISION_THRESHOLD_NATS, GhostVerdict
 from tdoa_tpu_torch.solve.multilateration import (
     FixResult,
@@ -551,7 +552,9 @@ class TDOAProcessor:
         # through pinned buffers),
         # ``d2h_bytes`` (the bytes of that fetch, 0 on the CPU),
         # ``pairs`` (pairs correlated) and ``pairs_weighted`` (pairs past
-        # the quality gate that the first solve weights).
+        # the quality gate that the first solve weights); the window's
+        # end sets ``lm_launches`` (its solves' launches of kernel 4, 0
+        # on the CPU).
         self.ingest_diag: dict = {}
         # The batch ingest's pinned ring and its reader threads
         # (``load_window``), made by the first ``load_files`` on a card
@@ -761,6 +764,7 @@ class TDOAProcessor:
             return w_x, solve_fix(
                 lla, tdoa_s, weights=w_x, pair_idx=pairs,
                 solve_z=cfg.solve_z, tdoa_sigma_s=tdoa_std_s,
+                device=self.device,
             )
 
         def consistent(t):
@@ -1363,6 +1367,7 @@ class TDOAProcessor:
                 pair_idx=pairs,
                 solve_z=cfg.solve_z,
                 tdoa_sigma_s=e_sigma,
+                device=self.device,
             )
             e_vel = e_vsig = None
             if e_fdoa is not None:
@@ -1426,6 +1431,7 @@ class TDOAProcessor:
         the session's exact station order."""
         cfg = self.config
         stage = self._stage
+        lm_launches = lm_solve.launches
         # Stages follow one another, none inside another: the
         # window is their one parent.
         with stage("prepare"):
@@ -1808,6 +1814,7 @@ class TDOAProcessor:
                 pair_idx=pairs,
                 solve_z=cfg.solve_z,
                 tdoa_sigma_s=tdoa_std_s,
+                device=self.device,
             )
         # Consistency / outlier / ghost / prior analysis runs AFTER
         # the deramp re-solve below has settled the final TDOA set
@@ -1900,6 +1907,7 @@ class TDOAProcessor:
                         pair_idx=pairs,
                         solve_z=cfg.solve_z,
                         tdoa_sigma_s=std2,
+                        device=self.device,
                     )
                     # Adopt when the deramp demonstrably SHARPENED the
                     # measurement (median per-pair σ). The residual test
@@ -2052,6 +2060,7 @@ class TDOAProcessor:
                     fix = solve_fix(
                         lla, tdoa_s, weights=w, pair_idx=pairs,
                         solve_z=cfg.solve_z, tdoa_sigma_s=tdoa_std_s,
+                        device=self.device,
                     )
         if (not motion_detected and not secondary_fired
                 and np.max(lobe_drift) > 1.0):
@@ -2241,6 +2250,8 @@ class TDOAProcessor:
                         conf_scales=ECHO_TAIL_CONF_SCALES,
                     )
 
+            self.ingest_diag["lm_launches"] = (lm_solve.launches
+                                               - lm_launches)
             return TDOAResult(
                 fix=fix,
                 station_names=names,

@@ -405,8 +405,9 @@ class TargetTracker:
     """Continuous multi-target tracking from per-window TDOA sets.
 
     Each call to ``update`` takes one processing window's TDOAs per
-    target (seconds, pair-ordered), solves each target on the CPU
-    (float32 LM), and folds the fixes into the tracks.
+    target (seconds, pair-ordered), solves each target (float32 LM, on
+    ``device``: ``solve_tdoa_enu``), and folds the fixes into the
+    tracks.
     """
 
     def __init__(
@@ -420,6 +421,7 @@ class TargetTracker:
         gate_k: float = 8.0,
         max_coasts: int = 3,
         process_sigma_v: float = 15.0,  # m/s: Kalman process noise
+        device="cpu",
     ):
         self.station_lla = np.asarray(station_lla, dtype=np.float64)
         self.origin = network_origin(self.station_lla)
@@ -446,19 +448,21 @@ class TargetTracker:
         # covariance inflates by (process_sigma_v·dt)² per axis each
         # window, so a long gap or a turning emitter re-opens the gain.
         self.process_sigma_v = process_sigma_v
+        self.device = device
         self.tracks: Dict[str, Track] = {}
 
     def _solve_batch(self, rd: np.ndarray, w: np.ndarray) -> np.ndarray:
         """Positions [k, 3] of ``k`` targets' range differences ``rd``
         [k, m] under weights ``w`` [k, m]: one float32 LM solve per
-        target on CPU tensors, in a loop (a window carries a few
-        targets; the solver batches over starts, not over targets)."""
+        target on the tracker's device, in a loop (a window carries a
+        few targets; the solver batches over starts, not over
+        targets)."""
         return np.stack([
             solve_tdoa_enu(
                 self.enu, self.pairs,
                 torch.as_tensor(rd_k, dtype=torch.float32),
                 weights=torch.as_tensor(w_k, dtype=torch.float32),
-                solve_z=self.solve_z,
+                solve_z=self.solve_z, device=self.device,
             )[0].numpy().astype(np.float64)
             for rd_k, w_k in zip(rd, w)
         ])

@@ -3,9 +3,11 @@
 Torch port of ``tdoa_tpu.solve.multilateration``: an adaptive
 Levenberg-Marquardt least-squares solve over all C(n,2) station pairs in
 a local ENU frame, in float32 with the reference's iteration count and
-multistart ring. The problem is a few dozen numbers, so it runs on CPU
-tensors by design; the covariance, ellipse and ranking helpers are
-float64 numpy, as in the reference.
+multistart ring. The problem is a few dozen numbers: its inputs and
+outputs are CPU tensors, and with a CUDA ``device`` the whole loop runs
+as one launch of kernel 4 (``ops/kernels/lm_solve``), else as the loop
+here, its plain version. The covariance, ellipse and ranking helpers
+are float64 numpy, as in the reference.
 
 Sign convention: ``tdoa[m]`` for pair ``(i, j)`` is the arrival-time
 delay at station *j* relative to station *i*; the residual is
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from tdoa_tpu_torch.geo import enu_to_lla, lla_to_ecef, lla_to_enu, network_origin
+from tdoa_tpu_torch.ops.kernels.lm_solve import lm_solve
 from tdoa_tpu_torch.utils.constants import SPEED_OF_LIGHT
 
 
@@ -39,11 +42,14 @@ def solve_tdoa_enu(
     x0: Optional[torch.Tensor] = None,  # [3] or [S, 3] initial guesses
     iters: int = 40,
     solve_z: bool = False,
+    device="cpu",
 ):
     """Adaptive-LM hyperbolic solve in float32, batched over the
     leading axis of ``x0``. Returns (position [S, 3], rms [S]) — or
-    ([3], scalar) for a single ``[3]`` start. ``solve_z=False`` freezes
-    the up-coordinate at its start value (2D fix)."""
+    ([3], scalar) for a single ``[3]`` start — as CPU tensors.
+    ``solve_z=False`` freezes the up-coordinate at its start value (2D
+    fix). A CUDA ``device`` runs the loop as kernel 4 (``lm_solve``),
+    the CPU runs it here."""
     st = stations_enu.to(torch.float32)
     pair_idx = torch.as_tensor(pair_idx, dtype=torch.int64)
     m = pair_idx.shape[0]
@@ -57,6 +63,9 @@ def solve_tdoa_enu(
     sj = st[pair_idx[:, 1]]
     rd = torch.as_tensor(range_diffs).to(torch.float32)
     n_dim = 3 if solve_z else 2
+    if torch.device(device).type != "cpu":
+        x, rms = lm_solve(si, sj, rd, w, x, iters, n_dim, device)
+        return (x[0], rms[0]) if single else (x, rms)
     eye = torch.eye(n_dim, dtype=torch.float32)
 
     def residuals_jac(x):
@@ -89,6 +98,20 @@ def solve_tdoa_enu(
     return x, rms
 
 
+def multistart_starts(stations_enu: torch.Tensor, n_starts: int = 9,
+                      start_radius_m: float = 40_000.0) -> torch.Tensor:
+    """The multistart's starts, float32 [n_starts, 3]: the stations'
+    centroid, then a ring of ``n_starts − 1`` points ``start_radius_m``
+    around it at the centroid's height."""
+    centroid = stations_enu.to(torch.float32).mean(0)
+    angles = torch.arange(n_starts - 1, dtype=torch.float32) * (
+        2.0 * np.pi / max(n_starts - 1, 1))
+    ring = centroid[None, :] + start_radius_m * torch.stack(
+        [torch.cos(angles), torch.sin(angles), torch.zeros_like(angles)],
+        dim=-1)
+    return torch.cat([centroid[None, :], ring], dim=0)
+
+
 def solve_tdoa_enu_multistart(
     stations_enu: torch.Tensor,
     pair_idx: torch.Tensor,
@@ -98,20 +121,17 @@ def solve_tdoa_enu_multistart(
     solve_z: bool = False,
     n_starts: int = 9,
     start_radius_m: float = 40_000.0,
+    device="cpu",
 ):
-    """LM from the centroid + a ring of starts, all batched. Surfaces
-    every basin (ghost intersections). Returns (positions [k, 3],
-    rms [k]) sorted by rms."""
+    """LM from the centroid + a ring of starts, all batched, on
+    ``device`` (``solve_tdoa_enu``). Surfaces every basin (ghost
+    intersections). Returns (positions [k, 3], rms [k]) sorted by
+    rms."""
     st = stations_enu.to(torch.float32)
-    centroid = st.mean(0)
-    angles = torch.arange(n_starts - 1, dtype=torch.float32) * (
-        2.0 * np.pi / max(n_starts - 1, 1))
-    ring = centroid[None, :] + start_radius_m * torch.stack(
-        [torch.cos(angles), torch.sin(angles), torch.zeros_like(angles)],
-        dim=-1)
-    starts = torch.cat([centroid[None, :], ring], dim=0)
+    starts = multistart_starts(st, n_starts, start_radius_m)
     pos, rms = solve_tdoa_enu(st, pair_idx, range_diffs, weights=weights,
-                              x0=starts, iters=iters, solve_z=solve_z)
+                              x0=starts, iters=iters, solve_z=solve_z,
+                              device=device)
     order = torch.argsort(rms, stable=True)
     return pos[order], rms[order]
 
@@ -280,11 +300,13 @@ def solve_fix(
     solve_z: bool = False,
     n_starts: int = 9,
     tdoa_sigma_s: Optional[Sequence[float]] = None,
+    device="cpu",
 ) -> FixResult:
     """LLA stations + TDOA seconds → lat/lon fix: a multi-start solve
     reporting the lowest-residual solution, with every distinct
     converged candidate riding along for ghost disambiguation, and a
-    covariance/ellipse when ``tdoa_sigma_s`` is given."""
+    covariance/ellipse when ``tdoa_sigma_s`` is given. The LM runs on
+    ``device`` (``solve_tdoa_enu``); the rest is float64 numpy."""
     station_lla = np.asarray(station_lla, dtype=np.float64)
     n = station_lla.shape[0]
     if pair_idx is None:
@@ -301,6 +323,7 @@ def solve_fix(
         weights=w,
         solve_z=solve_z,
         n_starts=n_starts,
+        device=device,
     )
     pos_all = pos_all.numpy().astype(np.float64)
     rms_all = rms_all.numpy().astype(np.float64)

@@ -128,7 +128,8 @@ def ingest_report(diag: dict) -> str:
 def checks_report(diag: dict) -> str:
     """What the stage "checks" counted (``TDOAProcessor.ingest_diag``):
     the outputs' fetch to the host in ms, with its bytes and their rate,
-    and the pairs correlated and weighted."""
+    and the pairs correlated and weighted; then the window's launches of
+    kernel 4, the solves' LM (0 on the CPU)."""
     lines = []
     if diag.get("fetch_s") is not None:
         nbytes = diag["d2h_bytes"]
@@ -137,7 +138,8 @@ def checks_report(diag: dict) -> str:
         lines += [f"  {'fetch':<20s} {diag['fetch_s'] * 1e3:8.1f} ms",
                   f"  {'bytes to the host':<20s} {nbytes:d} B{rate}"]
     for key, label in (("pairs", "pairs"),
-                       ("pairs_weighted", "pairs weighted")):
+                       ("pairs_weighted", "pairs weighted"),
+                       ("lm_launches", "LM launches")):
         if key in diag:
             lines.append(f"  {label:<20s} {diag[key]:d}")
     return "\n".join(lines)

@@ -14,6 +14,36 @@ import torch
 torch.set_num_threads(2)
 
 OMAHA_NAMES = ("kx0u", "n3pay", "kf0mtl")
+# The 24-station network of the benchmark's scale cell: the three
+# upstream receivers and 21 sites within ~30 km of them.
+NET24_LLA = np.array([
+    [41.18660274289527, -95.96064116595667, 355.69],
+    [41.24669616513154, -96.08366304481238, 329.0],
+    [41.32916620016985, -96.03513381562004, 373.18],
+    [41.26, -95.90, 340.0], [41.36, -96.12, 360.0], [41.20, -96.16, 345.0],
+    [41.15, -96.05, 340.0], [41.38, -95.95, 350.0], [41.30, -96.20, 330.0],
+    [41.22, -95.85, 345.0], [41.40, -96.05, 365.0], [41.12, -95.92, 330.0],
+    [41.45, -95.98, 350.0], [41.08, -96.00, 335.0], [41.28, -96.25, 340.0],
+    [41.33, -95.82, 345.0], [41.17, -96.22, 330.0], [41.43, -96.15, 355.0],
+    [41.10, -95.84, 340.0], [41.47, -96.05, 360.0], [41.24, -95.78, 345.0],
+    [41.05, -96.10, 330.0], [41.40, -95.88, 350.0], [41.31, -96.30, 335.0]])
+KEVO_LLA = np.array([41.30888549464701, -96.02619229605524, 356.0])
+
+
+def pair_tdoas(station_lla, tx_lla, noise_s, seed):
+    """Every station pair's TDOA (``station_pairs`` order, seconds) of a
+    transmitter at ``tx_lla``, plus Gaussian noise of ``noise_s``."""
+    from tdoa_tpu_torch.geo import lla_to_ecef
+    from tdoa_tpu_torch.solve.multilateration import station_pairs
+    from tdoa_tpu_torch.utils.constants import SPEED_OF_LIGHT
+
+    st = lla_to_ecef(np.asarray(station_lla, np.float64))
+    d = np.linalg.norm(st - lla_to_ecef(np.asarray(tx_lla, np.float64)),
+                       axis=-1)
+    pairs = station_pairs(len(st))
+    tdoa = (d[pairs[:, 1]] - d[pairs[:, 0]]) / SPEED_OF_LIGHT
+    return tdoa + noise_s * np.random.default_rng(seed).standard_normal(
+        len(pairs))
 
 
 def scene(omaha, block_len, seed, **kw):

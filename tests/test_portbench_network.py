@@ -203,10 +203,11 @@ def test_checks_counters_are_set_anew_every_window(omaha3, entry):
     """What an earlier window left is not what this one reads."""
     proc = omaha3["proc"]
     proc.ingest_diag.update({"fetch_s": -1.0, "d2h_bytes": -1, "pairs": -1,
-                             "pairs_weighted": -1})
+                             "pairs_weighted": -1, "lm_launches": -1})
     getattr(proc, entry)(omaha3["paths"])
     d = proc.ingest_diag
     assert d["pairs"] == 3 and 0 < d["pairs_weighted"] <= 3
+    assert d["lm_launches"] == 0  # the CPU solves take the plain loop
     assert d["fetch_s"] > 0.0 and d["d2h_bytes"] == 0
 
 
@@ -223,9 +224,9 @@ def test_cli_profile_reports_the_checks_counters(omaha3, capsys):
                           omaha3["csv"], *omaha3["paths"], "--json",
                           "--profile", "--device", "cpu"]) == 0
     report = capsys.readouterr().err.split("checks counters:\n", 1)[1]
-    labels = [ln[2:22].rstrip() for ln in report.splitlines()[:4]]
+    labels = [ln[2:22].rstrip() for ln in report.splitlines()[:5]]
     assert labels == ["fetch", "bytes to the host", "pairs",
-                      "pairs weighted"]
+                      "pairs weighted", "LM launches"]
     assert "  bytes to the host    0 B\n" in report
     assert "  pairs                3\n" in report
 
@@ -249,6 +250,9 @@ def test_checks_fetch_through_pinned_buffers_on_the_card(cuda_sm90,
     d = proc.ingest_diag
     assert d["d2h_bytes"] >= proc._pinned["win_c"].numel() * 8
     assert d["pairs"] == 3 and d["fetch_s"] > 0.0
+    # Kernel 4 once a solve: the first, and the echo-bias re-solve.
+    assert d["lm_launches"] == 1 + (second.multipath_sigma_samples
+                                    is not None)
     assert (first.corrected_tdoa_samples
             == second.corrected_tdoa_samples).all()
     assert first.fix.lat == second.fix.lat and first.fix.lon == second.fix.lon

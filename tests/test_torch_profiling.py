@@ -275,10 +275,12 @@ def test_load_dat_counts_the_usable_bytes_to_the_card(cuda_sm90, tmp_path):
     assert diag["read_s"] > 0.0 and diag["h2d_s"] > 0.0
 
 
-# What the stage "checks" adds to a whole window's counters.
+# What the stage "checks" adds to a whole window's counters, and what
+# the window's end adds (its solves' launches of kernel 4).
 CHECK_KEYS = {"fetch_s", "d2h_bytes", "pairs", "pairs_weighted"}
-_KEYS = {"process_files": BATCH_KEYS | CHECK_KEYS,
-         "process_files_overlapped": OVERLAP_KEYS | CHECK_KEYS}
+SOLVE_KEYS = {"lm_launches"}
+_KEYS = {"process_files": BATCH_KEYS | CHECK_KEYS | SOLVE_KEYS,
+         "process_files_overlapped": OVERLAP_KEYS | CHECK_KEYS | SOLVE_KEYS}
 
 
 @pytest.mark.parametrize("first,then", [
@@ -288,7 +290,7 @@ _KEYS = {"process_files": BATCH_KEYS | CHECK_KEYS,
 def test_ingest_diag_holds_the_last_window_only(files, first, then):
     """An overlapped window followed by a files window leaves no
     ``gather_s`` behind, and the other way no ``read_s``; each window
-    holds the stage "checks"' counters besides."""
+    holds the stage "checks"' counters and ``lm_launches`` besides."""
     tp = TDOAProcessor.from_csv(*FREQS, CSV, device="cpu", **SMALL)
     getattr(tp, first)(files)
     assert set(tp.ingest_diag) == _KEYS[first]

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-import _torch_port_helpers  # noqa: F401  (thread settings)
+from _torch_port_helpers import KEVO_LLA, NET24_LLA, pair_tdoas
 from tdoa_tpu.geo import lla_to_ecef
 from tdoa_tpu.io import datfile as jdat
 from tdoa_tpu.ops.cplx import C
@@ -46,6 +46,30 @@ def test_solve_fix_matches_jax(omaha_stations, tx):
                                atol=0.05)
     np.testing.assert_allclose(ft.cov_en, fj.cov_en, rtol=1e-3)
     np.testing.assert_allclose(ft.ellipse, fj.ellipse, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("solve_z", [False, True], ids=["2d", "3d"])
+@pytest.mark.parametrize("tx", ["tgt", "outside"])
+def test_solve_fix_matches_jax_at_24_stations(solve_z, tx):
+    """276 pairs, weighted, in 2D and with the up-coordinate solved: the
+    same candidates, the fix within 0.5 m and the candidates' rms within
+    0.05 m. With ``solve_z`` the up-coordinate lies in a flat
+    valley of the cost (the stations sit within 45 m of one another's
+    height), where float32 rounding in two frameworks moves it by
+    metres: the horizontal fix is held, and the covariance."""
+    lla = np.array([41.05, -96.30, 350.0]) if tx == "outside" else KEVO_LLA
+    tdoa = pair_tdoas(NET24_LLA, lla, 2e-9, seed=3)
+    m = len(tdoa)
+    w = np.random.default_rng(13).uniform(0.5, 1.0, m)
+    kw = dict(weights=w, tdoa_sigma_s=np.full(m, 5e-9), solve_z=solve_z)
+    fj = jml.solve_fix(NET24_LLA, tdoa, **kw)
+    ft = tml.solve_fix(NET24_LLA, tdoa, **kw)
+    n = 2 if solve_z else 3
+    assert np.linalg.norm(ft.enu[:n] - fj.enu[:n]) < 0.5
+    assert len(ft.candidates_lla) == len(fj.candidates_lla)
+    np.testing.assert_allclose(ft.candidates_rms, fj.candidates_rms,
+                               atol=0.05)
+    np.testing.assert_allclose(ft.cov_en, fj.cov_en, rtol=1e-3)
 
 
 def test_refit_and_power_ranking_match_jax(omaha_stations):
