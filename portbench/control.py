@@ -6,10 +6,12 @@ process on the card:
 
 For each seed it makes the cell's scenes, runs the timed path's entry
 once on each (after one warm-up window), and prints one JSON line per
-seed with the numbers ``harness.judge`` compares: ``program`` (the
-program against the float64 reference: the lower reading) and
-``control`` (the reference computed in bfloat16, put in the program's
-place: the upper reading). The benchmark's own runs do not run this."""
+seed with the numbers ``harness.judge`` compares, one for each of the
+cell's limit keys (``checks/<key>.py``): ``program`` (the program
+against the float64 reference: the lower reading) and ``control`` (the
+traffic's reference estimator computed in bfloat16, put in the
+program's place: the upper reading). The benchmark's own runs do not
+run this."""
 
 from __future__ import annotations
 
@@ -29,10 +31,10 @@ import torch  # noqa: E402
 from portbench import harness, spec  # noqa: E402
 
 
-def readings(answers, refs, cfg) -> dict:
+def readings(answers, refs, cfg, keys) -> dict:
     worst = {}
     for s, ans in answers:
-        for k, v in harness.gaps(ans, refs[s], cfg).items():
+        for k, v in harness.gaps(ans, refs[s], cfg, keys).items():
             worst[k] = max(worst.get(k, 0.0), v)
     return worst
 
@@ -49,6 +51,7 @@ def main(argv) -> int:
     cell = spec.cell(bench, args.workload)
     cfg = spec.config(bench, cell["config"])
     trf = spec.traffic(cell["traffic"])
+    keys = list(spec.limits(cell["name"])["limits"])
     if not torch.cuda.is_available():
         print("no CUDA device is visible", file=sys.stderr)
         return 2
@@ -69,18 +72,19 @@ def main(argv) -> int:
                 proc = harness.build_processor(cfg, trf, device, tmp)
                 getattr(proc, trf["entry"])(scenes[0])
             entry = getattr(proc, trf["entry"])
-            answers = [(s, harness.program_answer(entry(p)))
+            answers = [(s, harness.program_answer(entry(p), keys))
                        for s, p in enumerate(scenes)]
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             refs = harness.reference_answers(cfg, trf, scenes, device)
             t2 = time.perf_counter()
             line = {"workload": cell["name"], "seed": seed,
-                    "program": readings(answers, refs, cfg)}
+                    "program": readings(answers, refs, cfg, keys)}
             if with_control:
                 ctl = harness.reference_answers(cfg, trf, scenes, device,
                                                 "bf16")
-                line["control"] = readings(list(enumerate(ctl)), refs, cfg)
+                line["control"] = readings(list(enumerate(ctl)), refs, cfg,
+                                           keys)
             line.update({
                 "truth_error": max(harness.truth_error(a, cfg)
                                    for _, a in answers),

@@ -13,7 +13,13 @@ With ``--trace 1`` the loop runs under ``torch.profiler`` with the
 run's ``SpanTimer`` as the processor's timer, and the per-layer readers
 take their numbers from that window. After the window the program's
 state is freed and the reference answers each scene once; every window's
-answer is held to its scene's (``judge``)."""
+answer is held to its scene's (``judge``), one number for each of the
+cell's limits.
+
+The configuration's scene (``scenes/<name>.py``), the traffic's
+reference estimator (``estimators/<name>.py``) and each number compared
+(``checks/<name>.py``) are files found by name (``spec``); every function
+here that uses one takes the ``root`` of the checkout it is found in."""
 
 from __future__ import annotations
 
@@ -31,14 +37,17 @@ import tempfile
 import time
 import traceback
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from portbench import geo, reference, scene, spec, tracing
+from portbench import reference, scene, spec, tracing
 
 BANNED = ("jax", "jaxlib", "flax", "tdoa_tpu")
+# The numbers that every cell compares, on its TDOAs and its fix; a
+# cell's limits may add others.
+REQUIRED_CHECKS = ("tdoa_gap", "fix_gap_m")
 
 
 @dataclasses.dataclass
@@ -84,22 +93,31 @@ def build_processor(cfg: dict, trf: dict, device, tmp: str):
         device=device, **settings)
 
 
-def make_scenes(cfg: dict, trf: dict, seed: int, tmp: str,
-                device) -> List[List[str]]:
-    return [scene.write_scene(cfg, scene.scene_seed(seed, k),
-                              os.path.join(tmp, f"scene{k}"), device)
+def make_scenes(cfg: dict, trf: dict, seed: int, tmp: str, device,
+                root: Path = spec.ROOT) -> List[List[str]]:
+    gen = spec.scene(cfg, root)
+    return [gen.write_scene(cfg, scene.scene_seed(seed, k),
+                            os.path.join(tmp, f"scene{k}"), device)
             for k in range(int(trf["scenes"]))]
 
 
-def program_answer(res) -> reference.Answer:
+def program_answer(res, keys: Sequence[str] = (),
+                   root: Path = spec.ROOT) -> reference.Answer:
     """A ``TDOAResult`` as an ``Answer``: TDOAs keyed by the pair's names
-    in sorted order, signed for that order."""
+    in sorted order, signed for that order, the fix, and the named
+    outputs that the checks ``keys`` take from it (``take``); with no
+    keys, the TDOAs and the fix alone."""
     tdoa = {}
     for (i, j), t in zip(res.pair_idx, res.corrected_tdoa_samples):
         a, b = res.station_names[i], res.station_names[j]
         tdoa[(a, b) if a < b else (b, a)] = float(t if a < b else -t)
-    return reference.Answer(tdoa, np.array([res.fix.lat, res.fix.lon,
-                                            res.fix.elev]))
+    ans = reference.Answer(tdoa, np.array([res.fix.lat, res.fix.lon,
+                                           res.fix.elev]))
+    for check in spec.checks(keys, root).values():
+        take = getattr(check, "take", None)
+        if take is not None:
+            ans.outputs.update(take(res))
+    return ans
 
 
 def _sync(device) -> None:
@@ -108,9 +126,11 @@ def _sync(device) -> None:
 
 
 def measure(proc, trf: dict, scenes: List[List[str]], seconds: float,
-            device, trace: bool, tmp: str, t_start: float):
+            device, trace: bool, tmp: str, t_start: float,
+            keys: Sequence[str] = (), root: Path = spec.ROOT):
     """Warm-up, then the closed loop. Returns (Run, answers: list of
-    (scene index, Answer or None for a window that raised))."""
+    (scene index, Answer or None for a window that raised)); each answer
+    holds what the checks ``keys`` compare (``program_answer``)."""
     entry = getattr(proc, trf["entry"])
     for paths in scenes:
         entry(paths)
@@ -128,7 +148,7 @@ def measure(proc, trf: dict, scenes: List[List[str]], seconds: float,
             with tracer.window() if tracer else contextlib.nullcontext():
                 res = entry(scenes[s])
             _sync(device)
-            answers.append((s, program_answer(res)))
+            answers.append((s, program_answer(res, keys, root)))
         except Exception:  # a window that fails is counted, the loop goes on
             _sync(device)
             answers.append((s, None))
@@ -149,12 +169,13 @@ def measure(proc, trf: dict, scenes: List[List[str]], seconds: float,
 
 
 def reference_answers(cfg: dict, trf: dict, scenes: List[List[str]], device,
-                      precision: str = "f64") -> List[reference.Answer]:
+                      precision: str = "f64",
+                      root: Path = spec.ROOT) -> List[reference.Answer]:
+    est = spec.estimator(trf, root)
     out = []
     for paths in scenes:
         raws = {scene_station(cfg, p): np.fromfile(p, np.uint8) for p in paths}
-        out.append(reference.window(raws, cfg, trf["reference"], device,
-                                    precision))
+        out.append(est.window(raws, cfg, trf["reference"], device, precision))
         del raws
     return out
 
@@ -164,21 +185,22 @@ def scene_station(cfg: dict, path: str) -> str:
     return next(n for n in cfg["receivers"] if f"-{n}-" in base)
 
 
-def gaps(got: reference.Answer, want: reference.Answer, cfg: dict) -> dict:
-    """The numbers compared for one answer: the widest corrected-TDOA gap
-    over the pairs (samples) and the fix's horizontal distance (m)."""
-    origin = geo.network_origin(np.stack(
-        [scene.station_lla(cfg, n) for n in scene.receivers(cfg)]))
+def gaps(got: reference.Answer, want: reference.Answer, cfg: dict,
+         keys: Sequence[str] = REQUIRED_CHECKS,
+         root: Path = spec.ROOT) -> dict:
+    """The numbers compared for one answer, by check (``keys``: a cell's
+    limit keys; by default the two that every cell has): each check's
+    ``gap``, infinite where it is not finite or where the two answers
+    cover different pairs."""
+    checks = spec.checks(keys, root)
     if set(got.tdoa) != set(want.tdoa):
-        return {"tdoa_gap": float("inf"), "fix_gap_m": float("inf")}
-    t = max(abs(got.tdoa[p] - want.tdoa[p]) for p in want.tdoa)
-    f = geo.horizontal_m(got.fix_lla, want.fix_lla, origin)
-    return {"tdoa_gap": float(t) if np.isfinite(t) else float("inf"),
-            "fix_gap_m": f if np.isfinite(f) else float("inf")}
+        return {k: float("inf") for k in checks}
+    out = {k: float(check.gap(got, want, cfg)) for k, check in checks.items()}
+    return {k: v if np.isfinite(v) else float("inf") for k, v in out.items()}
 
 
 def judge(answers, refs: List[reference.Answer], cfg: dict,
-          limits: Dict[str, float]):
+          limits: Dict[str, float], root: Path = spec.ROOT):
     """(numbers: the widest reading of each over the windows, failed:
     windows that raised or read over a limit)."""
     worst = {k: 0.0 for k in limits}
@@ -187,15 +209,17 @@ def judge(answers, refs: List[reference.Answer], cfg: dict,
         if ans is None:
             failed += 1
             continue
-        g = gaps(ans, refs[s], cfg)
+        g = gaps(ans, refs[s], cfg, list(limits), root)
         worst = {k: max(worst[k], g[k]) for k in limits}
         failed += any(not g[k] <= limits[k] for k in limits)
     return worst, failed
 
 
-def truth_error(ans: reference.Answer, cfg: dict) -> float:
-    """The widest corrected-TDOA error against the planted geometry."""
-    truth = scene.truth_tdoa_samples(cfg)
+def truth_error(ans: reference.Answer, cfg: dict,
+                root: Path = spec.ROOT) -> float:
+    """The widest corrected-TDOA error against the geometry the scene
+    planted."""
+    truth = spec.scene(cfg, root).truth_tdoa_samples(cfg)
     return max(abs(ans.tdoa[p] - truth[p]) for p in truth)
 
 
@@ -240,6 +264,10 @@ def main(argv, t_start: float) -> int:
     cfg = spec.config(bench, cell["config"])
     trf = spec.traffic(cell["traffic"])
     limits = spec.limits(cell["name"])["limits"]
+    # Every file the cell names resolves before the card is touched.
+    spec.scene(cfg)
+    spec.estimator(trf)
+    spec.checks(limits)
     if not torch.cuda.is_available():
         print("no CUDA device is visible: the benchmark runs on the card "
               "only", file=sys.stderr)
@@ -260,7 +288,7 @@ def main(argv, t_start: float) -> int:
         torch.cuda.reset_peak_memory_stats(device)
         proc = build_processor(cfg, trf, device, tmp)
         run, answers = measure(proc, trf, scenes, args.seconds, device,
-                               bool(args.trace), tmp, t_start)
+                               bool(args.trace), tmp, t_start, list(limits))
         peak = int(torch.cuda.max_memory_allocated(device))
         del proc
         gc.collect()

@@ -1,7 +1,8 @@
 """read_ms: the batch ingest's ``read_s`` in
-``TDOAProcessor.ingest_diag`` (the host clock around the file reads of
-``load_dat``) per traced window, in ms. Nothing where the batch ingest
-never counted it."""
+``TDOAProcessor.ingest_diag`` (the host clock while at least one file
+read of ``io/datfile.load_window`` was in progress: the union of the
+intervals of the ring's readers' reads; on the CPU, the one thread's
+reads summed) per traced window, in ms. Nothing where the batch ingest never counted it."""
 
 KEY = "read_s"
 

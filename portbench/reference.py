@@ -3,25 +3,20 @@ a fix, in float64 PyTorch, written from the published method and not
 from the program.
 
 It imports nothing of ``tdoa_tpu_torch`` (a test holds it to that) and
-takes only the bytes the benchmark wrote and the configuration. The
-method, stage by stage (the constants are frozen copies of the port's):
+takes only the bytes the benchmark wrote and the configuration. This
+file holds the steps every estimator shares (the constants are frozen
+copies of the port's); an estimator, ``estimators/<name>.py`` (the
+traffic's ``reference.estimator``), gives a block's per-pair delays and
+composes the steps into its ``window``:
 
 - decode: byte ``b`` → ``(b − 127.5) / 127.5``, I then Q, three equal
   blocks ``[REF₁ | TGT | REF₂]``;
-- IQ correlation (kernel 1's geometry): segments of 45056 samples, each
-  zero-padded to a 65536-point FFT, the ragged tail dropped; each
-  station's mean removed per DC group (the traffic names the groups: the
-  four split banks of the batch path, the chunks of the overlapped
-  ingest); cross-spectra ``Σ X_j X_i*`` and power spectra summed over the
-  segments; Hannan–Thomson weighting with the Welch bias of the segment
-  count; the inverse FFT over ±max_lag; a parabolic peak; the delay
-  refined by a weighted least-squares fit of the cross-spectrum's phase
-  about the integer peak (clipped to ±1 sample);
-- FM correlation: each channel demeaned, the quadrature discriminator
-  ``atan2(x[n]·x*[n−1])·fs/(2π·25 kHz)``, a 127-tap Hann-windowed sinc
-  low-pass at 0.45·fs/D decimating by D, the audio demeaned, plain
-  (unweighted) segment correlation and the same peak and phase fit, the
-  delay scaled by D;
+- the per-block delays (``per_block``): the estimator's delay and
+  quality of each receiver pair, block by block, on all receivers'
+  samples of that block; the segment-summed cross- and power spectra,
+  the lag window's parabolic peak and the delay refined by a weighted
+  least-squares fit of the cross-spectrum's phase about the integer peak
+  (clipped to ±1 sample) are here for the estimators to use;
 - clock correction: TGT delay − (mean of the two REF delays − the REF
   transmitter's geometric TDOA);
 - the fix: a 2-D weighted least-squares (Levenberg–Marquardt) hyperbolic
@@ -36,19 +31,14 @@ set against (``control.py``)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from portbench import geo
 
-SEG_LEN = 45056
-FFT_LEN = 65536
-EPS = 1e-3  # GCC regularisation, relative to the mean magnitude
 QUALITY_GATE = 5.0
-FM_TAPS = 127
-FM_DEVIATION_HZ = 25e3
 TWO_PI = 2.0 * np.pi
 
 
@@ -95,28 +85,7 @@ def pairs_of(n: int) -> np.ndarray:
                     np.int64)
 
 
-def split_bounds(n: int, k: int) -> List[int]:
-    """k + 1 bounds of n items in k groups, the first n % k one larger."""
-    q, r = divmod(n, k)
-    b = [0]
-    for i in range(k):
-        b.append(b[-1] + q + (1 if i < r else 0))
-    return b
-
-
-def dc_groups(n_seg: int, spec: dict) -> List[Tuple[int, int]]:
-    """Segment ranges over which a station's mean is removed."""
-    if spec["kind"] == "banks":
-        b = split_bounds(n_seg, 4 if n_seg >= 8 else 2)
-    elif spec["kind"] == "chunks":
-        step = int(spec["chunk_segs"])
-        b = list(range(0, n_seg, step)) + [n_seg]
-    else:
-        raise ValueError(f"unknown DC grouping {spec!r}")
-    return list(zip(b[:-1], b[1:]))
-
-
-def _spectra(x: torch.Tensor, pairs: np.ndarray, seg: int, fft: int,
+def spectra(x: torch.Tensor, pairs: np.ndarray, seg: int, fft: int,
              groups: Sequence[Tuple[int, int]], prec: Precision,
              demean_groups: bool = True):
     """Segment-summed cross [m, F] and power [n_st, F] spectra of x
@@ -148,27 +117,6 @@ def _spectra(x: torch.Tensor, pairs: np.ndarray, seg: int, fft: int,
     return cross, psd
 
 
-def _ht_weight(cross, psd, pairs, n_seg: int, prec: Precision):
-    """The Hannan–Thomson weighted spectrum: the phase transform times
-    the bias-corrected coherence weight |γ|²/(1 − |γ|²), normalised."""
-    mag = prec.r(cross.abs())
-    ii = torch.as_tensor(pairs[:, 0], device=psd.device)
-    jj = torch.as_tensor(pairs[:, 1], device=psd.device)
-    saa = torch.clamp(psd[ii], min=0.0)
-    sbb = torch.clamp(psd[jj], min=0.0)
-    denom = prec.r(torch.sqrt(saa) * torch.sqrt(sbb))
-    g2 = torch.clamp(prec.r(mag / torch.clamp(denom, min=1e-30)) ** 2,
-                     0.0, 0.98)
-    bias = 1.0 / n_seg if n_seg > 1 else 0.0
-    g2 = torch.clamp(prec.r((g2 - bias) / max(1.0 - bias, 1e-6)), 0.0, 0.98)
-    snr = prec.r(g2 / (1.0 - g2))
-    floor = 1e-9 * prec.mean(denom, -1)[:, None]
-    snr = torch.where(denom > floor, snr, torch.zeros_like(snr))
-    d = prec.r(mag + EPS * prec.mean(mag, -1)[:, None] + 1e-30)
-    w = prec.r(snr / torch.clamp(snr.amax(-1, keepdim=True), min=1e-30))
-    return prec.r(cross * prec.r(w / d))
-
-
 def _parabolic(y: torch.Tensor):
     n = y.shape[-1]
     idx = torch.argmax(y, dim=-1)
@@ -194,7 +142,7 @@ def _quality(y: torch.Tensor, guard: int = 8) -> torch.Tensor:
     return y.amax(-1) / floor.clamp(min=1e-12)
 
 
-def _finish(cross, weighted, max_lag: int, fft: int, prec: Precision):
+def finish(cross, weighted, max_lag: int, fft: int, prec: Precision):
     """Weighted spectrum → (delay, quality): the lag window's parabolic
     peak, then the phase-slope fit of the plain cross-spectrum about the
     integer peak, the peak's carrier phase as its intercept."""
@@ -223,106 +171,65 @@ def _finish(cross, weighted, max_lag: int, fft: int, prec: Precision):
     return prec.r(coarse + delta), quality
 
 
-def iq_delays(x: torch.Tensor, pairs: np.ndarray, max_lag: int,
-              dc: dict, prec: Precision):
-    """Per-pair (delay, quality) of one IQ block x [n_st, L]."""
-    n_seg = x.shape[-1] // SEG_LEN
-    cross, psd = _spectra(x, pairs, SEG_LEN, FFT_LEN, dc_groups(n_seg, dc),
-                          prec)
-    weighted = _ht_weight(cross, psd, pairs, n_seg, prec)
-    return _finish(cross, weighted, max_lag, FFT_LEN, prec)
-
-
-def lowpass_taps(cutoff_hz: float, fs: float, num_taps: int) -> np.ndarray:
-    """Hann-windowed sinc low-pass of unity DC gain, float32."""
-    fc = cutoff_hz / fs
-    k = np.arange(num_taps) - (num_taps - 1) / 2
-    h = 2 * fc * np.sinc(2 * fc * k)
-    n = np.arange(num_taps)
-    hann = 0.5 - 0.5 * np.cos(2 * np.pi * n / (num_taps - 1))
-    h *= hann.astype(np.float32)
-    return (h / h.sum()).astype(np.float32)
-
-
-def fm_audio(x: torch.Tensor, fs: float, decim: int, prec: Precision):
-    """Discriminator and decimating low-pass of each row of x [C, L]."""
-    x = prec.r(x - prec.mean(x, -1)[:, None])
-    p = prec.r(x[:, 1:] * x[:, :-1].conj())
-    scale = float(np.float32(fs / (TWO_PI * FM_DEVIATION_HZ)))
-    d = prec.r(torch.atan2(p.imag, p.real) * scale)
-    d = torch.nn.functional.pad(d, (1, FM_TAPS + 1))
-    taps = lowpass_taps(0.45 * fs / decim, fs, FM_TAPS).astype(np.float64)
-    n_out = x.shape[-1] // decim
-    span = (n_out - 1) * decim + 1
-    y = torch.zeros(x.shape[0], n_out, dtype=torch.float64, device=x.device)
-    for k, h in enumerate(taps.tolist()):
-        y = prec.r(y + prec.r(h * d[:, k:k + span:decim]))
-    return prec.r(y - prec.mean(y, -1)[:, None])
-
-
-def fm_delays(x: torch.Tensor, pairs: np.ndarray, max_lag: int,
-              seg_len: int, fs: float, decim: int, prec: Precision):
-    """Per-pair (delay in IQ samples, quality) of one block's FM audio."""
-    audio = fm_audio(x, fs, decim, prec).to(torch.complex128)
-    lag = max(max_lag // decim + 2, 16)
-    seg = max(seg_len // decim, 4 * lag)
-    fft = 1 << (seg - 1).bit_length()
-    if seg + lag > fft:
-        if lag < fft // 2:
-            seg = fft - lag
-        else:
-            fft = 1 << (seg + lag - 1).bit_length()
-    n_seg = audio.shape[-1] // seg
-    cross, _ = _spectra(audio, pairs, seg, fft, [(0, n_seg)], prec,
-                        demean_groups=False)
-    delay, quality = _finish(cross, cross, lag, fft, prec)
-    return delay * decim, quality
-
-
 @dataclasses.dataclass
 class Answer:
     """One window's answer: corrected TDOAs (samples) by pair of names,
-    (lat°, lon°, elev m) of the fix."""
+    (lat°, lon°, elev m) of the fix, and any named outputs beyond them
+    that a cell's checks compare (``checks/<name>.py``)."""
 
     tdoa: Dict[Tuple[str, str], float]
     fix_lla: np.ndarray
+    outputs: Dict[str, object] = dataclasses.field(default_factory=dict)
 
 
-def window(raws: Dict[str, np.ndarray], cfg: dict, path: dict,
-           device, precision: str = "f64") -> Answer:
-    """The reference's answer for one window: ``raws`` maps each receiver
-    to its file's bytes, ``cfg`` is the configuration, ``path`` the
-    traffic's ``reference`` entry (``estimator``: ``iq`` with ``dc``, or
-    ``fm`` with ``decim``)."""
-    prec = Precision(precision)
+@dataclasses.dataclass
+class Blocks:
+    """The per-block delays of one window: receivers by name (sorted),
+    their pairs (indices into ``names``), each block's per-pair delay
+    (samples; REF₁, TGT, REF₂) and the TGT block's per-pair quality."""
+
+    names: List[str]
+    pairs: np.ndarray
+    delays: List[np.ndarray]
+    quality: np.ndarray
+
+
+Estimate = Callable[[torch.Tensor, np.ndarray, Precision],
+                    Tuple[torch.Tensor, torch.Tensor]]
+
+
+def per_block(raws: Dict[str, np.ndarray], device, prec: Precision,
+              estimate: Estimate) -> Blocks:
+    """Decode every receiver's file (``raws``: its bytes by name) and run
+    ``estimate(x [receivers, L], pairs, prec) -> (delay, quality)`` on
+    each block in turn."""
     names = sorted(raws)
     pairs = pairs_of(len(names))
-    fs = float(cfg["sample_rate"])
-    proc = cfg["processor"]
     blocks = [decode(raws[n], device, prec) for n in names]
     delays, quality = [], None
     for b in range(3):
         x = torch.stack([blk[b] for blk in blocks])
-        if path["estimator"] == "iq":
-            d, q = iq_delays(x, pairs, int(proc["max_lag"]), path["dc"], prec)
-        elif path["estimator"] == "fm":
-            d, q = fm_delays(x, pairs, int(proc["max_lag"]),
-                             int(proc["seg_len"]), fs, int(path["decim"]),
-                             prec)
-        else:
-            raise ValueError(f"unknown estimator {path['estimator']!r}")
+        d, q = estimate(x, pairs, prec)
         delays.append(d.cpu().numpy())
         if b == 1:
             quality = q.cpu().numpy()
         del x
     del blocks
+    return Blocks(names, pairs, delays, quality)
+
+
+def answer(cfg: dict, blk: Blocks) -> Answer:
+    """Clock correction against the REF transmitter's geometry, then the
+    fix."""
+    fs = float(cfg["sample_rate"])
+    names, pairs, delays = blk.names, blk.pairs, blk.delays
     st = np.stack([_lla(cfg, n) for n in names])
     ref = geo.lla_to_ecef(_lla(cfg, cfg["ref_tx"]))
     tau = np.linalg.norm(geo.lla_to_ecef(st) - ref, axis=-1) \
         / geo.SPEED_OF_LIGHT * fs
     ref_geo = tau[pairs[:, 1]] - tau[pairs[:, 0]]
     corrected = delays[1] - (0.5 * (delays[0] + delays[2]) - ref_geo)
-    fix = solve(st, pairs, corrected / fs * geo.SPEED_OF_LIGHT, quality)
+    fix = solve(st, pairs, corrected / fs * geo.SPEED_OF_LIGHT, blk.quality)
     return Answer({(names[i], names[j]): float(t)
                    for (i, j), t in zip(pairs, corrected)}, fix)
 

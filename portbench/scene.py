@@ -1,31 +1,20 @@
-"""The traffic generator: one capture window of a station network as
-``.dat`` files, made on the card from a seed.
+"""What every scene shares (``scenes/<name>.py`` makes a window's
+files; a configuration names its scene under ``scene``): the generator
+seed of each scene of a run, the receivers in file order, a station's
+coordinates, and the files' names.
 
-A frozen copy of the scene that the port's smoke (``chip_smoke.py``,
-``_synthesize``) writes for phases 4, 5 and 12, static case: every
-receiver of the configuration hears an FM-like source per block (a
-low-passed Gaussian message frequency-modulated at the stated
-deviation), delayed by its geometry and its clock offset at the block's
-midpoint through an FFT phase ramp, plus white Gaussian noise, quantized
-to u8 I/Q as the collector writes it (``[REF | TGT | REF]``, 2 bytes a
-sample). Float64 on the card; only the bytes go to the host.
-
-Every seed gives the same sizes, geometry and clocks: the seed draws the
-source and the noise alone, so the work of a window never depends on it.
-"""
+Every seed gives the same sizes, geometry and clocks: a seed draws the
+sources and the noise alone, so the work of a window never depends on
+it."""
 
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Tuple
+from typing import Dict, List
 
 import numpy as np
-import torch
-
-from portbench import geo
 
 EPOCH = 1_700_000_000
-PAD = 4096
 
 
 def scene_seed(seed: int, k: int) -> int:
@@ -46,77 +35,13 @@ def station_lla(cfg: dict, name: str) -> np.ndarray:
     return np.asarray(row[1:4], np.float64)
 
 
-def truth_tdoa_samples(cfg: dict) -> Dict[Tuple[str, str], float]:
-    """The planted TGT TDOA of each receiver pair (i, j), i < j by name,
-    in samples: what a perfect clock-corrected measurement reads."""
-    names = receivers(cfg)
-    st = geo.lla_to_ecef(np.stack([station_lla(cfg, n) for n in names]))
-    tx = geo.lla_to_ecef(station_lla(cfg, cfg["target"]))
-    tau = (np.linalg.norm(st - tx, axis=-1) / geo.SPEED_OF_LIGHT
-           * cfg["sample_rate"])
-    return {(names[i], names[j]): float(tau[j] - tau[i])
-            for i in range(len(names)) for j in range(i + 1, len(names))}
-
-
-def synthesize(cfg: dict, seed: int, device: torch.device
-               ) -> Dict[str, np.ndarray]:
-    """{receiver: the file's bytes, u8 [3 · block · 2]} of one window."""
-    a = cfg["assumed"]
-    fs = float(cfg["sample_rate"])
-    block = int(cfg["block_samples"])
-    names = receivers(cfg)
-    st = geo.lla_to_ecef(np.stack([station_lla(cfg, n) for n in names]))
-
-    def delays(tx_name):
-        tx = geo.lla_to_ecef(station_lla(cfg, tx_name))
-        return np.linalg.norm(st - tx, axis=-1) / geo.SPEED_OF_LIGHT * fs
-
-    tau = {"ref": delays(cfg["ref_tx"]), "tgt": delays(cfg["target"])}
-    offsets = np.asarray([a["clock_offsets_s"][n] for n in names]) * fs
-    n_fft = 1 << (block + 2 * PAD).bit_length()
-    g = torch.Generator(device=device).manual_seed(int(seed))
-    f = torch.fft.fftfreq(n_fft, device=device, dtype=torch.float64)
-    bw = float(a["message_bandwidth_hz"]) / fs
-    dphi = 2 * np.pi * float(a["deviation_hz"]) / fs
-
-    def source():
-        msg = torch.fft.fft(torch.randn(n_fft, device=device, generator=g,
-                                        dtype=torch.float64))
-        msg[f.abs() > bw] = 0
-        msg = torch.fft.ifft(msg).real
-        msg = msg / msg.std()
-        phase = torch.cumsum(dphi * msg, 0)
-        del msg
-        return torch.fft.fft(torch.polar(torch.ones_like(phase), phase))
-
-    raw: Dict[str, list] = {n: [] for n in names}
-    for kind in ("ref", "tgt", "ref"):
-        spec = source()
-        for s, name in enumerate(names):
-            d = float(tau[kind][s] + offsets[s])
-            z = torch.fft.ifft(spec * torch.polar(
-                torch.ones_like(f), -2 * np.pi * f * d))[PAD:PAD + block]
-            noise = torch.randn(2, block, device=device, generator=g,
-                                dtype=torch.float64)
-            iq = torch.stack([a["signal_amplitude"] * z.real
-                              + a["noise_amplitude"] * noise[0],
-                              a["signal_amplitude"] * z.imag
-                              + a["noise_amplitude"] * noise[1]], dim=-1)
-            u8 = torch.clamp(torch.floor(iq * 127.5 + 128.0), 0, 255)
-            raw[name].append(u8.to(torch.uint8).reshape(-1).cpu().numpy())
-            del z, noise, iq, u8
-        del spec
-    return {n: np.concatenate(raw.pop(n)) for n in names}
-
-
-def write_scene(cfg: dict, seed: int, out_dir: str, device: torch.device
-                ) -> List[str]:
-    """Write one window's files into ``out_dir`` (``sim-<station>-<epoch>
-    .dat``, the simulator's names) and return their paths in receiver
-    order."""
+def write_files(raws: Dict[str, np.ndarray], out_dir: str) -> List[str]:
+    """Write one window's bytes by receiver into ``out_dir``
+    (``sim-<station>-<epoch>.dat``, the simulator's names) and return
+    their paths in the order of ``raws``."""
     os.makedirs(out_dir, exist_ok=True)
     paths = []
-    for name, raw in synthesize(cfg, seed, device).items():
+    for name, raw in raws.items():
         p = os.path.join(out_dir, f"sim-{name}-{EPOCH}.dat")
         raw.tofile(p)
         paths.append(p)

@@ -3,22 +3,37 @@ checkout names the cells, configurations and metrics; each has a file of
 its own, found by its name:
 
 - ``configs/<config>.json`` (the path ``BENCHMARK.json`` gives): the
-  deployment, its stations, the processor's settings, what was assumed;
+  deployment, its stations, the processor's settings, what was assumed,
+  and ``scene``, the name of its scene;
 - ``traffic/<traffic>.json``: the entry a window calls, the processor
-  settings it adds, the scenes a run rotates, the reference's estimator;
-- ``workloads/<cell>.json``: the cell's correctness limits and the
-  readings they were set from;
-- ``metrics/<metric>.py``: a reader, ``read(run) -> float | None``.
+  settings it adds, the scenes a run rotates, the reference's estimator
+  (``reference.estimator``) and its settings;
+- ``workloads/<cell>.json``: the cell's correctness limits, one for each
+  number compared, and the readings they were set from;
+- ``metrics/<metric>.py``: a reader, ``read(run) -> float | None``;
+- ``scenes/<scene>.py``: the generator of a window's files,
+  ``write_scene(cfg, seed, out_dir, device) -> paths``, and the planted
+  geometry, ``truth_tdoa_samples(cfg) -> {pair: samples}``;
+- ``estimators/<estimator>.py``: the plain reference's answer to a
+  window, ``window(raws, cfg, path, device, precision) -> Answer``;
+- ``checks/<number>.py``, one for each key of a cell's ``limits``:
+  ``gap(got, want, cfg) -> float``, how far the program's answer lies
+  from the reference's, and optionally ``take(res) -> dict``, the named
+  outputs of the program's ``TDOAResult`` it compares beyond the TDOAs
+  and the fix.
 
-A new cell, configuration, traffic mix or metric is a new file and an
-entry in ``BENCHMARK.json``; no file here changes."""
+A new cell, configuration, traffic mix, metric, scene, estimator or
+compared number is a new file and, for the first four, an entry in
+``BENCHMARK.json``; no file here changes."""
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 from pathlib import Path
-from typing import Callable, List, Optional
+from types import ModuleType
+from typing import Callable, Dict, Iterable, List, Optional
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -43,7 +58,11 @@ def cell(bench: dict, name: str) -> dict:
 def config(bench: dict, name: str, root: Path = ROOT) -> dict:
     for c in bench["configs"]:
         if c["name"] == name:
-            return _json(root / c["file"])
+            cfg = _json(root / c["file"])
+            if "scene" not in cfg:
+                raise KeyError(f"{c['file']} names no scene: give it a "
+                               f"\"scene\" key, a file of scenes/")
+            return cfg
     raise KeyError(f"no configuration named {name!r} in BENCHMARK.json")
 
 
@@ -64,12 +83,36 @@ def metrics(bench: dict, cell_name: str, trace: bool) -> List[dict]:
             if "workloads" not in m or cell_name in m["workloads"]]
 
 
+@functools.lru_cache(maxsize=None)
+def plugin(kind: str, name: str, root: Path = ROOT) -> ModuleType:
+    """The module ``<kind>/<name>.py`` under ``portbench/`` of ``root``,
+    loaded once a process."""
+    path = root / "portbench" / kind / f"{name}.py"
+    if not path.is_file():
+        raise KeyError(f"no file {kind}/{name}.py under {root / 'portbench'}")
+    mod_spec = importlib.util.spec_from_file_location(
+        f"portbench_{kind}_{name.replace('.', '_').replace('-', '_')}", path)
+    module = importlib.util.module_from_spec(mod_spec)
+    mod_spec.loader.exec_module(module)
+    return module
+
+
 def reader(name: str,
            root: Path = ROOT) -> Callable[[object], Optional[float]]:
     """``read`` of ``metrics/<name>.py``."""
-    path = root / "portbench" / "metrics" / f"{name}.py"
-    mod_spec = importlib.util.spec_from_file_location(
-        f"portbench_metric_{name.replace('.', '_').replace('-', '_')}", path)
-    module = importlib.util.module_from_spec(mod_spec)
-    mod_spec.loader.exec_module(module)
-    return module.read
+    return plugin("metrics", name, root).read
+
+
+def scene(cfg: dict, root: Path = ROOT) -> ModuleType:
+    """``scenes/<scene>.py`` of a configuration."""
+    return plugin("scenes", cfg["scene"], root)
+
+
+def estimator(trf: dict, root: Path = ROOT) -> ModuleType:
+    """``estimators/<estimator>.py`` of a traffic mix's reference."""
+    return plugin("estimators", trf["reference"]["estimator"], root)
+
+
+def checks(names: Iterable[str], root: Path = ROOT) -> Dict[str, ModuleType]:
+    """``checks/<name>.py`` of each number compared, by name."""
+    return {k: plugin("checks", k, root) for k in names}

@@ -1,7 +1,10 @@
-"""CPU tests of the benchmark: its data resolves by name, a new traffic
-mix and cell are found without an edit, a tiny-block run of the
-harness's loop agrees with the plain reference, the frozen roofline
-counts, the import rules, and the run's refusal without a card.
+"""CPU tests of the benchmark: its data and plug-ins (scenes, reference
+estimators, compared numbers, metric readers) resolve by name, a new
+traffic mix, cell, metric and a whole deployment with its own scene,
+estimator and compared number are found and run without an edit, a
+tiny-block run of the harness's loop agrees with the plain reference,
+the frozen roofline counts, the import rules, and the run's refusal
+without a card.
 
 Run from the root of the repository: ``python -m pytest portbench/tests``.
 """
@@ -50,13 +53,16 @@ def tiny_run(tmp_path, traffic: str, seed: int = 2 ** 33 + 5):
 
 @pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
 def test_every_cell_resolves(cell):
+    from tdoa_tpu_torch.pipeline import TDOAProcessor
+
     w = spec.cell(BENCH, cell)
     cfg = spec.config(BENCH, w["config"])
     trf = spec.traffic(w["traffic"])
     lim = spec.limits(cell)["limits"]
     assert cfg["name"] == w["config"]
-    assert trf["entry"] in ("process_files", "process_files_overlapped")
-    assert set(lim) == {"tdoa_gap", "fix_gap_m"}
+    assert callable(getattr(TDOAProcessor, trf["entry"]))
+    # A cell may add checks; the TDOAs and the fix are held in every one.
+    assert {"tdoa_gap", "fix_gap_m"} <= set(lim)
     for trace in (False, True):
         for m in spec.metrics(BENCH, cell, trace):
             assert callable(spec.reader(m["name"]))
@@ -77,7 +83,135 @@ def test_every_config_resolves(config):
     assert set(cfg["receivers"]) <= {r[0] for r in cfg["stations"]}
 
 
-def test_new_cell_is_found_without_edits(tmp_path):
+@pytest.mark.parametrize("config", [c["name"] for c in BENCH["configs"]])
+def test_every_config_names_a_scene_that_resolves(config):
+    gen = spec.scene(spec.config(BENCH, config))
+    assert callable(gen.write_scene) and callable(gen.truth_tdoa_samples)
+
+
+@pytest.mark.parametrize("traffic", sorted({w["traffic"]
+                                            for w in BENCH["workloads"]}))
+def test_every_traffic_names_an_estimator_that_resolves(traffic):
+    assert callable(spec.estimator(spec.traffic(traffic)).window)
+
+
+@pytest.mark.parametrize("cell,key", [
+    (w["name"], k) for w in BENCH["workloads"]
+    for k in spec.limits(w["name"])["limits"]])
+def test_every_limit_names_a_check_that_resolves(cell, key):
+    check = spec.checks([key])[key]
+    assert callable(check.gap)
+    assert callable(getattr(check, "take", lambda res: {}))
+
+
+def test_a_config_without_a_scene_is_refused_by_its_file(tmp_path):
+    (tmp_path / "portbench/configs").mkdir(parents=True)
+    cfg = json.loads((ROOT / "portbench/configs/omaha3-30s.json").read_text())
+    del cfg["scene"]
+    (tmp_path / "portbench/configs/bare.json").write_text(json.dumps(cfg))
+    bench = {"configs": [{"name": "bare",
+                          "file": "portbench/configs/bare.json"}]}
+    with pytest.raises(KeyError, match="portbench/configs/bare.json"):
+        spec.config(bench, "bare", tmp_path)
+    with pytest.raises(KeyError, match="scenes/moving.py"):
+        spec.scene({"scene": "moving"})
+
+
+def test_static_scene_refuses_a_drift():
+    cfg = tiny_config()
+    cfg["assumed"]["receiver_drift_ppm"] = 0.3
+    with pytest.raises(ValueError, match="receiver_drift_ppm"):
+        spec.scene(cfg).write_scene(cfg, 1, "unused", torch.device("cpu"))
+
+
+# A deployment added as new files only: the static scene with one
+# receiver's TGT block planted late, an estimator that also gives the
+# raw TGT delays, and a compared number on those delays.
+LATE_SCENE = '''
+from portbench import spec
+from portbench.scene import receivers, write_files
+
+static = spec.plugin("scenes", "static")
+
+
+def write_scene(cfg, seed, out_dir, device):
+    late = cfg["assumed"]["late_tgt"]
+    delays = static.block_delays(cfg)
+    delays["tgt"][receivers(cfg).index(late["receiver"])] += late["samples"]
+    return write_files(static.synthesize(cfg, seed, device, delays), out_dir)
+
+
+def truth_tdoa_samples(cfg):
+    late = cfg["assumed"]["late_tgt"]
+    shift = {late["receiver"]: float(late["samples"])}
+    return {(a, b): t + shift.get(b, 0.0) - shift.get(a, 0.0)
+            for (a, b), t in static.truth_tdoa_samples(cfg).items()}
+'''
+TGT_ESTIMATOR = '''
+from portbench import reference, spec
+
+iq = spec.plugin("estimators", "iq")
+
+
+def window(raws, cfg, path, device, precision="f64"):
+    prec = reference.Precision(precision)
+    max_lag = int(cfg["processor"]["max_lag"])
+    blk = reference.per_block(
+        raws, device, prec,
+        lambda x, pairs, p: iq.iq_delays(x, pairs, max_lag, path["dc"], p))
+    ans = reference.answer(cfg, blk)
+    ans.outputs["tgt_delay"] = {
+        (blk.names[i], blk.names[j]): float(d)
+        for (i, j), d in zip(blk.pairs, blk.delays[1])}
+    return ans
+'''
+TGT_CHECK = '''
+def take(res):
+    out = {}
+    for (i, j), d in zip(res.pair_idx, res.tgt_delay_samples):
+        a, b = res.station_names[i], res.station_names[j]
+        out[(a, b) if a < b else (b, a)] = float(d if a < b else -d)
+    return {"tgt_delay": out}
+
+
+def gap(got, want, cfg):
+    g, w = got.outputs["tgt_delay"], want.outputs["tgt_delay"]
+    return max(abs(g[p] - w[p]) for p in w)
+'''
+
+
+def _late_run(root, work, seed: int = 2 ** 33 + 41):
+    """The tiny harness loop over the added deployment, every piece found
+    under ``root``: (numbers, failed, answers, cfg)."""
+    bench = spec.benchmark(root)
+    w = spec.cell(bench, "omaha3-30s-late.files-tgt")
+    cfg = spec.config(bench, w["config"], root)
+    cfg["block_samples"] = TINY_BLOCK
+    trf = spec.traffic(w["traffic"], root)
+    limits = spec.limits(w["name"], root)["limits"]
+    dev = torch.device("cpu")
+    work.mkdir(exist_ok=True)
+    scenes = harness.make_scenes(cfg, trf, seed, str(work), dev, root)
+    proc = harness.build_processor(cfg, trf, dev, str(work))
+    _, answers = harness.measure(proc, trf, scenes, 0.0, dev, False,
+                                 str(work), 0.0, list(limits), root)
+    refs = harness.reference_answers(cfg, trf, scenes, dev, root=root)
+    numbers, failed = harness.judge(answers, refs, cfg, limits, root)
+    return numbers, failed, answers, cfg
+
+
+def _tgt_altered(original):
+    """clock_correct_blocks with the first pair's raw TGT delay moved by
+    0.05 sample and the corrected TDOAs left as they were."""
+    def wrapper(*args, **kwargs):
+        out = original(*args, **kwargs)
+        tgt = out[1].clone()
+        tgt[0] += 0.05
+        return (out[0], tgt) + tuple(out[2:])
+    return wrapper
+
+
+def test_new_cell_is_found_without_edits(tmp_path, monkeypatch):
     """A traffic mix, a cell and a metric added as new files (and entries
     in BENCHMARK.json) resolve; no file under portbench/ changes."""
     shutil.copytree(ROOT / "portbench", tmp_path / "portbench",
@@ -110,6 +244,53 @@ def test_new_cell_is_found_without_edits(tmp_path):
     assert "windows_n" in names and "k3_roofline" not in names
     run = harness.Run(setup_s=1.0, latencies=[0.1, 0.2], window_s=0.3)
     assert spec.reader("windows_n", tmp_path)(run) == 2
+
+    # A deployment of its own: scene, estimator and compared number.
+    pb = tmp_path / "portbench"
+    (pb / "scenes/late_tgt.py").write_text(LATE_SCENE)
+    (pb / "estimators/iq_tgt.py").write_text(TGT_ESTIMATOR)
+    (pb / "checks/tgt_delay_gap.py").write_text(TGT_CHECK)
+    cfg = json.loads((ROOT / "portbench/configs/omaha3-30s.json").read_text())
+    cfg.update(name="omaha3-30s-late", scene="late_tgt")
+    cfg["assumed"]["late_tgt"] = {"receiver": "n3pay", "samples": 160}
+    (pb / "configs/omaha3-30s-late.json").write_text(json.dumps(cfg))
+    trf = json.loads((ROOT / "portbench/traffic/files.json").read_text())
+    trf["reference"]["estimator"] = "iq_tgt"
+    (pb / "traffic/files-tgt.json").write_text(json.dumps(trf))
+    (pb / "workloads/omaha3-30s-late.files-tgt.json").write_text(json.dumps(
+        {"limits": {"tdoa_gap": 0.003, "tgt_delay_gap": 0.003}}))
+    bench["configs"].append({"name": "omaha3-30s-late",
+                             "source": cfg["source"],
+                             "file": "portbench/configs/omaha3-30s-late.json",
+                             "reduced": [], "why": "n3pay's TGT late"})
+    bench["workloads"].append({"name": "omaha3-30s-late.files-tgt",
+                               "config": "omaha3-30s-late",
+                               "traffic": "files-tgt", "chips": 1,
+                               "why": "a late TGT and its raw delays"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    numbers, failed, answers, late_cfg = _late_run(tmp_path,
+                                                   tmp_path / "work")
+    assert answers and failed == 0, numbers
+    assert set(numbers) == {"tdoa_gap", "tgt_delay_gap"}
+    # The program reads the planted lateness, which the static truth lacks.
+    assert max(harness.truth_error(a, late_cfg, tmp_path)
+               for _, a in answers) < 0.5
+    static = spec.plugin("scenes", "static", tmp_path)
+    truth = static.truth_tdoa_samples(late_cfg)
+    assert min(max(abs(a.tdoa[p] - truth[p]) for p in truth)
+               for _, a in answers) > 150
+
+    # A fault planted where the raw TGT delay is produced: only the added
+    # number sees it, and every window fails.
+    from tdoa_tpu_torch.pipeline import ingest, processor
+
+    for mod in (processor, ingest):
+        monkeypatch.setattr(mod, "clock_correct_blocks",
+                            _tgt_altered(mod.clock_correct_blocks))
+    numbers, failed, answers, _ = _late_run(tmp_path, tmp_path / "work")
+    assert failed == len(answers) > 0, numbers
+    assert numbers["tdoa_gap"] <= 0.003 < numbers["tgt_delay_gap"]
+
     after = {p: p.read_bytes() for p in before}
     assert after == before
 
@@ -168,21 +349,36 @@ print(*sorted({{m.split(".")[0] for m in sys.modules}}))
     assert not names & {"jax", "jaxlib", "flax", "tdoa_tpu"}
 
 
+PLUGINS = ("scenes", "estimators", "checks")
+BANNED_HERE = {"tdoa_tpu_torch", "tdoa_tpu", "jax", "jaxlib", "flax"}
+
+
 def test_reference_imports_nothing_of_the_program():
+    """The reference, the scenes, the estimators and the compared
+    numbers load nothing of the program or of JAX, and name none of it."""
     names = _top_level(f"""
 import sys
 sys.path.insert(0, {str(ROOT)!r})
 import portbench.reference, portbench.scene, portbench.roofline
+from portbench import spec
+for kind in {PLUGINS!r}:
+    for p in sorted((spec.HERE / kind).glob("*.py")):
+        spec.plugin(kind, p.stem)
 print(*sorted({{m.split(".")[0] for m in sys.modules}}))
 """)
-    assert not names & {"tdoa_tpu_torch", "tdoa_tpu", "jax", "jaxlib"}
-    for f in ("reference.py", "geo.py", "scene.py", "roofline.py"):
-        tree = ast.parse((ROOT / "portbench" / f).read_text())
+    assert not names & BANNED_HERE
+    files = [ROOT / "portbench" / f
+             for f in ("reference.py", "geo.py", "scene.py", "roofline.py")]
+    files += [p for kind in PLUGINS
+              for p in sorted((ROOT / "portbench" / kind).glob("*.py"))]
+    assert len(files) > 4 + len(PLUGINS)
+    for f in files:
+        tree = ast.parse(f.read_text())
         for node in ast.walk(tree):
             if isinstance(node, ast.ImportFrom):
-                assert node.module.split(".")[0] != "tdoa_tpu_torch", f
+                assert node.module.split(".")[0] not in BANNED_HERE, f
             elif isinstance(node, ast.Import):
-                assert all(a.name.split(".")[0] != "tdoa_tpu_torch"
+                assert all(a.name.split(".")[0] not in BANNED_HERE
                            for a in node.names), f
 
 
